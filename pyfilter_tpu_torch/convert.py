@@ -1,0 +1,72 @@
+"""Carry weights and state across from the JAX package, as numpy arrays.
+
+The port never imports the JAX package: a caller turns the JAX objects'
+leaves into numpy arrays (``np.asarray``) and hands them here, which builds
+the port's objects from them — so both packages can start from one
+particle cloud and one set of model parameters. Only numpy arrays, numpy
+scalars and Python numbers are accepted.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import examples
+from .filters.state import ParticleFilterCorrection
+from .timeseries import TimeseriesState
+from .utils import resolve_device
+
+_NUMERIC = (np.ndarray, np.generic, int, float)
+
+
+def _check(name, value):
+    if not isinstance(value, _NUMERIC):
+        raise TypeError(f"{name}: expected a numpy array or number, got {type(value).__name__}")
+    return np.asarray(value)
+
+
+def _tensor(name, value, dtype, device):
+    return torch.tensor(_check(name, value), dtype=dtype, device=device)
+
+
+def correction_from_numpy(
+    time_index,
+    values,
+    log_weights,
+    log_likelihood,
+    prev_indices,
+    mean=None,
+    variance=None,
+    event_ndim: int = 0,
+    device=None,
+) -> ParticleFilterCorrection:
+    """A ``ParticleFilterCorrection`` from the numpy leaves of the JAX
+    package's one (``x.time_index``, ``x.value``, ``log_weights``,
+    ``log_likelihood``, ``prev_indices``, ``mean``, ``variance``). Missing
+    moments become zeros, as for a filter that does not record them."""
+    device = resolve_device(device)
+    ll = _tensor("log_likelihood", log_likelihood, torch.float32, device)
+    x = TimeseriesState(
+        float(_check("time_index", time_index)),
+        _tensor("values", values, torch.float32, device),
+        event_ndim,
+    )
+    mean = torch.zeros_like(ll) if mean is None else _tensor("mean", mean, torch.float32, device)
+    variance = torch.zeros_like(ll) if variance is None else _tensor("variance", variance, torch.float32, device)
+    return ParticleFilterCorrection(
+        x,
+        _tensor("log_weights", log_weights, torch.float32, device),
+        ll,
+        _tensor("prev_indices", prev_indices, torch.int32, device),
+        mean,
+        variance,
+    )
+
+
+def sv_model_from_numpy(kappa, gamma, sigma, mu, nu, tau, dt, device=None):
+    """The stochastic-volatility model from the JAX model's six parameters
+    and ``dt`` (``hidden.parameters``, ``parameters``, ``hidden.dt``)."""
+    params = [float(np.float32(_check(n, v))) for n, v in
+              zip(("kappa", "gamma", "sigma", "mu", "nu", "tau"), (kappa, gamma, sigma, mu, nu, tau))]
+    return examples.stochastic_volatility_model(*params, dt=float(_check("dt", dt)), device=device)

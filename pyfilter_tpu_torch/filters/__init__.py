@@ -1,0 +1,17 @@
+"""Filters of the port."""
+
+from . import particle
+from .base import BaseFilter
+from .particle import SISR, ParticleFilter
+from .result import FilterResult
+from .state import ParticleFilterCorrection, ParticleFilterPrediction
+
+__all__ = [
+    "BaseFilter",
+    "ParticleFilter",
+    "SISR",
+    "FilterResult",
+    "ParticleFilterCorrection",
+    "ParticleFilterPrediction",
+    "particle",
+]

@@ -1,0 +1,77 @@
+"""Filter states.
+
+Counterpart of ``pyfilter_tpu/filters/state.py``. Axis convention: particle
+axis 0, lane axes next, event axes last; ``log_weights`` / ``prev_indices``
+are ``(N, *batch)``, ``log_likelihood`` / ``mean`` / ``variance`` ``(*batch, ...)``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..timeseries import TimeseriesState
+from ..utils import get_mean_and_variance, normalize
+
+
+class ParticleFilterPrediction(NamedTuple):
+    """Predicted (pre-correction) state: the possibly resampled particles, the
+    carried log-weights (0 after a resample), their normalized probabilities
+    and the ancestor indices used."""
+
+    x: TimeseriesState
+    log_weights: torch.Tensor
+    normalized_weights: torch.Tensor
+    indices: torch.Tensor
+
+    def get_timeseries_state(self) -> TimeseriesState:
+        return self.x
+
+    def create_state_from_prediction(self, generator, model, compute_moments: bool = True) -> "ParticleFilterCorrection":
+        """Propagate the hidden process without correcting (the all-NaN skip)."""
+        x_new = model.hidden.propagate(generator, self.x)
+        ll = torch.zeros(self.normalized_weights.shape[1:], dtype=self.normalized_weights.dtype,
+                         device=self.normalized_weights.device)
+        return ParticleFilterCorrection.from_weighted_particles(
+            x_new, self.log_weights, ll, self.indices, compute_moments=compute_moments
+        )
+
+
+class ParticleFilterCorrection(NamedTuple):
+    """Corrected state. ``log_likelihood`` is the per-step increment
+    :math:`\\log \\hat p(y_t | y_{1:t-1})`; ``mean``/``variance`` the weighted
+    filter moments (zeros when the filter does not record them)."""
+
+    x: TimeseriesState
+    log_weights: torch.Tensor
+    log_likelihood: torch.Tensor
+    prev_indices: torch.Tensor
+    mean: torch.Tensor
+    variance: torch.Tensor
+
+    @classmethod
+    def from_weighted_particles(
+        cls, x: TimeseriesState, log_weights, log_likelihood, prev_indices, compute_moments: bool = True
+    ):
+        if compute_moments:
+            mean, var = get_mean_and_variance(x.value, normalize(log_weights), event_ndim=x.event_ndim)
+        else:
+            mean = torch.zeros_like(log_likelihood)
+            var = torch.zeros_like(log_likelihood)
+        return cls(x, log_weights, log_likelihood, prev_indices, mean, var)
+
+    def get_timeseries_state(self) -> TimeseriesState:
+        return self.x
+
+    def get_loglikelihood(self) -> torch.Tensor:
+        return self.log_likelihood
+
+    def get_mean(self) -> torch.Tensor:
+        return self.mean
+
+    def get_variance(self) -> torch.Tensor:
+        return self.variance
+
+    def normalized_weights(self) -> torch.Tensor:
+        return normalize(self.log_weights)

@@ -1,0 +1,38 @@
+"""Timeseries state.
+
+Counterpart of ``pyfilter_tpu/timeseries/state.py``. ``time_index`` is a
+host-side Python float here: the process time advances on the host, so a
+sub-step costs no device work for it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+class TimeseriesState:
+    """A point-in-time state of a stochastic process: ``value`` has shape
+    ``(*shape, *event)`` with ``event_ndim`` trailing event axes."""
+
+    def __init__(self, time_index: float, value: torch.Tensor, event_ndim: int = 0):
+        self.time_index = float(time_index)
+        self.value = value
+        self.event_ndim = event_ndim
+
+    @property
+    def event_shape(self) -> tuple:
+        s = tuple(self.value.shape)
+        return s[len(s) - self.event_ndim:]
+
+    @property
+    def batch_shape(self) -> tuple:
+        s = tuple(self.value.shape)
+        return s[: len(s) - self.event_ndim]
+
+    def copy(self, values=None) -> "TimeseriesState":
+        """New state at the same time index (optionally with new values)."""
+        return TimeseriesState(self.time_index, self.value if values is None else values, self.event_ndim)
+
+    def propagate_from(self, values, time_increment: float = 1.0) -> "TimeseriesState":
+        """New state at ``time_index + time_increment`` with the given values."""
+        return TimeseriesState(self.time_index + time_increment, values, self.event_ndim)

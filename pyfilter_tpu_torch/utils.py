@@ -1,0 +1,113 @@
+"""Core weight numerics for sequential Monte Carlo, in PyTorch.
+
+Counterpart of ``pyfilter_tpu/utils.py``: ``normalize``, ``normalize_log``,
+``get_ess``, ``log_likelihood``, ``get_mean_and_variance`` and
+``batched_gather``, with the same conventions — the PARTICLE axis is axis 0,
+lane axes follow, event axes come last. ``normalize`` scrubs NaN and +inf
+log-weights to -inf and backfills lanes whose weights are all -inf with the
+uniform 1/N.
+
+Also the port's device rule (:func:`resolve_device`): entry points run on
+the card unless the caller asks for the CPU.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless ``device`` says
+    otherwise. Raises when the card is asked for (or defaulted to) and no
+    CUDA device is present — the port never falls back to the CPU quietly."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+def same_device(a, b) -> bool:
+    """``torch.device`` equality that treats ``cuda`` and ``cuda:<current>``
+    as one device."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == (cur if b.index is None else b.index)
+
+
+def _scrub(log_weights: torch.Tensor) -> torch.Tensor:
+    """NaN / +inf log-weights -> -inf (one pass)."""
+    return torch.nan_to_num(
+        log_weights, nan=-math.inf, posinf=-math.inf, neginf=-math.inf
+    )
+
+
+def normalize_log(log_weights: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Normalized log-probabilities over ``dim``; dead lanes -> uniform log(1/N)."""
+    lw = _scrub(log_weights)
+    n = lw.shape[dim]
+    norm = torch.logsumexp(lw, dim=dim, keepdim=True)
+    return torch.where(torch.isneginf(norm), -math.log(n), lw - norm)
+
+
+def normalize(log_weights: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Log-weights -> normalized probabilities over ``dim``.
+
+    NaN/+inf are treated as zero mass; lanes with zero total mass are
+    backfilled with the uniform distribution 1/N."""
+    return torch.exp(normalize_log(log_weights, dim=dim))
+
+
+def get_ess(weights: torch.Tensor, normalized: bool = False, dim: int = 0) -> torch.Tensor:
+    """Effective sample size ``1 / sum_i w_i^2`` over ``dim``; ``weights`` are
+    log-weights unless ``normalized`` is True."""
+    w = weights if normalized else normalize(weights, dim=dim)
+    return 1.0 / torch.sum(torch.square(w), dim=dim)
+
+
+def log_likelihood(
+    inc_weights: torch.Tensor, weights: torch.Tensor | None = None, dim: int = 0
+) -> torch.Tensor:
+    """Per-step log-likelihood estimate ``log sum_i w_i exp(v_i)`` from the
+    incremental log-weights ``v`` and the previous normalized probabilities
+    ``w`` (uniform 1/N when omitted)."""
+    if weights is None:
+        return torch.logsumexp(inc_weights, dim=dim) - math.log(inc_weights.shape[dim])
+    return torch.logsumexp(inc_weights + torch.log(weights), dim=dim)
+
+
+def get_mean_and_variance(
+    x: torch.Tensor, probs: torch.Tensor, event_ndim: int = 0, covariance: bool = False
+):
+    """Weighted mean and variance (or, for ``event_ndim == 1`` with
+    ``covariance=True``, covariance) of a particle cloud ``x`` of shape
+    ``(N, *batch, *event)`` under probabilities ``probs`` of shape ``(N, *batch)``."""
+    if event_ndim > 1:
+        raise ValueError("event_ndim must be 0 or 1")
+    if event_ndim == 0:
+        mean = torch.sum(probs * x, dim=0)
+        var = torch.sum(probs * torch.square(x - mean), dim=0)
+        return mean, var
+    w = probs.unsqueeze(-1)
+    mean = torch.sum(w * x, dim=0)
+    centered = x - mean
+    if not covariance:
+        return mean, torch.sum(w * torch.square(centered), dim=0)
+    return mean, torch.einsum("n...i,n...j->...ij", w * centered, centered)
+
+
+def batched_gather(x: torch.Tensor, indices: torch.Tensor, event_ndim: int = 0) -> torch.Tensor:
+    """Gather along the particle axis (axis 0), broadcasting over trailing
+    event axes: ``x`` is ``(N, *batch, *event)``, ``indices`` ``(N, *batch)``."""
+    idx = indices.long()
+    while idx.dim() < x.dim():
+        idx = idx.unsqueeze(-1)
+    idx = idx.expand(*indices.shape, *x.shape[indices.dim():])
+    return torch.gather(x, 0, idx)
