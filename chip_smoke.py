@@ -2,16 +2,16 @@
 """Smoke run of the PyTorch/CUDA port (``pyfilter_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py             # the phases below, on one card
-    python3 chip_smoke.py --profile   # also: one traced main-path run
+    python3 chip_smoke.py --profile   # also: one traced run of each main path
 
 Phases, in order; any failure exits non-zero before the result line:
 
 1. Device: requires CUDA; prints the card's name and power limit
    (``nvidia-smi``) and the torch and CUDA versions.
-2. Build: compiles the port's CUDA source with ``nvcc`` into
-   ``build/kernels/``.
+2. Build: compiles the port's CUDA sources with ``nvcc`` into
+   ``build/kernels/``, one ``nvcc`` per source, all started together.
 3. Kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and at the edge cases, bit for bit.
+   the main paths' shapes and at the edge cases, bit for bit.
 4. Main path: bootstrap SISR on the stochastic-volatility model at
    N = 1e6, T = 200 observations (5 hidden sub-steps each): one warm-up run,
    then three timed runs with every kernel's launch count set to 0 before
@@ -21,6 +21,19 @@ Phases, in order; any failure exits non-zero before the result line:
    ``LL_TOL``.
    Times each kernel on the main path's own data against its plain version,
    a one-call PyTorch yardstick and its memory bound.
+5. Lane-batched APF: the APF at N = 400 particles on K = 1000 lanes, every
+   lane with the true parameters, over the same T = 200 observations: 1000
+   independent log-likelihood estimates. Checks that the lane kernel ran
+   once per APF step, and that the mean over lanes agrees with the same
+   filter's on the CPU (plain versions) within 4 standard errors. Times the
+   lane kernel on the last cloud against its plain version, a PyTorch
+   yardstick, its memory bound and its counts prep.
+6. Main path 2: SMC² at ``bench.py``'s configuration (APF 400 x K = 1000
+   parameter lanes, threshold 0.2, two PMMH steps, T = 200): one warm-up
+   fit, then timed fits with every count set to 0 before them. Checks
+   finite weights, that the lane kernel ran once per APF step (forward and
+   re-filter), the posterior's bounds, and the gap to one fit on the CPU
+   within ``POST_TOL_SD`` posterior standard deviations.
 
 Prints a ``{"kernels": [...]}`` line, then, as the last line,
 ``{"ok": true, "device": {...}}``.
@@ -53,6 +66,17 @@ HBM_BYTES_PER_S = 3.35e12
 LL_TOL = 0.05
 N_CPU_REF = 1 << 16
 N_CPU_SEEDS = 8
+# main path 2: bench.py's SMC2 configuration
+SMC2_N, SMC2_K, SMC2_STEPS, SMC2_THRESHOLD = 400, 1000, 2, 0.2
+SMC2_TIMED = 2
+# the card's posterior means against the CPU fit's, per parameter, in units
+# of the larger of the two posterior standard deviations. Two card fits and
+# one CPU fit (other seeds) gave gaps of 0.02-0.25 sd over the six
+# parameters (12 readings), and the two card fits differ from each other by
+# up to 0.2 sd: the limit is 4x the largest reading. A fit that reads the
+# wrong history or drops the Jacobian moves gamma or tau by whole posterior
+# standard deviations.
+POST_TOL_SD = 1.0
 
 
 def simulate_obs(n_obs: int):
@@ -151,16 +175,15 @@ def main(argv) -> int:
           f"devices {torch.cuda.device_count()}")
 
     # -- 2. build -----------------------------------------------------------
-    t0 = time.perf_counter()
-    text = _build.build("expand", ptxas_info=True)
-    print(f"phase 2: {'built expand.cu' if text is not None else 'expand.cu already built'} "
-          f"in {time.perf_counter() - t0:.1f} s")
-    for line in (text or "").splitlines():
-        if "ptxas" in line and ("registers" in line or "spill" in line):
-            print(f"  expand: {line.strip()}")
+    for name, (text, seconds) in _build.build_all(ptxas_info=True).items():
+        print(f"phase 2: {f'built {name}.cu' if text is not None else f'{name}.cu already built'} in {seconds:.1f} s")
+        for line in (text or "").splitlines():
+            if "ptxas" in line and ("registers" in line or "spill" in line):
+                print(f"  {name}: {line.strip()}")
 
     # -- 3. kernels against their plain versions ----------------------------
     max_err = check_expand(torch, expand)
+    lanes_err = check_expand_lanes(torch, expand)
 
     # -- 4. main path -------------------------------------------------------
     y = simulate_obs(N_OBS)
@@ -171,7 +194,7 @@ def main(argv) -> int:
     if not math.isfinite(float(warm.log_likelihood)):
         raise AssertionError(f"warm-up log-likelihood is {float(warm.log_likelihood)}")
 
-    expand.fused_expand.launches = 0
+    expand.fused_expand.launches = expand.fused_expand_lanes.launches = 0
     filt.n_resamples = 0
     times, lls = [], []
     for rep in range(N_TIMED):
@@ -239,7 +262,14 @@ def main(argv) -> int:
     print(f"  resample prep per fire (cumsum, ceil, running max; L2 flushed): {prep_ms} ms; card {card}")
 
     if "--profile" in argv:
-        profile_main_path(torch, filt, y)
+        profile_run(torch, "main path 1", lambda: filt.batch_filter(torch.Generator(device="cuda").manual_seed(9), y),
+                    trace="main_path_trace.json")
+
+    # -- 5. the lane-batched APF ---------------------------------------------
+    lanes = apf_lanes(torch, pt, expand, y, card)
+
+    # -- 6. main path 2: SMC2 ---------------------------------------------------
+    lanes["launches"] = smc2(torch, pt, expand, y, card, profile="--profile" in argv)
 
     kernels = [{
         "name": "expand",
@@ -253,6 +283,18 @@ def main(argv) -> int:
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         "library_ms": l_ms,
+    }, {
+        "name": "expand_lanes",
+        "route": "cuda",
+        "source": "pyfilter_tpu_torch/ops/csrc/expand_lanes.cu",
+        "replaces": "pyfilter_tpu/ops/expand.py:438, pyfilter_tpu/ops/expand.py:489",
+        "launches": lanes["launches"],
+        "max_abs_err": max(lanes_err, lanes["err"]),
+        "ms": lanes["ms"],
+        "plain_ms": lanes["plain_ms"],
+        "bound_ms": lanes["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": lanes["library_ms"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -260,18 +302,199 @@ def main(argv) -> int:
     return 0
 
 
-def profile_main_path(torch, filt, y):
-    """One main-path run under ``torch.profiler``: device-busy time, idle
-    share and the kernels by device time; the trace goes to ``chiprun_out/``."""
+def check_expand_lanes(torch, expand) -> float:
+    """Phase 3: the lane kernel against its plain version, bit for bit, with
+    weight scales 1 and 6, one degenerate lane per case (all mass on the
+    first, middle or last particle), one lane of alternating zero-weight
+    runs, random uniforms and ``u == 1.0``."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    n_cases, worst = 0, 0.0
+    for n, n_lanes in ((400, 1000), (257, 5), (40, 16), (72, 16), (800, 1000), (3200, 1000)):
+        for d in (1, 2):
+            planes = torch.randn(d, n, n_lanes, generator=g, device=dev)
+            for scale in (1.0, 6.0):
+                for hot in (0, n // 2, n - 1):
+                    lw = torch.randn(n, n_lanes, generator=g, device=dev) * scale
+                    lw[:, 0] = -math.inf
+                    lw[hot, 0] = 0.0
+                    lw[:, 1] = torch.where(torch.arange(n, device=dev) % 3 == 0, 0.0, -math.inf)
+                    probs = torch.softmax(lw, dim=0)
+                    for u in (torch.rand(n_lanes, generator=g, device=dev), torch.ones(n_lanes, device=dev)):
+                        counts = expand._lane_counts_from_probs(probs, u)
+                        out, idx = expand.fused_expand_lanes(counts, planes)
+                        ref_out, ref_idx = expand._expand_lanes_plain(counts, planes)
+                        worst = max(worst, float((out - ref_out).abs().max()))
+                        if not (torch.equal(idx, ref_idx) and torch.equal(out, ref_out)):
+                            bad = int((idx != ref_idx).sum())
+                            raise AssertionError(f"lane kernel != plain at n={n} L={n_lanes} d={d} scale={scale} "
+                                                 f"hot={hot}: {bad} indices differ")
+                        n_cases += 1
+    torch.cuda.synchronize()
+    print(f"phase 3: lane kernel == plain version on {n_cases} cases ((n, L) in (400, 1000), (257, 5), (40, 16), "
+          "(72, 16), (800, 1000), (3200, 1000); d in 1, 2; scales 1, 6; a degenerate lane, zero-weight runs, "
+          "random u and u = 1); tolerance: bit for bit (torch.equal)")
+    return worst
+
+
+def apf_lanes(torch, pt, expand, y, card) -> dict:
+    """Phase 5: the APF at SMC2_N particles on SMC2_K lanes of the true
+    parameters, on the card and on the CPU; then the lane kernel per fire."""
+    import numpy as np
+
+    def run(device, gen):
+        model = pt.examples.stochastic_volatility_model(KAPPA, GAMMA, SIGMA, MU, NU, TAU, dt=DT, device=device)
+        filt = pt.APF(model, SMC2_N, batch_shape=(SMC2_K,), record_moments=False, device=device)
+        return filt, filt.batch_filter(gen, y)
+
+    run("cuda", torch.Generator(device="cuda").manual_seed(0))  # warm-up
+    expand.fused_expand.launches = expand.fused_expand_lanes.launches = 0
+    pt.APF.corrections = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    filt, res = run("cuda", torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, steps = expand.fused_expand_lanes.launches, pt.APF.corrections
+    card_ll = res.log_likelihood.cpu().numpy().astype(np.float64)
+    cpu_ll = run("cpu", torch.Generator().manual_seed(2))[1].log_likelihood.numpy().astype(np.float64)
+    if not (np.isfinite(card_ll).all() and np.isfinite(cpu_ll).all()):
+        raise AssertionError("non-finite lane log-likelihoods")
+    if not (launches == steps == N_OBS):
+        raise AssertionError(f"lane kernel launched {launches} times for {steps} APF steps")
+    gap = abs(card_ll.mean() - cpu_ll.mean())
+    limit = 4 * math.sqrt(card_ll.var(ddof=1) / SMC2_K + cpu_ll.var(ddof=1) / SMC2_K)
+    print(f"phase 5: APF N={SMC2_N} x K={SMC2_K} lanes, T={N_OBS}: {wall:.4f} s on the card; "
+          f"lane kernel launches {launches} for {steps} APF steps")
+    print(f"  log-likelihood over lanes: card mean {card_ll.mean()} sd {card_ll.std(ddof=1)}; "
+          f"CPU (plain versions) mean {cpu_ll.mean()} sd {cpu_ll.std(ddof=1)}; gap {gap} (limit {limit})")
+    if not gap < limit:
+        raise AssertionError(f"card and CPU lane means differ by {gap} (> {limit})")
+
+    # the lane kernel on the last cloud: state values and pre-weights, as the
+    # APF's correction resamples them
+    state = res.latest_state
+    pre = filt.proposal.pre_weight(filt.model, torch.tensor(float(y[-1]), device="cuda"), state.x)
+    probs = pt.normalize(pre + state.log_weights)
+    planes = torch.stack([state.x.value, pre]).contiguous()
+    n, d = SMC2_N, planes.shape[0]
+    u = torch.rand(SMC2_K, device="cuda")
+    counts = expand._lane_counts_from_probs(probs, u)
+    grid = torch.arange(n, dtype=torch.int32, device="cuda").expand(SMC2_K, n).contiguous()
+
+    def library():
+        lib_idx = torch.searchsorted(counts, grid, right=True)
+        return torch.gather(planes, 1, lib_idx.T.unsqueeze(0).expand_as(planes))
+
+    out, idx = expand.fused_expand_lanes(counts, planes)
+    ref_out, ref_idx = expand._expand_lanes_plain(counts, planes)
+    torch.cuda.synchronize()
+    err = float((out - ref_out).abs().max())
+    if not (torch.equal(idx, ref_idx) and torch.equal(library(), ref_out) and err == 0.0):
+        raise AssertionError("lane kernel, plain version and library call disagree on phase 5's cloud")
+    prep_ms = time_cold(torch, lambda: expand._lane_counts_from_probs(probs, u))
+    k_ms = time_cold(torch, lambda: expand.fused_expand_lanes(counts, planes))
+    p_ms = time_cold(torch, lambda: expand._expand_lanes_plain(counts, planes))
+    l_ms = time_cold(torch, library)
+    bound_ms = (4 * n + 4 * d * n + 4 * d * n + 4 * n) * SMC2_K / HBM_BYTES_PER_S * 1e3
+    print(f"  lane expand per fire (n={n}, L={SMC2_K}, d={d}, L2 flushed): kernel {k_ms} ms, plain {p_ms} ms, "
+          f"library {l_ms} ms, bound {bound_ms} ms (bytes); counts prep {prep_ms} ms; card {card}")
+    return {"err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": bound_ms}
+
+
+def smc2(torch, pt, expand, y, card, profile: bool = False) -> int:
+    """Phase 6: SMC2 at bench.py's configuration on the card (warm-up, then
+    SMC2_TIMED timed fits) and once on the CPU; with ``profile``, one more
+    card fit under the profiler. Returns the lane kernel's launches over the
+    timed fits."""
+    import numpy as np
+
+    from pyfilter_tpu_torch import inference as inf
+
+    def fit(device, seed):
+        def gen(s):
+            return torch.Generator(device=device).manual_seed(s)
+
+        ctx = inf.make_context(generator=gen(seed), device=device)
+        filt = pt.APF(pt.examples.stochastic_volatility_builder, SMC2_N, record_moments=False, device=device)
+        alg = inf.SMC2(filt, SMC2_K, threshold=SMC2_THRESHOLD, num_steps=SMC2_STEPS, context=ctx,
+                       generator=gen(seed + 1), record_moments=False, device=device)
+        state = alg.fit(y)
+        w = state.normalized_weights()
+        stacked = ctx.stack_parameters(constrained=True)
+        mean = w @ stacked
+        sd = torch.sqrt(torch.clamp(w @ torch.square(stacked - mean), min=1e-12))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        if not bool(torch.isfinite(state.w).all()):
+            raise AssertionError(f"non-finite SMC2 weights on {device}")
+        return alg, dict(zip(ctx.parameters, mean.tolist())), dict(zip(ctx.parameters, sd.tolist()))
+
+    fit("cuda", 0)  # warm-up
+    expand.fused_expand.launches = expand.fused_expand_lanes.launches = 0
+    pt.APF.corrections = 0
+    walls, runs, syncs = [], [], []
+    for rep in range(SMC2_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        alg, mean, sd = fit("cuda", 10 * (rep + 1))
+        walls.append(time.perf_counter() - t0)
+        runs.append((mean, sd))
+        k = alg.kernel
+        syncs.append(alg.n_host_syncs + k.n_host_syncs)
+        print(f"phase 6: SMC2 fit {rep}: {walls[-1]:.4f} s; rejuvenations {k.n_rejuvenations}, PMMH transitions "
+              f"{k.n_transitions}, particle doublings {k.n_doublings} (state particles {alg.filter.n_particles}); "
+              f"host syncs {syncs[-1]}")
+        print(f"  posterior mean {mean}")
+        print(f"  posterior sd   {sd}")
+    launches, steps = expand.fused_expand_lanes.launches, pt.APF.corrections
+    print(f"  SMC2 T={N_OBS}, APF {SMC2_N} x K={SMC2_K}, num_steps={SMC2_STEPS}, threshold {SMC2_THRESHOLD}: "
+          f"wall seconds {walls} (best {min(walls)}); APF steps {steps} (forward + re-filter) and lane kernel "
+          f"launches {launches} over {SMC2_TIMED} fits; card {card}")
+    if not (launches == steps > 0):
+        raise AssertionError(f"lane kernel launched {launches} times for {steps} APF steps")
+    for mean, _ in runs:
+        if not (0.3 < mean["gamma"] < 3.0 and 0.5 < mean["tau"] < 2.0):
+            raise AssertionError(f"posterior means out of bounds: {mean}")
+
+    t0 = time.perf_counter()
+    _, cpu_mean, cpu_sd = fit("cpu", 10)
+    print(f"  CPU fit (plain versions, seed of card fit 0): {time.perf_counter() - t0:.1f} s; "
+          f"posterior mean {cpu_mean}; sd {cpu_sd}")
+    for rep, (mean, sd) in enumerate(runs):
+        gaps = {n: abs(mean[n] - cpu_mean[n]) / max(sd[n], cpu_sd[n]) for n in mean}
+        print(f"  card fit {rep} vs CPU: |gap| / posterior sd {gaps} (limit {POST_TOL_SD})")
+        if not max(gaps.values()) < POST_TOL_SD:
+            raise AssertionError(f"card and CPU posterior means differ by more than {POST_TOL_SD} sd: {gaps}")
+
+    if profile:
+        profile_run(torch, "main path 2", lambda: fit("cuda", 99))
+
+    # the per-step host syncs: one scalar read each, as the trigger makes it
+    ess = torch.ones((), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        torch.stack([ess, ess]).tolist()
+    sync_us = (time.perf_counter() - t0) * 1e3
+    print(f"  trigger read + host sync on an idle stream: {sync_us:.3f} us each; {syncs} syncs per fit "
+          f"cost about {[round(s * sync_us / 1e3, 3) for s in syncs]} ms")
+    return launches
+
+
+def profile_run(torch, label: str, fn, trace: str | None = None):
+    """One run of ``fn`` under ``torch.profiler``: device-busy time, idle
+    share and the kernels by device time; the trace, when named, goes to
+    ``build/profile/`` (git-ignored)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        filt.batch_filter(torch.Generator(device="cuda").manual_seed(9), y)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    from torch.autograd import DeviceType
 
     def device_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
@@ -279,13 +502,16 @@ def profile_main_path(torch, filt, y):
     rows = sorted(((device_us(e), e.count, e.key) for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA), reverse=True)
     busy_us = sum(r[0] for r in rows)
-    print(f"profile: wall {wall * 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
-          f"idle share {1 - busy_us / 1e6 / wall:.4f} ({len(rows)} kernels by name)")
+    launches = sum(r[1] for r in rows)
+    print(f"profile ({label}): wall {wall * 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
+          f"idle share {1 - busy_us / 1e6 / wall:.4f} ({len(rows)} kernels by name, {launches} launches)")
     for us, count, key in rows[:15]:
         if us:
             print(f"  {us / 1e3:10.3f} ms  x{count:<6d} {key[:90]}")
-    os.makedirs("chiprun_out", exist_ok=True)
-    prof.export_chrome_trace(os.path.join("chiprun_out", "main_path_trace.json"))
+    if trace:
+        out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "profile")
+        os.makedirs(out_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out_dir, trace))
 
 
 if __name__ == "__main__":

@@ -4,17 +4,18 @@ Same module layout and public names as the JAX package; inside, PyTorch
 idiom: models and processes hold their parameter tensors, every random draw
 takes an explicit ``torch.Generator``, and every entry point takes a
 ``device`` — the card unless the caller passes ``device="cpu"``. The fused
-resample + gather runs in a hand-written CUDA kernel for Hopper
-(``ops/csrc/expand.cu``), built with ``nvcc`` at first use.
+resample + gather runs in hand-written CUDA kernels for Hopper
+(``ops/csrc/expand.cu`` for one lane, ``ops/csrc/expand_lanes.cu`` for lane
+batches), built with ``nvcc`` at first use.
 
-This slice ports the bootstrap SISR filter on the stochastic-volatility
-model (single lane).
+Ported so far: the bootstrap SISR filter on the stochastic-volatility model
+(single lane), and SMC² over a lane-batched APF on the same model.
 """
 
 __version__ = "0.1.0"
 
-from . import convert, distributions, examples, filters, ops, timeseries, utils
-from .filters import SISR, FilterResult, ParticleFilter
+from . import convert, distributions, examples, filters, inference, ops, resampling, timeseries, utils
+from .filters import APF, SISR, FilterResult, ParticleFilter
 from .utils import get_ess, log_likelihood, normalize
 
 __all__ = [
@@ -22,10 +23,13 @@ __all__ = [
     "distributions",
     "examples",
     "filters",
+    "inference",
+    "resampling",
     "ops",
     "timeseries",
     "utils",
     "SISR",
+    "APF",
     "ParticleFilter",
     "FilterResult",
     "normalize",

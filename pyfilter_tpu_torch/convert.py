@@ -3,8 +3,9 @@
 The port never imports the JAX package: a caller turns the JAX objects'
 leaves into numpy arrays (``np.asarray``) and hands them here, which builds
 the port's objects from them — so both packages can start from one
-particle cloud and one set of model parameters. Only numpy arrays, numpy
-scalars and Python numbers are accepted.
+particle cloud (one lane or a lane batch), one set of model parameters
+(scalars or one per lane) and one context's parameter values. Only numpy
+arrays, numpy scalars and Python numbers are accepted.
 """
 
 from __future__ import annotations
@@ -43,8 +44,10 @@ def correction_from_numpy(
 ) -> ParticleFilterCorrection:
     """A ``ParticleFilterCorrection`` from the numpy leaves of the JAX
     package's one (``x.time_index``, ``x.value``, ``log_weights``,
-    ``log_likelihood``, ``prev_indices``, ``mean``, ``variance``). Missing
-    moments become zeros, as for a filter that does not record them."""
+    ``log_likelihood``, ``prev_indices``, ``mean``, ``variance``), single
+    lane or lane-batched (particle-indexed leaves ``(N, *batch)``, per-lane
+    ones ``(*batch,)``). Missing moments become zeros, as for a filter that
+    does not record them."""
     device = resolve_device(device)
     ll = _tensor("log_likelihood", log_likelihood, torch.float32, device)
     x = TimeseriesState(
@@ -66,7 +69,20 @@ def correction_from_numpy(
 
 def sv_model_from_numpy(kappa, gamma, sigma, mu, nu, tau, dt, device=None):
     """The stochastic-volatility model from the JAX model's six parameters
-    and ``dt`` (``hidden.parameters``, ``parameters``, ``hidden.dt``)."""
-    params = [float(np.float32(_check(n, v))) for n, v in
+    (``hidden.parameters``, ``parameters``; scalars, or one value per lane)
+    and ``dt`` (``hidden.dt``)."""
+    device = resolve_device(device)
+    params = [_tensor(n, v, torch.float32, device) for n, v in
               zip(("kappa", "gamma", "sigma", "mu", "nu", "tau"), (kappa, gamma, sigma, mu, nu, tau))]
     return examples.stochastic_volatility_model(*params, dt=float(_check("dt", dt)), device=device)
+
+
+def set_context_values(context, values: dict):
+    """Write the JAX context's parameter values (``{name: numpy array}``, as
+    ``{k: np.asarray(v) for k, v in ctx.parameters.items()}`` gives them)
+    into the port's ``context``, whose builder registered the same names."""
+    if set(values) != set(context.parameters):
+        raise ValueError(f"parameters differ: {sorted(values)} != {sorted(context.parameters)}")
+    for name, value in values.items():
+        context.update_parameter(name, _tensor(name, value, torch.float32, context.device))
+    return context

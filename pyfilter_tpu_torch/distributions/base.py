@@ -1,8 +1,10 @@
 """Distribution base class.
 
 Counterpart of ``pyfilter_tpu/distributions/base.py``: ``sample``,
-``log_prob``, ``batch_shape`` / ``event_shape``. Parameters are tensors;
-every draw takes an explicit ``torch.Generator`` on the parameters' device.
+``log_prob``, ``batch_shape`` / ``event_shape``, ``support`` and
+``equivalent_to`` (the prior check of the inference context). Parameters are
+tensors, named in ``arg_names``; every draw takes an explicit
+``torch.Generator`` on the parameters' device.
 """
 
 from __future__ import annotations
@@ -11,8 +13,13 @@ from typing import Sequence
 
 import torch
 
+from . import constraints
+
 
 class Distribution:
+    #: names of the tensor parameters, in order
+    arg_names: tuple = ()
+
     @property
     def batch_shape(self) -> tuple:
         raise NotImplementedError
@@ -26,3 +33,18 @@ class Distribution:
 
     def log_prob(self, value: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
+
+    @property
+    def support(self) -> constraints.Constraint:
+        return constraints.real
+
+    def equivalent_to(self, other: "Distribution") -> bool:
+        """Same class with numerically equal parameters."""
+        if type(self) is not type(other):
+            return False
+        for name in self.arg_names:
+            a = torch.as_tensor(getattr(self, name))
+            b = torch.as_tensor(getattr(other, name), device=a.device)
+            if a.shape != b.shape or not torch.allclose(a, b):
+                return False
+        return True

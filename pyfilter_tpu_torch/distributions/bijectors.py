@@ -1,5 +1,6 @@
-"""Bijectors (invertible elementwise transforms): ``Affine``, ``SinhArcsinh``
-and their ``Chain``.
+"""Bijectors (invertible elementwise transforms): ``Affine``, ``SinhArcsinh``,
+their ``Chain``, ``Identity``, ``Exp``, the inverse of each (``.inv``) and
+``biject_to`` (a constraint's bijector from the unconstrained reals).
 
 Counterpart of ``pyfilter_tpu/distributions/bijectors.py``. The sinh-arcsinh
 transform keeps the JAX package's own log/exp/sqrt formulas (``_asinh``,
@@ -13,6 +14,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from . import constraints
 
 
 class Bijector:
@@ -34,6 +37,47 @@ class Bijector:
         """``(inverse(y), log_abs_det_jacobian(inverse(y), y))`` in one pass."""
         x = self.inverse(y)
         return x, self.log_abs_det_jacobian(x, y)
+
+    @property
+    def inv(self) -> "Bijector":
+        return _Inverse(self)
+
+
+class _Inverse(Bijector):
+    def __init__(self, bijector: Bijector):
+        self.bijector = bijector
+        self.event_dim = bijector.event_dim
+
+    def forward(self, x):
+        return self.bijector.inverse(x)
+
+    def inverse(self, y):
+        return self.bijector.forward(y)
+
+    def log_abs_det_jacobian(self, x, y):
+        return -self.bijector.log_abs_det_jacobian(y, x)
+
+
+class Identity(Bijector):
+    def forward(self, x):
+        return x
+
+    def inverse(self, y):
+        return y
+
+    def log_abs_det_jacobian(self, x, y):
+        return torch.zeros_like(x)
+
+
+class Exp(Bijector):
+    def forward(self, x):
+        return torch.exp(x)
+
+    def inverse(self, y):
+        return torch.log(y)
+
+    def log_abs_det_jacobian(self, x, y):
+        return x
 
 
 class Affine(Bijector):
@@ -132,3 +176,14 @@ class Chain(Bijector):
         if total is None:
             total = torch.zeros_like(y)
         return y, torch.broadcast_to(total, y.shape)
+
+
+def biject_to(constraint: constraints.Constraint) -> Bijector:
+    """Bijector from the unconstrained reals onto the support of
+    ``constraint``: the identity for the reals, ``Exp`` for the positive
+    half-line (the JAX package's choices)."""
+    if constraint is constraints.real or constraint is constraints.real_vector:
+        return Identity()
+    if constraint is constraints.positive:
+        return Exp()
+    raise NotImplementedError(f"no bijector registered for constraint {constraint!r}")

@@ -1,4 +1,5 @@
-"""Concrete distributions: ``Normal`` (the one the main path uses).
+"""Concrete distributions: ``Normal`` (the SISR main path), ``LogNormal``
+and ``Exponential`` (the SMC² path's priors).
 
 Counterpart of ``pyfilter_tpu/distributions/core.py``.
 """
@@ -9,12 +10,15 @@ import math
 
 import torch
 
+from . import constraints
 from .base import Distribution
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 
 
 class Normal(Distribution):
+    arg_names = ("loc", "scale")
+
     def __init__(self, loc: torch.Tensor, scale: torch.Tensor):
         self.loc = loc
         self.scale = scale
@@ -31,3 +35,49 @@ class Normal(Distribution):
     def log_prob(self, value):
         z = (value - self.loc) / self.scale
         return -0.5 * torch.square(z) - torch.log(self.scale) - _LOG_SQRT_2PI
+
+
+class LogNormal(Distribution):
+    arg_names = ("loc", "scale")
+
+    def __init__(self, loc: torch.Tensor, scale: torch.Tensor):
+        self.loc = loc
+        self.scale = scale
+
+    @property
+    def batch_shape(self):
+        return tuple(torch.broadcast_shapes(self.loc.shape, self.scale.shape))
+
+    @property
+    def support(self):
+        return constraints.positive
+
+    def sample(self, generator, sample_shape=()):
+        return torch.exp(Normal(self.loc, self.scale).sample(generator, sample_shape))
+
+    def log_prob(self, value):
+        log_v = torch.log(value)
+        return Normal(self.loc, self.scale).log_prob(log_v) - log_v
+
+
+class Exponential(Distribution):
+    arg_names = ("rate",)
+
+    def __init__(self, rate: torch.Tensor):
+        self.rate = rate
+
+    @property
+    def batch_shape(self):
+        return tuple(self.rate.shape)
+
+    @property
+    def support(self):
+        return constraints.positive
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        e = torch.empty(shape, dtype=self.rate.dtype, device=self.rate.device).exponential_(generator=generator)
+        return e / self.rate
+
+    def log_prob(self, value):
+        return torch.log(self.rate) - self.rate * value

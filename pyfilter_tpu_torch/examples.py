@@ -1,10 +1,13 @@
-"""Example models: the stochastic-volatility model of the main path.
+"""Example models: the stochastic-volatility model and its prior-registering
+builder (the two main paths).
 
 Counterpart of ``pyfilter_tpu/examples.py`` (``stochastic_volatility_model``
-only in this slice).
+and ``stochastic_volatility_builder`` only).
 """
 
 from __future__ import annotations
+
+import math
 
 from . import distributions as dist
 from . import timeseries as ts
@@ -35,3 +38,22 @@ def stochastic_volatility_model(
     vol = models.Verhulst(kappa, gamma, sigma, dt=dt, device=device)
     params = tuple(models.parameter(p, device) for p in (mu, nu, tau))
     return ts.StateSpaceModel(vol, sv_observation, params, observe_every_step=int(1.0 / dt))
+
+
+def stochastic_volatility_builder(context, dt: float = 0.2):
+    """The stochastic-volatility model with its parameters registered on
+    ``context`` under the reference notebook's priors, built on the context's
+    device (so prior evaluations never move tensors between devices)."""
+
+    def const(v):
+        return models.parameter(v, context.device)
+
+    kappa = context.named_parameter("kappa", dist.Exponential(const(10.0)))
+    gamma = context.named_parameter("gamma", dist.LogNormal(const(0.0), const(1.0)))
+    sigma = context.named_parameter("sigma", dist.LogNormal(const(math.log(0.05)), const(1.0)))
+    vol = models.Verhulst(kappa, gamma, sigma, dt=dt, device=context.device)
+
+    mu = context.named_parameter("mu", dist.Normal(const(0.0), const(0.5)))
+    nu = context.named_parameter("nu", dist.Normal(const(0.0), const(0.15)))
+    tau = context.named_parameter("tau", dist.LogNormal(const(0.0), const(0.1)))
+    return ts.StateSpaceModel(vol, sv_observation, (mu, nu, tau), observe_every_step=int(1.0 / dt))

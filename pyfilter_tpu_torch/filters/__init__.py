@@ -2,7 +2,7 @@
 
 from . import particle
 from .base import BaseFilter
-from .particle import SISR, ParticleFilter
+from .particle import APF, SISR, ParticleFilter
 from .result import FilterResult
 from .state import ParticleFilterCorrection, ParticleFilterPrediction
 
@@ -10,6 +10,7 @@ __all__ = [
     "BaseFilter",
     "ParticleFilter",
     "SISR",
+    "APF",
     "FilterResult",
     "ParticleFilterCorrection",
     "ParticleFilterPrediction",

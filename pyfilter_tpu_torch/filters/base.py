@@ -3,10 +3,14 @@
 Counterpart of ``pyfilter_tpu/filters/base.py``. The JAX package's
 ``lax.scan`` over time is a Python loop here (PyTorch runs eagerly), and its
 all-NaN ``lax.cond`` is decided on the host copy of the observations, so it
-costs no device sync.
+costs no device sync. A filter takes a model, or a model *builder* (a
+callable taking an inference context) that :meth:`initialize_model` runs;
+``batch_shape`` runs that many independent filters as lanes of one cloud.
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -18,17 +22,53 @@ from .state import ParticleFilterCorrection, ParticleFilterPrediction
 
 class BaseFilter:
     """Abstract filter over a :class:`~pyfilter_tpu_torch.timeseries.StateSpaceModel`
-    on ``device`` (the card unless ``device="cpu"``). ``nan_strategy="skip"``
-    propagates without correcting on an all-NaN observation."""
+    (or a builder of one) on ``device`` (the card unless ``device="cpu"``).
+    ``nan_strategy="skip"`` propagates without correcting on an all-NaN
+    observation. ``batch_shape`` lanes are independent filters whose model
+    parameters carry the lane axes."""
 
-    def __init__(self, model, nan_strategy: str = "skip", device=None):
+    def __init__(self, model, nan_strategy: str = "skip", batch_shape=(), device=None):
         if nan_strategy != "skip":
             raise NotImplementedError("only nan_strategy='skip' is ported")
         self.device = resolve_device(device)
+        if callable(model) and not hasattr(model, "hidden"):
+            self.model, self.model_builder = None, model
+        else:
+            self.model, self.model_builder = None, None
+            self._set_model(model)
+        self.nan_strategy = nan_strategy
+        self.batch_shape = tuple(batch_shape)
+
+    def _set_model(self, model):
         if not same_device(model.device, self.device):
             raise ValueError(f"the model lies on {model.device}, the filter on {self.device}")
         self.model = model
-        self.nan_strategy = nan_strategy
+
+    def replace(self, **kwargs) -> "BaseFilter":
+        """A shallow copy with the given attributes replaced (``model`` is
+        checked against the filter's device)."""
+        new = copy.copy(self)
+        model = kwargs.pop("model", None)
+        for name, value in kwargs.items():
+            if not hasattr(self, name):
+                raise TypeError(f"unknown field: {name}")
+            setattr(new, name, value)
+        if model is not None:
+            new._set_model(model)
+        return new
+
+    def initialize_model(self, context) -> "BaseFilter":
+        """A filter whose model is built from ``context`` by the builder, with
+        the prior check off (every parameter update rebuilds the model)."""
+        if self.model_builder is None:
+            raise ValueError("filter was not constructed with a model builder")
+        with context.no_prior_verification():
+            model = self.model_builder(context)
+        return self.replace(model=model)
+
+    def set_batch_shape(self, batch_shape) -> "BaseFilter":
+        """A filter over ``batch_shape`` parallel lanes."""
+        return self.replace(batch_shape=tuple(batch_shape))
 
     # -- abstract ------------------------------------------------------------
     def initialize(self, generator) -> ParticleFilterCorrection:

@@ -1,7 +1,8 @@
-"""Particle filters (SISR in this slice)."""
+"""Particle filters (SISR and the APF in this slice)."""
 
 from . import proposals
+from .apf import APF
 from .base import ParticleFilter
 from .sisr import SISR
 
-__all__ = ["ParticleFilter", "SISR", "proposals"]
+__all__ = ["ParticleFilter", "SISR", "APF", "proposals"]

@@ -1,7 +1,8 @@
 """Proposal base class.
 
 Counterpart of ``pyfilter_tpu/filters/particle/proposals/base.py``: proposals
-hold no model; the model is passed to every call.
+hold no model; the model is passed to every call. ``pre_weight`` is the
+APF's pre-weight at the affine conditional mean.
 """
 
 from __future__ import annotations
@@ -20,3 +21,9 @@ class Proposal:
     ) -> tuple[TimeseriesState, torch.Tensor]:
         """Sample new particles and their incremental log-weights."""
         raise NotImplementedError
+
+    def pre_weight(self, model, y: torch.Tensor, x: TimeseriesState) -> torch.Tensor:
+        """APF pre-weights :math:`\\log p(y_t | E[x_t | x_{t-1}])`: the
+        observation density at the hidden process's affine mean step."""
+        loc, _ = model.hidden.mean_scale(x)
+        return model.build_density(x.propagate_from(values=loc)).log_prob(y)

@@ -4,14 +4,14 @@ Counterpart of ``pyfilter_tpu/filters/particle/sisr.py`` (single lane). The
 JAX package gates the resample with a scalar ``lax.cond`` on the device; here
 the gate is one host-side ``if`` per observation, the one device-to-host
 sync of the step, which keeps the skip semantics: on the steps whose ESS is
-healthy no resampling work is launched at all.
+healthy no resampling work is launched at all. Lane batches (the JAX
+package's ``resample_lanes`` branch) are not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ...ops import systematic_expand
 from ...utils import batched_gather, get_ess, log_likelihood
 from ..state import ParticleFilterCorrection, ParticleFilterPrediction
 from .base import ParticleFilter
@@ -22,6 +22,8 @@ class SISR(ParticleFilter):
         """ESS-gated resampling: below ``ess_threshold * N`` the cloud
         resamples and its weights reset; otherwise it passes through with
         identity ancestor indices."""
+        if self.batch_shape:
+            raise NotImplementedError("SISR over lane batches is not ported yet")
         normalized = state.normalized_weights()
         ess = get_ess(normalized, normalized=True)
         ts_state = state.x
@@ -30,8 +32,7 @@ class SISR(ParticleFilter):
 
         self.n_resamples += 1
         if self._use_fused_resample(ts_state.value):
-            u = self.resample_uniform(generator)
-            new_vals, indices = systematic_expand(None, normalized, ts_state.value, normalized=True, u=u)
+            new_vals, indices = self._fused_resample(generator, normalized, ts_state.value, normalized=True)
         else:
             indices = self.resampler(generator, normalized, normalized=True)
             new_vals = batched_gather(ts_state.value, indices, ts_state.event_ndim)

@@ -75,3 +75,34 @@ class ParticleFilterCorrection(NamedTuple):
 
     def normalized_weights(self) -> torch.Tensor:
         return normalize(self.log_weights)
+
+    # -- lane surgery (JAX filters/state.py:139-178) ---------------------------
+    def resample(self, indices: torch.Tensor) -> "ParticleFilterCorrection":
+        """Gather the LANES by ``indices`` ``(K,)``: lane axis 1 of the
+        particle-indexed leaves, lane axis 0 of the per-lane log-likelihood,
+        mean and variance. The particle axis is untouched."""
+        idx = indices.long()
+        return ParticleFilterCorrection(
+            self.x.copy(values=self.x.value.index_select(1, idx)),
+            self.log_weights.index_select(1, idx),
+            self.log_likelihood.index_select(0, idx),
+            self.prev_indices.index_select(1, idx),
+            self.mean.index_select(0, idx),
+            self.variance.index_select(0, idx),
+        )
+
+    def exchange(self, other: "ParticleFilterCorrection", mask: torch.Tensor) -> "ParticleFilterCorrection":
+        """Lanes where ``mask`` ``(K,)`` is True take ``other``'s leaves."""
+
+        def mix(mine, theirs, lead):
+            m = mask.reshape((1,) * lead + tuple(mask.shape) + (1,) * (mine.dim() - lead - mask.dim()))
+            return torch.where(m, theirs, mine)
+
+        return ParticleFilterCorrection(
+            self.x.copy(values=mix(self.x.value, other.x.value, 1)),
+            mix(self.log_weights, other.log_weights, 1),
+            mix(self.log_likelihood, other.log_likelihood, 0),
+            mix(self.prev_indices, other.prev_indices, 1),
+            mix(self.mean, other.mean, 0),
+            mix(self.variance, other.variance, 0),
+        )

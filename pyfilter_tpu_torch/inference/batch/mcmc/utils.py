@@ -1,0 +1,55 @@
+"""The PMMH transition (counterpart of ``pyfilter_tpu/inference/batch/mcmc/utils.py``,
+its eager body).
+
+``run_pmmh`` draws a candidate parameter vector per lane, rebuilds the model,
+re-filters the data under it and accepts or rejects per lane;
+:func:`pmmh_accept` is its arithmetic once the draws and the re-filter are
+in hand.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+class PMMHStep(NamedTuple):
+    accepted: torch.Tensor
+    context: object
+    filter_state: object
+    proposal_kernel: object
+
+
+def pmmh_accept(context, state, proposal, proposal_kernel, rvs, proposal_context, new_res, log_u) -> PMMHStep:
+    """Accept lane ``k`` when ``log_u[k] < diff_proposal + diff_prior +
+    diff_loglik``, all on the unconstrained space; accepting lanes take the
+    candidate's filter state and parameters.
+
+    ``rvs``: the candidate ``(K, D)``; ``proposal_context``: the context
+    holding it; ``new_res``: the re-filter under it; ``log_u``: ``(K,)``."""
+    diff_logl = new_res.log_likelihood - state.filter_state.log_likelihood
+    diff_prior = proposal_context.eval_priors(constrained=False) - context.eval_priors(constrained=False)
+    new_prop_kernel = proposal.build(proposal_context, state.replicate(new_res), None, None)
+    params = context.stack_parameters(constrained=False)
+    diff_prop = new_prop_kernel.log_prob(params) - proposal_kernel.log_prob(rvs)
+
+    accepted = log_u < diff_prop + diff_prior + diff_logl
+    return PMMHStep(
+        accepted,
+        context.exchange(proposal_context, accepted),
+        state.filter_state.exchange(new_res, accepted),
+        proposal_kernel,
+    )
+
+
+def run_pmmh(generator, context, state, proposal, proposal_kernel, filter_, y: np.ndarray, size=()) -> PMMHStep:
+    """One PMMH update over all lanes: draw the candidate, re-filter ``y``
+    (host observations) under it, draw the log-uniforms, then
+    :func:`pmmh_accept`. Every draw comes from ``generator``, in that order."""
+    rvs = proposal_kernel.sample(generator, tuple(size))
+    proposal_context = context.unstack_parameters(rvs, constrained=False)
+    new_res = filter_.initialize_model(proposal_context).batch_filter(generator, y)
+    log_u = torch.log(torch.rand(new_res.log_likelihood.shape, generator=generator, device=rvs.device))
+    return pmmh_accept(context, state, proposal, proposal_kernel, rvs, proposal_context, new_res, log_u)

@@ -1,0 +1,228 @@
+"""Inference context: the named parameter and prior store.
+
+Counterpart of ``pyfilter_tpu/inference/context.py`` (without the quasi
+context and ``state_dict``). Model builders call
+``context.named_parameter(name, prior)``; the first call samples the
+parameter's lanes from the prior with the context's ``torch.Generator``, on
+the context's ``device``. ``resample``, ``exchange`` and
+``unstack_parameters`` return new contexts; algorithms ``absorb`` them into
+the context the user holds, so that handle always shows the current
+posterior.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+from collections import OrderedDict
+from contextlib import contextmanager
+from typing import Dict, Iterable, Tuple
+
+import torch
+
+from ..distributions import Distribution
+from ..utils import resolve_device
+from . import prior as prior_ops
+from .parameter import PriorBoundParameter
+
+
+class NotSamePriorError(Exception):
+    pass
+
+
+class ParameterDoesNotExist(Exception):
+    pass
+
+
+class BatchShapeNotSet(Exception):
+    pass
+
+
+class BatchShapeAlreadySet(Exception):
+    pass
+
+
+class InferenceContext:
+    """Parameters, their priors and the lane ``batch_shape``, on ``device``
+    (the card unless ``device="cpu"``). ``generator`` draws the prior
+    samples (seeded 0 when not given)."""
+
+    _contexts = threading.local()
+
+    def __init__(self, generator: torch.Generator | None = None, device=None):
+        self.device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        self.generator = generator
+        self._prior_dict: Dict[str, Distribution] = OrderedDict()
+        self._value_dict: Dict[str, torch.Tensor] = OrderedDict()
+        self._shape_dict: Dict[str, tuple] = OrderedDict()
+        self._unconstrained_shape_dict: Dict[str, tuple] = OrderedDict()
+        self.batch_shape: tuple | None = None
+        self._verify_prior = True
+
+    # -- context-manager stack -------------------------------------------------
+    @classmethod
+    def _stack(cls) -> list:
+        if not hasattr(cls._contexts, "stack"):
+            cls._contexts.stack = []
+        return cls._contexts.stack
+
+    def __enter__(self):
+        self._stack().append(self)
+        return self
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        self._stack().remove(self)
+        return False
+
+    @classmethod
+    def get_context(cls) -> "InferenceContext":
+        if cls._stack():
+            return cls._stack()[-1]
+        raise Exception(f"no {cls.__name__} is active — enter one with `with make_context() as ctx:`")
+
+    # -- configuration -----------------------------------------------------------
+    def set_batch_shape(self, batch_shape):
+        batch_shape = tuple(batch_shape)
+        if self.batch_shape is None:
+            self.batch_shape = batch_shape
+        elif self.batch_shape != batch_shape:
+            raise BatchShapeAlreadySet(
+                f"Batch shape has already been set, and is not the same: {self.batch_shape} != {batch_shape}"
+            )
+
+    # -- registration ------------------------------------------------------------
+    def named_parameter(self, name: str, prior: Distribution) -> torch.Tensor:
+        """Register ``prior`` under ``name`` and return the parameter's value,
+        sampled from the prior on first registration. Registering another
+        prior under a known name raises, unless inside
+        :meth:`no_prior_verification`."""
+        if self.batch_shape is None:
+            raise BatchShapeNotSet("property `batch_shape` not set! Have you called `set_batch_shape`?")
+        if name in self._prior_dict:
+            if not self._verify_prior or self._prior_dict[name].equivalent_to(prior):
+                return self._value_dict[name]
+            raise NotSamePriorError(f"parameter '{name}' is already registered under a different prior")
+        if tuple(prior.batch_shape) != ():
+            raise ValueError("You cannot pass a batched distribution as a prior!")
+
+        self._prior_dict[name] = prior
+        self._value_dict[name] = prior.sample(self.generator, self.batch_shape)
+        self._shape_dict[name] = tuple(prior.event_shape)
+        self._unconstrained_shape_dict[name] = prior_ops.unconstrained_event_shape(prior)
+        return self._value_dict[name]
+
+    # -- access --------------------------------------------------------------------
+    @property
+    def parameters(self) -> Dict[str, torch.Tensor]:
+        return self._value_dict
+
+    def get_parameter(self, name: str) -> torch.Tensor:
+        if name in self._value_dict:
+            return self._value_dict[name]
+        raise ParameterDoesNotExist(f"No such parameter '{name}'!")
+
+    def get_prior(self, name: str) -> Distribution:
+        return self._prior_dict.get(name, None)
+
+    def bound_parameter(self, name: str) -> PriorBoundParameter:
+        self.get_parameter(name)
+        return PriorBoundParameter(self, name)
+
+    def get_parameters(self, constrained: bool = True) -> Iterable[Tuple[str, torch.Tensor]]:
+        for k, v in self._value_dict.items():
+            yield k, (v if constrained else prior_ops.get_unconstrained(self._prior_dict[k], v))
+
+    def update_parameter(self, name: str, value, constrained: bool = True):
+        value = torch.as_tensor(value, dtype=torch.float32, device=self.device)
+        if not constrained:
+            value = prior_ops.get_constrained(self._prior_dict[name], value)
+        self._value_dict[name] = value
+
+    # -- stack / unstack -----------------------------------------------------------
+    def _shapes(self, constrained: bool) -> Dict[str, tuple]:
+        return self._shape_dict if constrained else self._unconstrained_shape_dict
+
+    def stack_parameters(self, constrained: bool = True) -> torch.Tensor:
+        """All parameters flattened to ``(batch_numel, total_event_numel)``."""
+        shapes = self._shapes(constrained)
+        return torch.cat(
+            [v.reshape(-1, math.prod(shapes[n])) for n, v in self.get_parameters(constrained)], dim=-1
+        )
+
+    def unstack_parameters(self, x: torch.Tensor, constrained: bool = True) -> "InferenceContext":
+        """A new context holding the values unstacked from ``x`` (the inverse
+        of :meth:`stack_parameters`)."""
+        shapes = self._shapes(constrained)
+        total = sum(math.prod(s) for s in shapes.values())
+        if total != x.shape[-1]:
+            raise ValueError(
+                f"stacked vector has {x.shape[-1]} elements but the context's "
+                f"registered parameters unstack to {total}"
+            )
+        new = self._clone_registry()
+        index = 0
+        for name, prior in self._prior_dict.items():
+            numel = math.prod(shapes[name])
+            chunk = x[..., index : index + numel].reshape(self.batch_shape + shapes[name])
+            new._value_dict[name] = chunk if constrained else prior_ops.get_constrained(prior, chunk)
+            index += numel
+        return new
+
+    # -- evaluation ------------------------------------------------------------------
+    def initialize_parameters(self):
+        """No-op: sampling happens at registration."""
+
+    def eval_priors(self, constrained: bool = True) -> torch.Tensor:
+        total = 0.0
+        for name, prior in self._prior_dict.items():
+            total = total + prior_ops.eval_prior(prior, self._value_dict[name], constrained=constrained)
+        return total
+
+    # -- lane surgery ------------------------------------------------------------------
+    def _clone_registry(self) -> "InferenceContext":
+        new = InferenceContext.__new__(InferenceContext)
+        new.__dict__.update(self.__dict__)
+        for name in ("_prior_dict", "_value_dict", "_shape_dict", "_unconstrained_shape_dict"):
+            setattr(new, name, OrderedDict(getattr(self, name)))
+        return new
+
+    def resample(self, indices: torch.Tensor) -> "InferenceContext":
+        """Gather the parameter lanes (one lane axis, dim 0) by ``indices``."""
+        if len(self.batch_shape or ()) != 1:
+            raise ValueError(f"lane resampling needs a 1-D batch shape; context has {self.batch_shape}")
+        new = self._clone_registry()
+        idx = indices.long()
+        for name, v in self._value_dict.items():
+            new._value_dict[name] = v.index_select(0, idx)
+        return new
+
+    def exchange(self, other: "InferenceContext", mask: torch.Tensor) -> "InferenceContext":
+        """Lanes where ``mask`` is True take ``other``'s values."""
+        new = self._clone_registry()
+        for name, v in self._value_dict.items():
+            m = mask.reshape(tuple(mask.shape) + (1,) * len(self._shape_dict[name]))
+            new._value_dict[name] = torch.where(m, other.get_parameter(name), v)
+        return new
+
+    def absorb(self, other: "InferenceContext") -> "InferenceContext":
+        """Adopt ``other``'s values in place (the same registry)."""
+        if set(other._prior_dict) != set(self._prior_dict):
+            raise ValueError("cannot absorb a context with different parameters")
+        self._value_dict = OrderedDict(other._value_dict)
+        return self
+
+    @contextmanager
+    def no_prior_verification(self):
+        """Skip the prior-equivalence check while a model is rebuilt."""
+        try:
+            self._verify_prior = False
+            yield self
+        finally:
+            self._verify_prior = True
+
+
+def make_context(generator: torch.Generator | None = None, device=None) -> InferenceContext:
+    """An inference context on ``device`` (the card unless ``device="cpu"``)."""
+    return InferenceContext(generator=generator, device=device)

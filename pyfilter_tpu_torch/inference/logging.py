@@ -1,0 +1,33 @@
+"""Logging hooks (counterpart of ``pyfilter_tpu/inference/logging.py``;
+``DefaultLogger`` only, since ``tqdm`` is not a dependency of the port)."""
+
+from __future__ import annotations
+
+from contextlib import contextmanager
+from typing import Callable, Optional
+
+
+class DefaultLogger:
+    """Calls ``func(iteration, state)`` every ``log_every_iteration`` steps."""
+
+    def __init__(self, func: Optional[Callable] = None, log_every_iteration: int = 1):
+        self._func = func
+        self._per_iter = int(log_every_iteration)
+
+    @contextmanager
+    def initialize(self, algorithm, num_iterations: int):
+        try:
+            self.initialize_hook(algorithm, num_iterations)
+            yield self
+        finally:
+            self.teardown_hook()
+
+    def initialize_hook(self, algorithm, num_iterations: int):
+        pass
+
+    def teardown_hook(self):
+        pass
+
+    def do_log(self, iteration: int, state):
+        if self._func is not None and iteration % self._per_iter == 0:
+            self._func(iteration, state)

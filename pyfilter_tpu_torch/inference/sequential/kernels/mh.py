@@ -1,0 +1,104 @@
+"""Particle Metropolis-Hastings rejuvenation kernel for SMC².
+
+Counterpart of ``pyfilter_tpu/inference/sequential/kernels/mh.py``, its eager
+path: resample the parameter lanes, fit the proposal MVN on the cloud before
+the resample, run up to ``num_steps`` PMMH transitions over the whole
+observed history (each a full re-filter), and, when the running acceptance
+rate falls below the threshold, double the state-particle count and
+re-filter the history once more. The acceptance rate is read on the host
+once per transition.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+from ....resampling import systematic
+from ...batch.mcmc.proposals import BaseProposal, SymmetricMH
+from ...batch.mcmc.utils import run_pmmh
+from ...state import RunningFilterResult, SMC2State
+
+
+class TooManyIncreases(Exception):
+    pass
+
+
+class MHUpdate(NamedTuple):
+    context: object
+    filter_: object
+    state: SMC2State
+
+
+class ParticleMetropolisHastings:
+    def __init__(
+        self,
+        num_steps: int = 1,
+        proposal: BaseProposal = None,
+        acceptance_threshold: float = 0.2,
+        max_increases: int = 5,
+        resampler=systematic,
+    ):
+        self._n_steps = int(num_steps)
+        self._proposal = proposal or SymmetricMH()
+        self._acceptance_threshold = acceptance_threshold
+        self._max_increases = int(max_increases)
+        self._increases = 0
+        self._resampler = resampler
+        #: device-to-host reads of acceptance rates since the count was set to 0
+        self.n_host_syncs = 0
+        #: rejuvenations, PMMH transitions and particle doublings run, since
+        #: the counts were set to 0
+        self.n_rejuvenations = 0
+        self.n_transitions = 0
+        self.n_doublings = 0
+
+    @property
+    def proposal(self) -> BaseProposal:
+        return self._proposal
+
+    def update(self, generator, context, filter_, state: SMC2State) -> MHUpdate:
+        self.n_rejuvenations += 1
+        y = state.parsed_data_host
+        indices = self._resampler(generator, state.normalized_weights(), normalized=True)
+        # the proposal is fitted on the cloud BEFORE the lane resample
+        dist = self._proposal.build(context, state, filter_, y)
+        context = context.resample(indices)
+        state.filter_state = state.filter_state.resample(indices)
+        size = () if tuple(dist.batch_shape) else (filter_.batch_shape[0],)
+
+        acceptance_rate = 0.0
+        for i in range(self._n_steps):
+            step = run_pmmh(generator, context, state, self._proposal, dist, filter_, y, size=size)
+            context = step.context
+            state.filter_state = step.filter_state
+            self.n_transitions += 1
+            rate = float(step.accepted.float().mean())  # the transition's host sync
+            self.n_host_syncs += 1
+            acceptance_rate = (rate + i * acceptance_rate) / (i + 1)
+            # abort early rather than spend transitions at a low acceptance
+            if acceptance_rate < self._acceptance_threshold:
+                return self._increase_states(generator, context, filter_, state)
+
+        state.w = state.w.new_zeros(state.w.shape)
+        return MHUpdate(context, filter_.initialize_model(context), state)
+
+    def _increase_states(self, generator, context, filter_, state: SMC2State) -> MHUpdate:
+        """Double the state-particle count and re-filter the whole history;
+        the lane weights restart from the log-likelihood gain."""
+        self._increases += 1
+        if self._increases > self._max_increases:
+            raise TooManyIncreases(f"Configuration only allows {self._max_increases}!")
+        self.n_doublings += 1
+
+        new_filter = filter_.initialize_model(context).increase_particles(2)
+        new_res = new_filter.batch_filter(generator, state.parsed_data_host)
+        weight = new_res.log_likelihood - state.filter_state.log_likelihood
+
+        new_state = SMC2State(
+            weight,
+            RunningFilterResult.from_filter_result(new_res, record_moments=state.filter_state.record_moments),
+            parsed_data=state.parsed_data,
+        )
+        new_state.ess = state.ess
+        new_state.current_iteration = state.current_iteration
+        return MHUpdate(context, new_filter, new_state)

@@ -1,7 +1,14 @@
-"""The resampling ops of the SMC hot path, and the hand-written CUDA kernel
-that carries the fused resample + gather on the card."""
+"""The resampling ops of the SMC hot path, and the hand-written CUDA kernels
+that carry the fused resample + gather on the card (single lane and lane
+batches)."""
 
-from .expand import expand_from_counts, fused_expand, systematic_expand
+from .expand import (
+    expand_from_counts,
+    fused_expand,
+    fused_expand_lanes,
+    systematic_expand,
+    systematic_expand_lanes,
+)
 from .resample import prob_cumsum, systematic_counts
 
 __all__ = [
@@ -9,5 +16,7 @@ __all__ = [
     "systematic_expand",
     "expand_from_counts",
     "fused_expand",
+    "systematic_expand_lanes",
+    "fused_expand_lanes",
     "prob_cumsum",
 ]

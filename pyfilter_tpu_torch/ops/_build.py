@@ -1,6 +1,6 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+Each ``csrc/<name>.cu`` (``SOURCES``) has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``build/kernels/lib<name>_<hash>.so`` at the
 root of the checkout, at first use, then loaded with ``ctypes``. The hash
 covers the source and the flags, so an edited source builds anew.
@@ -13,6 +13,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
@@ -38,10 +39,12 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
-def build(name: str = "expand", ptxas_info: bool = False) -> str | None:
-    """Compile ``csrc/<name>.cu`` unless its library is built. Returns the
-    compiler's messages (with ``ptxas_info``, the registers and shared
-    memory of each kernel), or None when the library was already built."""
+SOURCES = ("expand", "expand_lanes")
+
+
+def _start(name: str, ptxas_info: bool):
+    """Start ``nvcc`` on ``csrc/<name>.cu`` unless its library is built.
+    Returns ``(process, temporary output)`` or None."""
     out = library_path(name)
     if out.exists():
         return None
@@ -49,11 +52,33 @@ def build(name: str = "expand", ptxas_info: bool = False) -> str | None:
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_info else []),
            "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp
+
+
+def _finish(name: str, started) -> str | None:
+    if started is None:
+        return None
+    proc, tmp = started
+    text = proc.communicate()[0]
     if proc.returncode:
-        raise RuntimeError(f"{name}.cu: nvcc exited with {proc.returncode}\n{proc.stdout}")
-    os.replace(tmp, out)
-    return proc.stdout
+        raise RuntimeError(f"{name}.cu: nvcc exited with {proc.returncode}\n{text}")
+    os.replace(tmp, library_path(name))
+    return text
+
+
+def build(name: str = "expand", ptxas_info: bool = False) -> str | None:
+    """Compile ``csrc/<name>.cu`` unless its library is built. Returns the
+    compiler's messages (with ``ptxas_info``, the registers and shared
+    memory of each kernel), or None when the library was already built."""
+    return _finish(name, _start(name, ptxas_info))
+
+
+def build_all(names=SOURCES, ptxas_info: bool = False) -> dict:
+    """Compile every named source, one ``nvcc`` each, all started together.
+    Returns ``{name: (messages or None, seconds until that build ended)}``."""
+    t0 = time.perf_counter()
+    started = {name: _start(name, ptxas_info) for name in names}
+    return {name: (_finish(name, s), time.perf_counter() - t0) for name, s in started.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

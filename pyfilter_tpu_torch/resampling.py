@@ -1,0 +1,44 @@
+"""Resampling schemes: ``systematic`` (the search-based one).
+
+Counterpart of ``pyfilter_tpu/resampling.py`` (``systematic`` only; the other
+schemes come later). SMC²'s rejuvenation resamples its parameter lanes with
+it; the particle clouds take the counts-based expansion in ``ops``.
+Conventions: ``(N, *batch)`` unnormalized log-weights with the particle axis
+first (``normalized=True`` for probabilities), one uniform per lane from an
+explicit ``torch.Generator`` unless ``u`` is given, int32 indices of the
+weights' shape.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .utils import normalize
+
+__all__ = ["systematic"]
+
+
+def systematic(
+    generator: torch.Generator | None,
+    weights: torch.Tensor,
+    normalized: bool = False,
+    u: torch.Tensor | float | None = None,
+) -> torch.Tensor:
+    """Systematic resampling: positions ``(i + u) / N``, cumulative weights
+    with the last one forced to 1, and ``searchsorted(side="right")`` (a
+    position on a tie never selects a zero-weight particle)."""
+    probs = weights if normalized else normalize(weights, dim=0)
+    n, batch_shape = probs.shape[0], tuple(probs.shape[1:])
+    if u is None:
+        if generator is None:
+            raise ValueError("either generator or u must be provided")
+        u = torch.rand(batch_shape, generator=generator, dtype=probs.dtype, device=probs.device)
+    u = torch.as_tensor(u, dtype=probs.dtype, device=probs.device).expand(batch_shape)
+
+    cumw = torch.cumsum(probs, dim=0)
+    cumw[-1] = 1.0
+    offsets = torch.arange(n, dtype=probs.dtype, device=probs.device).reshape((n,) + (1,) * len(batch_shape))
+    positions = ((offsets + u) / n).expand(probs.shape)
+    # lanes leading, (B, N): searchsorted runs along the last axis
+    idx = torch.searchsorted(cumw.reshape(n, -1).T.contiguous(), positions.reshape(n, -1).T.contiguous(), right=True)
+    return torch.clamp(idx, max=n - 1).to(torch.int32).T.reshape(probs.shape)

@@ -1,6 +1,8 @@
 """The port's resampling ops held against the JAX package: the two-stage
-cumulative sum, the counts resampler, and the fused resample + gather
-(``_expand_kernel`` in the JAX package, a CUDA kernel in the port).
+cumulative sum, the counts resampler, the fused resample + gather
+(``_expand_kernel`` in the JAX package, a CUDA kernel in the port), and its
+lane-batched form (``_expand_lane_band_kernel`` / ``_expand_lane_block_kernel``
+in the JAX package, one CUDA kernel in the port).
 
 On the CPU the port's wrapper runs the kernel's plain version (counts
 inversion + ``index_select``); the JAX expansion runs its Pallas kernel in
@@ -183,6 +185,97 @@ def test_resampler_from_weights_large_n_ties():
         assert np.all(np.abs(cj[lo:hi].astype(np.int64) - i - 0.5) == 0.5)
 
 
+# -- lane batches ----------------------------------------------------------------
+_LANE_CASES = [(400, (16,)), (400, (200,)), (257, (5,)), (72, (16,)), (40, (16,)), (3000, (3,))]
+
+
+def _jax_lane_counts(lw, u):
+    """Per-lane copy-count boundaries ``(n, L)`` with the JAX package's own
+    arithmetic (``pyfilter_tpu/ops/expand.py:749-753``)."""
+    n = lw.shape[0]
+    probs = jutils.normalize(jnp.asarray(lw), axis=0).reshape(n, -1)
+    cumw = jnp.cumsum(probs, axis=0).at[-1, :].set(1.0)
+    counts = jnp.clip(jnp.ceil(n * cumw - jnp.asarray(u).reshape(-1)[None, :]), 0, n).astype(jnp.int32)
+    return np.asarray(counts.at[-1, :].set(n))
+
+
+def _lane_case(n, batch, scale, seed):
+    """N(0, scale) log-weights with lane 0 degenerate (all mass on one
+    particle: the first, middle or last, by ``seed``) and, where there is a
+    second lane, lane 1 drawn with ``u = 1.0``; two value arrays, as the APF
+    passes ``(x, pre_weights)``."""
+    rng = np.random.default_rng(seed)
+    lw = (rng.normal(size=(n, *batch)) * scale).astype(np.float32)
+    flat = lw.reshape(n, -1)
+    flat[:, 0] = -np.inf
+    flat[(0, n // 2, n - 1)[seed % 3], 0] = 0.0
+    u = rng.uniform(size=batch).astype(np.float32)
+    u.reshape(-1)[1:2] = 1.0
+    vals = (rng.normal(size=(n, *batch)).astype(np.float32), rng.normal(size=(n, *batch)).astype(np.float32))
+    return lw, u, vals
+
+
+def _planes(vals):
+    n = vals[0].shape[0]
+    return _t(np.stack([v.reshape(n, -1) for v in vals]))
+
+
+@pytest.mark.parametrize("scale", [1.0, 6.0])
+@pytest.mark.parametrize("n,batch", _LANE_CASES)
+def test_expand_lanes_plain_matches_jax_on_same_counts(n, batch, scale):
+    """On the JAX package's copy-count boundaries, the port's lane plain
+    version == per-lane JAX counts inversion + take, bit for bit, and agrees
+    with the port's own from-weights path where the counts agree."""
+    lw, u, vals = _lane_case(n, batch, scale, seed=n + len(batch) + int(scale))
+    counts = _jax_lane_counts(lw, u)  # (n, L)
+    inv = np.asarray(jax.vmap(jexpand._invert_counts)(jnp.asarray(counts.T))).T  # (n, L)
+    planes = _planes(vals)
+    out, idx = texpand._expand_lanes_plain(_t(counts.T.copy()), planes)
+    assert idx.dtype == torch.int32 and idx.shape == (n, planes.shape[2])
+    np.testing.assert_array_equal(idx.numpy(), inv)
+    np.testing.assert_array_equal(out.numpy(), np.take_along_axis(planes.numpy(), inv[None], axis=1))
+    assert (inv[:, 0] == (0, n // 2, n - 1)[(n + len(batch) + int(scale)) % 3]).all()
+
+
+@pytest.mark.parametrize("n,batch,scale", [(400, (16,), 6.0), (257, (5,), 1.0), (72, (16,), 1.0), (40, (16,), 1.0)])
+def test_expand_lanes_plain_matches_jax_kernel(n, batch, scale):
+    """Against JAX ``systematic_expand_lanes`` itself (its banded and
+    full-scan Pallas kernels, in interpret mode): indices and both value
+    arrays, bit for bit, on the same counts. Four cases of the set above
+    (interpret mode costs seconds per shape); the band tiers, the full-scan
+    fallback and n below every band window are among them."""
+    lw, u, vals = _lane_case(n, batch, scale, seed=n)
+    (jv, jp), jidx = jax.jit(lambda w, a, b, uu: jexpand.systematic_expand_lanes(None, w, (a, b), u=uu))(
+        jnp.asarray(lw), jnp.asarray(vals[0]), jnp.asarray(vals[1]), jnp.asarray(u)
+    )
+    counts = _jax_lane_counts(lw, u)
+    out, idx = texpand._expand_lanes_plain(_t(counts.T.copy()), _planes(vals))
+    np.testing.assert_array_equal(idx.numpy().reshape(jidx.shape), np.asarray(jidx))
+    np.testing.assert_array_equal(out[0].numpy().reshape(jv.shape), np.asarray(jv))
+    np.testing.assert_array_equal(out[1].numpy().reshape(jp.shape), np.asarray(jp))
+
+
+@pytest.mark.parametrize("n,batch,seed", [(400, (16,), 1), (257, (5,), 2), (512, (4, 3), 5)])
+def test_lane_resampler_from_weights_matches_jax(n, batch, seed):
+    """From log-weights (each package normalizes and sums on its own) at
+    n <= 512, seeds without ties: the port's fused lane resample gives the
+    JAX package's ``systematic_counts`` indices, and gathers each value
+    array by them."""
+    rng = np.random.default_rng(seed)
+    lw = rng.normal(0.0, 2.0, (n, *batch)).astype(np.float32)
+    u = rng.uniform(size=batch).astype(np.float32)
+    vals = rng.normal(size=(n, *batch, 2)).astype(np.float32)
+    want = np.asarray(j_counts(None, jnp.asarray(lw), u=jnp.asarray(u)))
+    (tv, tw), idx = texpand.systematic_expand_lanes(None, _t(lw), (_t(vals), _t(lw)), u=_t(u))
+    np.testing.assert_array_equal(idx.numpy(), want)
+    np.testing.assert_array_equal(tv.numpy(), np.take_along_axis(vals, want[..., None], axis=0))
+    np.testing.assert_array_equal(tw.numpy(), np.take_along_axis(lw, want, axis=0))
+    _, idx2 = texpand.systematic_expand_lanes(torch.Generator().manual_seed(0), _t(lw), _t(vals))
+    assert idx2.shape == (n, *batch) and idx2.dtype == torch.int32
+    # the kernel takes contiguous counts only
+    assert texpand._lane_counts_from_probs(torch.softmax(_t(lw).reshape(n, -1), 0), _t(u).reshape(-1)).is_contiguous()
+
+
 def test_fused_expand_refuses_other_devices():
     """The wrapper takes the plain version only for CPU tensors: anything
     else launches the kernel or raises — no quiet fallback."""
@@ -190,6 +283,8 @@ def test_fused_expand_refuses_other_devices():
     v2d = torch.empty(1, 8, dtype=torch.float32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         texpand.fused_expand(counts, v2d)
+    with pytest.raises(ValueError, match="CUDA"):
+        texpand.fused_expand_lanes(counts.reshape(2, 4), v2d.reshape(1, 4, 2))
 
 
 if __name__ == "__main__":
