@@ -10,8 +10,10 @@ Phases, in order; any failure exits non-zero before the result line:
    (``nvidia-smi``) and the torch and CUDA versions.
 2. Build: compiles the port's CUDA sources with ``nvcc`` into
    ``build/kernels/``, one ``nvcc`` per source, all started together.
-3. Kernels: each kernel against its plain PyTorch version on the card, at
-   the main paths' shapes and at the edge cases, bit for bit.
+3. Kernels: each kernel (counts prep from probabilities and expansion)
+   against its plain PyTorch version on the card, at the main paths' shapes
+   and at the edge cases (degenerate, zero-run, uniform and sub-2^-60
+   weights; uniforms 0, 2^-24, 0.5, 1-2^-24, 1), bit for bit.
 4. Main path: bootstrap SISR on the stochastic-volatility model at
    N = 1e6, T = 200 observations (5 hidden sub-steps each): one warm-up run,
    then three timed runs with every kernel's launch count set to 0 before
@@ -19,15 +21,16 @@ Phases, in order; any failure exits non-zero before the result line:
    the filter resampled (and more than 0 times), and that the estimate
    agrees with the mean of the port's CPU runs (plain versions) within
    ``LL_TOL``.
-   Times each kernel on the main path's own data against its plain version,
-   a one-call PyTorch yardstick and its memory bound.
+   Times the kernel on the main path's own data against its plain version,
+   the PyTorch chain from probabilities (cumsum, ceil, searchsorted,
+   index_select), its memory bound, the plain counts prep and the
+   counts-only yardstick of earlier runs.
 5. Lane-batched APF: the APF at N = 400 particles on K = 1000 lanes, every
    lane with the true parameters, over the same T = 200 observations: 1000
    independent log-likelihood estimates. Checks that the lane kernel ran
    once per APF step, and that the mean over lanes agrees with the same
    filter's on the CPU (plain versions) within 4 standard errors. Times the
-   lane kernel on the last cloud against its plain version, a PyTorch
-   yardstick, its memory bound and its counts prep.
+   lane kernel on the last cloud as phase 4 times the expand kernel.
 6. Main path 2: SMC² at ``bench.py``'s configuration (APF 400 x K = 1000
    parameter lanes, threshold 0.2, two PMMH steps, T = 200): one warm-up
    fit, then timed fits with every count set to 0 before them. Checks
@@ -35,7 +38,9 @@ Phases, in order; any failure exits non-zero before the result line:
    re-filter), the posterior's bounds, and the gap to one fit on the CPU
    within ``POST_TOL_SD`` posterior standard deviations.
 
-Prints a ``{"kernels": [...]}`` line, then, as the last line,
+With ``--profile``, also the device operations per observation (main path
+1) and per APF step (main path 2). Prints a ``{"kernels": [...]}`` line,
+then, as the last line,
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -57,6 +62,9 @@ MU, NU, TAU = 0.0, 0.0, 1.0
 N_TIMED = 3
 # H100 SXM data sheet: 3.35 TB/s of HBM3
 HBM_BYTES_PER_S = 3.35e12
+# the GPU spin that time_cold queues ahead of each timed call: about 1 ms at
+# the H100's clocks, longer than the host takes to launch any timed function
+SPIN_CYCLES = 2_000_000
 # The CPU reference: the same filter through the plain versions, at
 # N_CPU_REF particles, one run per seed, averaged. Its Monte Carlo standard
 # deviation is about 0.015 nats per run at N = 65536 and the card's three
@@ -104,14 +112,22 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_cold(torch, fn, reps: int = 20) -> float:
+def time_cold(torch, fn, reps: int = 20, spin: bool = True) -> float:
     """Median milliseconds of ``fn()`` on the card, timed with CUDA events,
-    with the 50 MB L2 cache flushed before each launch (untimed)."""
+    with the 50 MB L2 cache flushed before each launch (untimed). With
+    ``spin``, a GPU spin of about 1 ms (``torch.cuda._sleep``) is queued
+    between the flush and the start event, so the host has enqueued all of
+    ``fn``'s work before the card reaches it: the time is the device's, not
+    the host's launch cost. Without it (how earlier runs timed), a function
+    whose launches take the host longer than the flush takes the card also
+    counts the host's gaps."""
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")  # 256 MB
     fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -122,34 +138,64 @@ def time_cold(torch, fn, reps: int = 20) -> float:
     return times[len(times) // 2]
 
 
+# the uniforms where a wrong rounding shows: every n * cumw - u of uniform
+# weights lies near an integer
+EDGE_US = (0.0, 2.0**-24, 0.5, 1.0 - 2.0**-24, 1.0)
+
+
+def edge_probs(torch, n: int, name: str, dev):
+    """Probabilities ``(n,)`` where a wrong rounding or a missing pin shows:
+    uniform, or masses below 2^-60 (no fixed-point mass) beside healthy ones."""
+    if name == "uniform":
+        return torch.full((n,), 1.0 / n, device=dev)
+    p = torch.rand(n, generator=torch.Generator(device=dev).manual_seed(n), device=dev) + 0.5
+    p[::3] = 1e-20
+    p[1::5] = 2.0**-61
+    return p / p.sum()
+
+
+def library_chain(torch, probs, u, v2d, grid):
+    """The library yardstick from probabilities, single lane: float32
+    ``torch.cumsum``, ``ceil(n * c - u)``, ``searchsorted``, ``index_select``
+    (timed only here; its float sum is not the port's exact one)."""
+    n = probs.shape[0]
+    counts = torch.clamp(torch.ceil(n * torch.cumsum(probs, 0) - u), 0, n).to(torch.int32)
+    return v2d.index_select(1, torch.clamp(torch.searchsorted(counts, grid, right=True, out_int32=True), max=n - 1))
+
+
 def check_expand(torch, expand) -> float:
-    """Phase 3: the expand kernel against its plain version, bit for bit."""
+    """Phase 3: the expand kernel (counts prep and expansion) against its plain
+    version, bit for bit: random, wide, degenerate and zero-run weights with a
+    random u and u = 1; uniform and sub-2^-60 probabilities at the edge uniforms."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     n_cases, worst = 0, 0.0
-    for n in (1_000_000, 1_000_003, 257):
+    for n in (1_000_000, 1_000_003, 8193, 257, 2, 1):
         ar = torch.arange(n, device=dev)
         weights = {"random": torch.randn(n, generator=g, device=dev) * 0.5,
                    "random-wide": torch.randn(n, generator=g, device=dev) * 2.0}
         for name, hot in (("hot-first", 0), ("hot-middle", n // 2), ("hot-last", n - 1)):
             weights[name] = torch.full((n,), -math.inf, device=dev).index_fill_(0, torch.tensor([hot], device=dev), 0.0)
         weights["zero-runs"] = torch.where(ar % 3 == 0, 0.0, -math.inf)
+        cases = [(name, torch.softmax(lw, dim=0), u) for name, lw in weights.items()
+                 for u in (float(torch.rand((), generator=g, device=dev)), 1.0)]
+        cases += [(name, edge_probs(torch, n, name, dev), u) for name in ("uniform", "tiny") for u in EDGE_US]
         for d in (1, 3):
             v2d = torch.randn(d, n, generator=g, device=dev)
-            for name, lw in weights.items():
-                for u in (float(torch.rand((), generator=g, device=dev)), 1.0):
-                    probs = torch.softmax(lw, dim=0)
-                    counts = expand._counts_from_probs(probs, torch.tensor(u, device=dev))
-                    out, idx = expand.fused_expand(counts, v2d)
-                    ref_out, ref_idx = expand._expand_plain(counts, v2d)
-                    worst = max(worst, float((out - ref_out).abs().max()))
-                    if not (torch.equal(idx, ref_idx) and torch.equal(out, ref_out)):
-                        bad = int((idx != ref_idx).sum())
-                        raise AssertionError(f"expand kernel != plain at n={n} d={d} {name} u={u}: {bad} indices differ")
-                    n_cases += 1
+            for name, probs, u in cases:
+                ut = torch.tensor(u, device=dev)
+                out, idx = expand.fused_expand(probs, ut, v2d)
+                ref_out, ref_idx = expand._expand_probs_plain(probs, ut, v2d)
+                worst = max(worst, float((out - ref_out).abs().max()))
+                if not (torch.equal(idx, ref_idx) and torch.equal(out, ref_out)):
+                    bad = int((idx != ref_idx).sum())
+                    raise AssertionError(f"expand kernel != plain at n={n} d={d} {name} u={u}: {bad} indices differ")
+                n_cases += 1
     torch.cuda.synchronize()
-    print(f"phase 3: expand kernel == plain version on {n_cases} cases (n in 1e6, 1e6+3, 257; d in 1, 3); "
-          "tolerance: bit for bit (torch.equal), since indices are integers and the gather copies")
+    print(f"phase 3: expand kernel == plain version on {n_cases} cases (n in 1e6, 1e6+3, 8193, 257, 2, 1; "
+          "d in 1, 3; random, degenerate, zero-run, uniform and sub-2^-60 probabilities; u random, "
+          "0, 2^-24, 0.5, 1-2^-24, 1); tolerance: bit for bit (torch.equal), since indices are integers "
+          "and the gather copies")
     return worst
 
 
@@ -167,6 +213,7 @@ def main(argv) -> int:
 
     import pyfilter_tpu_torch as pt
     from pyfilter_tpu_torch.ops import _build, expand
+    from pyfilter_tpu_torch.ops.resample import copy_counts
 
     # -- 1. device --------------------------------------------------------
     card = card_line()
@@ -241,32 +288,44 @@ def main(argv) -> int:
     # the expand kernel on the main path's own data: the last cloud and weights
     state = res.latest_state
     probs = pt.normalize(state.log_weights)
-    counts = expand._counts_from_probs(probs, torch.rand((), device="cuda"))
+    u = torch.rand((), device="cuda")
     v2d = state.x.value.reshape(1, -1).contiguous()
     n, d = N_PARTICLES, 1
     grid = torch.arange(n, dtype=torch.int32, device="cuda")
-    ref_out, ref_idx = expand._expand_plain(counts, v2d)
-    out, idx = expand.fused_expand(counts, v2d)
+    counts = copy_counts(probs, u)
+    ref_out, ref_idx = expand._expand_probs_plain(probs, u, v2d)
+    out, idx = expand.fused_expand(probs, u, v2d)
     lib_idx = torch.searchsorted(counts, grid, right=True, out_int32=True)
+    chain_out = library_chain(torch, probs, u, v2d, grid)
     torch.cuda.synchronize()
     err = float((out - ref_out).abs().max())
     if not (torch.equal(idx, ref_idx) and torch.equal(lib_idx, ref_idx) and err == 0.0):
         raise AssertionError("expand kernel, plain version and library call disagree on the main path's data")
-    prep_ms = time_cold(torch, lambda: expand._counts_from_probs(probs, torch.rand((), device="cuda")))
-    k_ms = time_cold(torch, lambda: expand.fused_expand(counts, v2d))
-    p_ms = time_cold(torch, lambda: expand._expand_plain(counts, v2d))
-    l_ms = time_cold(torch, lambda: v2d.index_select(1, torch.searchsorted(counts, grid, right=True, out_int32=True)))
-    bound_ms = (4 * n + 4 * d * n + 4 * d * n + 4 * n) / HBM_BYTES_PER_S * 1e3
-    print(f"  expand per fire (n={n}, d={d}, L2 flushed): kernel {k_ms} ms, plain {p_ms} ms, "
-          f"library {l_ms} ms, bound {bound_ms} ms (bytes); card {card}")
-    print(f"  resample prep per fire (cumsum, ceil, running max; L2 flushed): {prep_ms} ms; card {card}")
+    k_ms = time_cold(torch, lambda: expand.fused_expand(probs, u, v2d))
+    k_nospin_ms = time_cold(torch, lambda: expand.fused_expand(probs, u, v2d), spin=False)
+    p_ms = time_cold(torch, lambda: expand._expand_probs_plain(probs, u, v2d))
+    l_ms = time_cold(torch, lambda: library_chain(torch, probs, u, v2d, grid))
+    prep_ms = time_cold(torch, lambda: copy_counts(probs, u))
+    c_ms = time_cold(torch, lambda: v2d.index_select(1, torch.searchsorted(counts, grid, right=True, out_int32=True)))
+    # probs, u and values read once, out and idx written once
+    bound_ms = (4 * n + 4 + 4 * d * n + 4 * d * n + 4 * n) / HBM_BYTES_PER_S * 1e3
+    print(f"  expand per fire from probabilities (n={n}, d={d}, L2 flushed): kernel {k_ms} ms, plain {p_ms} ms, "
+          f"library chain (cumsum, ceil, searchsorted, index_select) {l_ms} ms, bound {bound_ms} ms (bytes), "
+          f"{bound_ms / k_ms:.4f} of the bound; card {card}")
+    print(f"  kernel timed without the spin (as earlier runs timed) {k_nospin_ms} ms; plain counts prep {prep_ms} ms; "
+          f"counts-only yardstick (searchsorted + index_select on ready counts) {c_ms} ms; library chain's outputs "
+          f"equal the kernel's at "
+          f"{float((chain_out == out).float().mean()):.6f} of positions (float32 cumsum); card {card}")
 
     if "--profile" in argv:
-        profile_run(torch, "main path 1", lambda: filt.batch_filter(torch.Generator(device="cuda").manual_seed(9), y),
-                    trace="main_path_trace.json")
+        filt.n_resamples = 0
+        ops = profile_run(torch, "main path 1",
+                          lambda: filt.batch_filter(torch.Generator(device="cuda").manual_seed(9), y),
+                          trace="main_path_trace.json")
+        print(f"  device operations per observation {ops / N_OBS:.2f} ({filt.n_resamples} resample fires)")
 
     # -- 5. the lane-batched APF ---------------------------------------------
-    lanes = apf_lanes(torch, pt, expand, y, card)
+    lanes = apf_lanes(torch, pt, expand, copy_counts, y, card)
 
     # -- 6. main path 2: SMC2 ---------------------------------------------------
     lanes["launches"] = smc2(torch, pt, expand, y, card, profile="--profile" in argv)
@@ -303,14 +362,17 @@ def main(argv) -> int:
 
 
 def check_expand_lanes(torch, expand) -> float:
-    """Phase 3: the lane kernel against its plain version, bit for bit, with
-    weight scales 1 and 6, one degenerate lane per case (all mass on the
-    first, middle or last particle), one lane of alternating zero-weight
-    runs, random uniforms and ``u == 1.0``."""
+    """Phase 3: the lane kernel (counts prep and expansion) against its plain
+    version, bit for bit, with weight scales 1 and 6, one degenerate lane per
+    case (all mass on the first, middle or last particle), one lane of
+    alternating zero-weight runs, one of uniform weights, random uniforms and
+    the edge uniforms. n = 7104 keeps the counts in shared memory and n = 7105
+    takes the kernel's global scratch route."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     n_cases, worst = 0, 0.0
-    for n, n_lanes in ((400, 1000), (257, 5), (40, 16), (72, 16), (800, 1000), (3200, 1000)):
+    shapes = ((400, 1000), (257, 5), (40, 16), (72, 16), (800, 1000), (3200, 1000), (7104, 40), (7105, 40), (2, 9))
+    for n, n_lanes in shapes:
         for d in (1, 2):
             planes = torch.randn(d, n, n_lanes, generator=g, device=dev)
             for scale in (1.0, 6.0):
@@ -319,11 +381,13 @@ def check_expand_lanes(torch, expand) -> float:
                     lw[:, 0] = -math.inf
                     lw[hot, 0] = 0.0
                     lw[:, 1] = torch.where(torch.arange(n, device=dev) % 3 == 0, 0.0, -math.inf)
+                    lw[:, 2] = 0.0
                     probs = torch.softmax(lw, dim=0)
-                    for u in (torch.rand(n_lanes, generator=g, device=dev), torch.ones(n_lanes, device=dev)):
-                        counts = expand._lane_counts_from_probs(probs, u)
-                        out, idx = expand.fused_expand_lanes(counts, planes)
-                        ref_out, ref_idx = expand._expand_lanes_plain(counts, planes)
+                    us = [torch.rand(n_lanes, generator=g, device=dev)]
+                    us += [torch.full((n_lanes,), u, device=dev) for u in (EDGE_US if hot == 0 else (1.0,))]
+                    for u in us:
+                        out, idx = expand.fused_expand_lanes(probs, u, planes)
+                        ref_out, ref_idx = expand._expand_lanes_probs_plain(probs, u, planes)
                         worst = max(worst, float((out - ref_out).abs().max()))
                         if not (torch.equal(idx, ref_idx) and torch.equal(out, ref_out)):
                             bad = int((idx != ref_idx).sum())
@@ -331,13 +395,13 @@ def check_expand_lanes(torch, expand) -> float:
                                                  f"hot={hot}: {bad} indices differ")
                         n_cases += 1
     torch.cuda.synchronize()
-    print(f"phase 3: lane kernel == plain version on {n_cases} cases ((n, L) in (400, 1000), (257, 5), (40, 16), "
-          "(72, 16), (800, 1000), (3200, 1000); d in 1, 2; scales 1, 6; a degenerate lane, zero-weight runs, "
-          "random u and u = 1); tolerance: bit for bit (torch.equal)")
+    print(f"phase 3: lane kernel == plain version on {n_cases} cases ((n, L) in {', '.join(map(str, shapes))}; "
+          "d in 1, 2; scales 1, 6; a degenerate lane, zero-weight runs, uniform weights, random u and u in "
+          "0, 2^-24, 0.5, 1-2^-24, 1); tolerance: bit for bit (torch.equal)")
     return worst
 
 
-def apf_lanes(torch, pt, expand, y, card) -> dict:
+def apf_lanes(torch, pt, expand, copy_counts, y, card) -> dict:
     """Phase 5: the APF at SMC2_N particles on SMC2_K lanes of the true
     parameters, on the card and on the CPU; then the lane kernel per fire."""
     import numpy as np
@@ -379,26 +443,41 @@ def apf_lanes(torch, pt, expand, y, card) -> dict:
     planes = torch.stack([state.x.value, pre]).contiguous()
     n, d = SMC2_N, planes.shape[0]
     u = torch.rand(SMC2_K, device="cuda")
-    counts = expand._lane_counts_from_probs(probs, u)
+    counts = copy_counts(probs.T, u).contiguous()  # (L, n)
     grid = torch.arange(n, dtype=torch.int32, device="cuda").expand(SMC2_K, n).contiguous()
 
-    def library():
+    def counts_only():
         lib_idx = torch.searchsorted(counts, grid, right=True)
         return torch.gather(planes, 1, lib_idx.T.unsqueeze(0).expand_as(planes))
 
-    out, idx = expand.fused_expand_lanes(counts, planes)
-    ref_out, ref_idx = expand._expand_lanes_plain(counts, planes)
+    def library():
+        """From probabilities: float32 cumsum, ceil(n * c - u), searchsorted, gather."""
+        c = torch.cumsum(probs, 0).T.contiguous()
+        lane_counts = torch.clamp(torch.ceil(n * c - u[:, None]), 0, n).to(torch.int32)
+        lib_idx = torch.clamp(torch.searchsorted(lane_counts, grid, right=True), max=n - 1)
+        return torch.gather(planes, 1, lib_idx.T.unsqueeze(0).expand_as(planes))
+
+    out, idx = expand.fused_expand_lanes(probs, u, planes)
+    ref_out, ref_idx = expand._expand_lanes_probs_plain(probs, u, planes)
     torch.cuda.synchronize()
     err = float((out - ref_out).abs().max())
-    if not (torch.equal(idx, ref_idx) and torch.equal(library(), ref_out) and err == 0.0):
+    if not (torch.equal(idx, ref_idx) and torch.equal(counts_only(), ref_out) and err == 0.0):
         raise AssertionError("lane kernel, plain version and library call disagree on phase 5's cloud")
-    prep_ms = time_cold(torch, lambda: expand._lane_counts_from_probs(probs, u))
-    k_ms = time_cold(torch, lambda: expand.fused_expand_lanes(counts, planes))
-    p_ms = time_cold(torch, lambda: expand._expand_lanes_plain(counts, planes))
+    chain_share = float((library() == out).float().mean())
+    k_ms = time_cold(torch, lambda: expand.fused_expand_lanes(probs, u, planes))
+    k_nospin_ms = time_cold(torch, lambda: expand.fused_expand_lanes(probs, u, planes), spin=False)
+    p_ms = time_cold(torch, lambda: expand._expand_lanes_probs_plain(probs, u, planes))
     l_ms = time_cold(torch, library)
-    bound_ms = (4 * n + 4 * d * n + 4 * d * n + 4 * n) * SMC2_K / HBM_BYTES_PER_S * 1e3
-    print(f"  lane expand per fire (n={n}, L={SMC2_K}, d={d}, L2 flushed): kernel {k_ms} ms, plain {p_ms} ms, "
-          f"library {l_ms} ms, bound {bound_ms} ms (bytes); counts prep {prep_ms} ms; card {card}")
+    prep_ms = time_cold(torch, lambda: copy_counts(probs.T, u))
+    c_ms = time_cold(torch, counts_only)
+    # probs, u and values read once, out and idx written once
+    bound_ms = ((4 * n + 4 * d * n + 4 * d * n + 4 * n) * SMC2_K + 4 * SMC2_K) / HBM_BYTES_PER_S * 1e3
+    print(f"  lane expand per fire from probabilities (n={n}, L={SMC2_K}, d={d}, L2 flushed): kernel {k_ms} ms, "
+          f"plain {p_ms} ms, library chain (cumsum, ceil, searchsorted, gather) {l_ms} ms, bound {bound_ms} ms "
+          f"(bytes), {bound_ms / k_ms:.4f} of the bound; card {card}")
+    print(f"  kernel timed without the spin (as earlier runs timed) {k_nospin_ms} ms; plain counts prep {prep_ms} ms; "
+          f"counts-only yardstick (searchsorted + gather on ready counts) {c_ms} ms; library chain's outputs "
+          f"equal the kernel's at {chain_share:.6f} of positions (float32 cumsum); card {card}")
     return {"err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": bound_ms}
 
 
@@ -468,7 +547,10 @@ def smc2(torch, pt, expand, y, card, profile: bool = False) -> int:
             raise AssertionError(f"card and CPU posterior means differ by more than {POST_TOL_SD} sd: {gaps}")
 
     if profile:
-        profile_run(torch, "main path 2", lambda: fit("cuda", 99))
+        steps = pt.APF.corrections
+        ops = profile_run(torch, "main path 2", lambda: fit("cuda", 99))
+        steps = pt.APF.corrections - steps
+        print(f"  device operations per APF step {ops / steps:.2f} ({steps} APF steps in the traced fit)")
 
     # the per-step host syncs: one scalar read each, as the trigger makes it
     ess = torch.ones((), device="cuda")
@@ -485,7 +567,8 @@ def smc2(torch, pt, expand, y, card, profile: bool = False) -> int:
 def profile_run(torch, label: str, fn, trace: str | None = None):
     """One run of ``fn`` under ``torch.profiler``: device-busy time, idle
     share and the kernels by device time; the trace, when named, goes to
-    ``build/profile/`` (git-ignored)."""
+    ``build/profile/`` (git-ignored). Returns the device operations traced
+    (kernel launches and copies)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -505,13 +588,14 @@ def profile_run(torch, label: str, fn, trace: str | None = None):
     launches = sum(r[1] for r in rows)
     print(f"profile ({label}): wall {wall * 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
           f"idle share {1 - busy_us / 1e6 / wall:.4f} ({len(rows)} kernels by name, {launches} launches)")
-    for us, count, key in rows[:15]:
-        if us:
-            print(f"  {us / 1e3:10.3f} ms  x{count:<6d} {key[:90]}")
+    for rank, (us, count, key) in enumerate(rows):
+        if us and (rank < 15 or "expand" in key or "scan_counts" in key):  # the port's kernels always
+            print(f"  {us / 1e3:10.3f} ms  x{count:<6d} {us / count:9.3f} us each  {key[:90]}")
     if trace:
         out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "profile")
         os.makedirs(out_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(out_dir, trace))
+    return launches
 
 
 if __name__ == "__main__":

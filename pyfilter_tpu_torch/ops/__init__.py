@@ -3,7 +3,6 @@ that carry the fused resample + gather on the card (single lane and lane
 batches)."""
 
 from .expand import (
-    expand_from_counts,
     fused_expand,
     fused_expand_lanes,
     systematic_expand,
@@ -14,7 +13,6 @@ from .resample import prob_cumsum, systematic_counts
 __all__ = [
     "systematic_counts",
     "systematic_expand",
-    "expand_from_counts",
     "fused_expand",
     "systematic_expand_lanes",
     "fused_expand_lanes",

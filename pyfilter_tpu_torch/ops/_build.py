@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` (``SOURCES``) has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``build/kernels/lib<name>_<hash>.so`` at the
 root of the checkout, at first use, then loaded with ``ctypes``. The hash
-covers the source and the flags, so an edited source builds anew.
+covers the source, the shared headers ``csrc/*.cuh`` and the flags, so an
+edited source or header builds anew.
 """
 
 from __future__ import annotations
@@ -34,8 +35,8 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    parts = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 

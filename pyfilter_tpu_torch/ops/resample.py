@@ -6,74 +6,83 @@ Counterpart of ``pyfilter_tpu/ops/resample.py``. For systematic positions
 are the inverse of that monotone sequence: ``idx[i] = #{j : n_{j-1} <= i} - 1``,
 one integer scatter-add and one integer cumsum.
 
-The cumulative sum keeps the JAX package's two-stage order above 2^17 (512-wide
-rows). ``torch.cumsum`` and ``jnp.cumsum`` still add in different orders, so at
-large N a copy-count boundary ``N c_j - u`` can land on the other side of an
-integer, and then differs by exactly 1 (on the CPU, from the same
-probabilities, N(0, 2) log-weights, seed 0, u = 0.37: none of 512, 157 of 1e5
-and 12,833 of 1e6 boundaries differ, counted by
-``PYTHONPATH=. python tests/test_torch_port_ops.py``). On the same counts
-the two packages' expansions agree bit for bit.
+The cumulative weights are an EXACT fixed-point prefix sum, so that every
+implementation of them, in any order of addition, gives the same bits: the
+plain versions here on either device, and the hand-written kernels of
+``ops/expand.py``, which compute the copy counts themselves:
+
+1. ``q_j = round(p_j * 2^K)`` as int64, K = ``FIXED_POINT_BITS`` = 60
+   (float32 -> float64, a scale by a power of two, round half to even);
+2. ``S_j = sum_{k <= j} q_k`` in int64: integer addition is associative, so a
+   serial loop, a warp scan and ``torch.cumsum`` agree bit for bit;
+3. ``cumw_j = float32(float64(S_j) * 2^-K)``: int64 -> float64 -> float32,
+   never int64 -> float32 in one step (devices may round that differently);
+4. ``cumw[-1] = 1``, ``counts = clamp(ceil(N * cumw - u), 0, N)`` as int32
+   (``N * cumw`` and ``- u`` are two float32 roundings, no fused multiply-add),
+   then ``counts[-1] = N``.
+
+Every step is monotone, so the counts are non-decreasing by construction (no
+running maximum) with the last boundary N. A particle's resolution is
+2^-60 (about 8.7e-19), at most about 1e-12 over 1e6 particles, far below
+float32's 6e-8 on ``cumw``; probabilities below about 1e-18 get no mass, and
+would get no copy anyway. A total up to 8 fits in int64.
+
+The JAX package sums in float32 in its own order, so at large N a boundary
+``N c_j - u`` can land on the other side of an integer, and then differs by
+exactly 1 (on the CPU, from the same probabilities, N(0, 2) log-weights,
+seed 0, u = 0.37: none of 512 or 4096, 157 of 1e5, 803 of 2e5 and 17,884 of
+1e6 boundaries differ, counted by ``PYTHONPATH=. python
+tests/test_torch_port_ops.py``). On the same counts the two packages'
+expansions agree bit for bit.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from ..utils import normalize
 
-_CUMSUM_TWO_STAGE_MIN = 1 << 17
-_CUMSUM_ROW = 512
+#: bits of the fixed-point cumulative sum: ``q = round(p * 2**FIXED_POINT_BITS)``
+FIXED_POINT_BITS = 60
+
+
+def fixed_point(probs: torch.Tensor) -> torch.Tensor:
+    """``q = round(p * 2^K)`` as int64 (step 1): float32 -> float64, an exact
+    scale by a power of two, round half to even."""
+    return torch.round(probs.to(torch.float32).to(torch.float64) * 2.0**FIXED_POINT_BITS).to(torch.int64)
+
+
+def prefix_to_cumw(s: torch.Tensor) -> torch.Tensor:
+    """Inclusive fixed-point prefix sums ``S`` (int64) -> float32 cumulative
+    weights (step 3): int64 -> float64, an exact scale, float64 -> float32."""
+    return (s.to(torch.float64) * 2.0**-FIXED_POINT_BITS).to(torch.float32)
 
 
 def prob_cumsum(probs: torch.Tensor) -> torch.Tensor:
-    """Cumulative sum over the LAST axis, two-stage (row sums, a prefix over
-    the rows, row cumsums) above ``_CUMSUM_TWO_STAGE_MIN``, as the JAX
-    package sums. Shared by every counts-based resampler, so their copy-count
-    boundaries agree bit for bit with each other."""
-    n = probs.shape[-1]
-    if n < _CUMSUM_TWO_STAGE_MIN:
-        return torch.cumsum(probs, dim=-1)
-    rows = -(-n // _CUMSUM_ROW)
-    lead = probs.shape[:-1]
-    v2 = F.pad(probs, (0, rows * _CUMSUM_ROW - n)).reshape(*lead, rows, _CUMSUM_ROW)
-    row_sums = torch.sum(v2, dim=-1)
-    prefix = torch.cumsum(row_sums, dim=-1) - row_sums
-    cs = (torch.cumsum(v2, dim=-1) + prefix.unsqueeze(-1)).reshape(*lead, rows * _CUMSUM_ROW)
-    return cs[..., :n]
+    """Float32 cumulative sum over the LAST axis by the exact fixed-point
+    prefix sum (module docstring, steps 1-3): the same bits on every device
+    and in every order of addition."""
+    return prefix_to_cumw(torch.cumsum(fixed_point(probs), dim=-1))
+
+
+def counts_from_prefix(s: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Copy-count boundaries from the inclusive fixed-point prefix sums ``S``
+    ``(..., N)`` (step 4), ``u`` broadcasting against the leading axes."""
+    n = s.shape[-1]
+    cumw = prefix_to_cumw(s)
+    cumw[..., -1] = 1.0
+    counts = torch.clamp(torch.ceil(n * cumw - u.unsqueeze(-1)), 0, n).to(torch.int32)
+    counts[..., -1] = n
+    return counts
 
 
 def copy_counts(probs: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Monotone copy-count boundaries ``counts[..., j] = ceil(N * cumw[..., j] - u)``
-    clipped to ``[0, N]``, int32, with the last cumulative weight forced to 1.
+    clipped to ``[0, N]``, int32, with the last cumulative weight forced to 1
+    and the last boundary pinned to N (a uniform can round to exactly 1.0,
+    which would leave the last output position selecting nothing).
     ``probs`` is ``(..., N)`` and ``u`` broadcasts against its leading axes."""
-    n = probs.shape[-1]
-    cumw = prob_cumsum(probs)
-    cumw[..., -1] = 1.0
-    counts = torch.clamp(torch.ceil(n * cumw - u.unsqueeze(-1)), 0, n).to(torch.int32)
-    return _running_max(counts)
-
-
-def _running_max(counts: torch.Tensor) -> torch.Tensor:
-    """Running maximum over the last axis, in 512-wide rows plus a carry
-    across rows: rows keep the scan parallel on the card, where one
-    ``cummax`` over a single 1e6-long row runs nearly serially.
-
-    A float cumsum is monotone only up to rounding (the two-stage sum's row
-    seams, a parallel scan's order): a source of next to no mass can get a
-    boundary one below its predecessor's (3 of 1e6+3 boundaries at N(0, 2)
-    log-weights on the CPU, counted by ``tests/test_torch_port_ops.py`` run
-    as a script). The running max gives such a source zero copies, as exact
-    sums would, and keeps the boundaries monotone, which the expansion
-    kernel relies on."""
-    n = counts.shape[-1]
-    rows = -(-n // _CUMSUM_ROW)
-    lead = counts.shape[:-1]
-    padded = F.pad(counts, (0, rows * _CUMSUM_ROW - n), value=n)
-    cm = torch.cummax(padded.reshape(*lead, rows, _CUMSUM_ROW), dim=-1).values
-    carry = F.pad(torch.cummax(cm[..., -1], dim=-1).values[..., :-1], (1, 0))
-    return torch.maximum(cm, carry.unsqueeze(-1)).reshape(*lead, rows * _CUMSUM_ROW)[..., :n]
+    return counts_from_prefix(torch.cumsum(fixed_point(probs), dim=-1), u)
 
 
 def invert_counts(counts: torch.Tensor) -> torch.Tensor:

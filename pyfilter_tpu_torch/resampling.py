@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from .ops.resample import prob_cumsum
 from .utils import normalize
 
 __all__ = ["systematic"]
@@ -25,8 +26,10 @@ def systematic(
     u: torch.Tensor | float | None = None,
 ) -> torch.Tensor:
     """Systematic resampling: positions ``(i + u) / N``, cumulative weights
-    with the last one forced to 1, and ``searchsorted(side="right")`` (a
-    position on a tie never selects a zero-weight particle)."""
+    (the exact fixed-point sum of ``ops.resample.prob_cumsum``, as every
+    resampler of the port takes them) with the last one forced to 1, and
+    ``searchsorted(side="right")`` (a position on a tie never selects a
+    zero-weight particle)."""
     probs = weights if normalized else normalize(weights, dim=0)
     n, batch_shape = probs.shape[0], tuple(probs.shape[1:])
     if u is None:
@@ -35,7 +38,7 @@ def systematic(
         u = torch.rand(batch_shape, generator=generator, dtype=probs.dtype, device=probs.device)
     u = torch.as_tensor(u, dtype=probs.dtype, device=probs.device).expand(batch_shape)
 
-    cumw = torch.cumsum(probs, dim=0)
+    cumw = prob_cumsum(probs.movedim(0, -1)).movedim(-1, 0)
     cumw[-1] = 1.0
     offsets = torch.arange(n, dtype=probs.dtype, device=probs.device).reshape((n,) + (1,) * len(batch_shape))
     positions = ((offsets + u) / n).expand(probs.shape)

@@ -26,26 +26,64 @@ def cuda():
     return torch.device("cuda")
 
 
+# uniforms where a wrong rounding shows: every n * cumw - u of uniform weights
+# lies near an integer
+_EDGE_US = (0.0, 2.0**-24, 0.5, 1.0 - 2.0**-24, 1.0)
+
+
+def _edge_probs(n, name, dev):
+    """Uniform probabilities, or masses below 2^-60 (no fixed-point mass)
+    beside healthy ones."""
+    if name == "uniform":
+        return torch.full((n,), 1.0 / n, device=dev)
+    p = torch.rand(n, generator=torch.Generator(device=dev).manual_seed(n), device=dev) + 0.5
+    p[::3] = 1e-20
+    p[1::5] = 2.0**-61
+    return p / p.sum()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 257, 4099, 1_000_003])
+@pytest.mark.parametrize("n", [1, 2, 257, 8192, 8193, 1_000_003])
 @pytest.mark.parametrize("d", [1, 3])
 def test_expand_kernel_matches_plain_on_card(cuda, n, d):
-    """Bit for bit against the plain version, on random, degenerate and
-    zero-run weights, with a random u and with u == 1.0."""
+    """Bit for bit against the plain version (counts prep included), on
+    random, degenerate and zero-run weights with a random u and u == 1.0, and
+    on uniform and sub-2^-60 probabilities at the edge uniforms."""
     g = torch.Generator(device=cuda).manual_seed(n + d)
     v2d = torch.randn(d, n, generator=g, device=cuda)
     hot = torch.full((n,), -math.inf, device=cuda)
     hot[n // 2] = 0.0
     zero_runs = torch.where(torch.arange(n, device=cuda) % 3 == 0, 0.0, -math.inf)
-    for lw in (torch.randn(n, generator=g, device=cuda) * 2.0, hot, zero_runs):
-        for u in (0.37, 1.0):
-            counts = expand._counts_from_probs(torch.softmax(lw, 0), torch.tensor(u, device=cuda))
-            before = expand.fused_expand.launches
-            out, idx = expand.fused_expand(counts, v2d)
-            ref_out, ref_idx = expand._expand_plain(counts, v2d)
-            torch.cuda.synchronize()
-            assert expand.fused_expand.launches == before + 1
-            assert torch.equal(idx, ref_idx) and torch.equal(out, ref_out)
+    cases = [(torch.softmax(lw, 0), u) for lw in (torch.randn(n, generator=g, device=cuda) * 2.0, hot, zero_runs)
+             for u in (0.37, 1.0)]
+    cases += [(_edge_probs(n, name, cuda), u) for name in ("uniform", "tiny") for u in _EDGE_US]
+    for probs, u in cases:
+        ut = torch.tensor(u, device=cuda)
+        before = expand.fused_expand.launches
+        out, idx = expand.fused_expand(probs, ut, v2d)
+        ref_out, ref_idx = expand._expand_probs_plain(probs, ut, v2d)
+        torch.cuda.synchronize()
+        assert expand.fused_expand.launches == before + 1
+        assert torch.equal(idx, ref_idx) and torch.equal(out, ref_out)
+
+
+@pytest.mark.cuda
+def test_expand_kernel_lookback_state_across_calls(cuda):
+    """The look-back state resets itself: calls at changing n, on the default
+    and on a side stream, each match the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    side = torch.cuda.Stream()
+    for n, stream in ((1_000_000, None), (5000, None), (1_000_000, side), (8193, None), (1_000_000, None)):
+        probs = torch.softmax(torch.randn(n, generator=g, device=cuda), 0)
+        u = torch.rand((), generator=g, device=cuda)
+        v2d = torch.randn(1, n, generator=g, device=cuda)
+        with torch.cuda.stream(stream or torch.cuda.current_stream()):
+            if stream is not None:
+                stream.wait_stream(torch.cuda.default_stream())
+            out, idx = expand.fused_expand(probs, u, v2d)
+        torch.cuda.synchronize()
+        ref_out, ref_idx = expand._expand_probs_plain(probs, u, v2d)
+        assert torch.equal(idx, ref_idx) and torch.equal(out, ref_out)
 
 
 @pytest.mark.cuda
@@ -61,30 +99,36 @@ def test_sisr_on_card_goes_through_the_kernel(cuda):
 
 def _lane_weights(n, n_lanes, scale, g, dev):
     """N(0, scale) log-weights ``(n, L)``; lane 0 has all mass on one particle
-    (first, middle, last by ``n``), lane 1 alternating zero-weight runs."""
+    (first, middle, last by ``n``), lane 1 alternating zero-weight runs, lane
+    2 uniform weights."""
     lw = torch.randn(n, n_lanes, generator=g, device=dev) * scale
     lw[:, 0] = -math.inf
     lw[(0, n // 2, n - 1)[n % 3], 0] = 0.0
     if n_lanes > 1:
         lw[:, 1] = torch.where(torch.arange(n, device=dev) % 3 == 0, 0.0, -math.inf)
+    if n_lanes > 2:
+        lw[:, 2] = 0.0
     return lw
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,n_lanes", [(400, 100), (257, 5), (40, 16), (72, 16), (800, 64), (3200, 33)])
+@pytest.mark.parametrize("n,n_lanes", [(400, 100), (257, 5), (40, 16), (72, 16), (800, 64), (3200, 33), (1, 4),
+                                       (2, 9), (7104, 9), (7105, 9)])
 @pytest.mark.parametrize("d", [1, 2])
 def test_expand_lanes_kernel_matches_plain_on_card(cuda, n, n_lanes, d):
-    """Bit for bit against the plain version: weight scales 1 and 6, a
-    degenerate lane, zero-weight runs, random uniforms and ``u == 1.0``."""
+    """Bit for bit against the plain version (counts prep included): weight
+    scales 1 and 6, a degenerate lane, zero-weight runs, uniform weights,
+    random uniforms and the edge uniforms; n = 7104 keeps the counts in
+    shared memory, n = 7105 takes the global scratch route."""
     g = torch.Generator(device=cuda).manual_seed(n + n_lanes + d)
     planes = torch.randn(d, n, n_lanes, generator=g, device=cuda)
     for scale in (1.0, 6.0):
         probs = torch.softmax(_lane_weights(n, n_lanes, scale, g, cuda), dim=0)
-        for u in (torch.rand(n_lanes, generator=g, device=cuda), torch.ones(n_lanes, device=cuda)):
-            counts = expand._lane_counts_from_probs(probs, u)
+        us = [torch.rand(n_lanes, generator=g, device=cuda)] + [torch.full((n_lanes,), u, device=cuda) for u in _EDGE_US]
+        for u in us:
             before = expand.fused_expand_lanes.launches
-            out, idx = expand.fused_expand_lanes(counts, planes)
-            ref_out, ref_idx = expand._expand_lanes_plain(counts, planes)
+            out, idx = expand.fused_expand_lanes(probs, u, planes)
+            ref_out, ref_idx = expand._expand_lanes_probs_plain(probs, u, planes)
             torch.cuda.synchronize()
             assert expand.fused_expand_lanes.launches == before + 1
             assert torch.equal(idx, ref_idx) and torch.equal(out, ref_out)

@@ -1,19 +1,22 @@
-"""The port's resampling ops held against the JAX package: the two-stage
-cumulative sum, the counts resampler, the fused resample + gather
+"""The port's resampling ops held against the JAX package: the exact
+fixed-point copy counts, the counts resampler, the fused resample + gather
 (``_expand_kernel`` in the JAX package, a CUDA kernel in the port), and its
 lane-batched form (``_expand_lane_band_kernel`` / ``_expand_lane_block_kernel``
-in the JAX package, one CUDA kernel in the port).
+in the JAX package, one CUDA kernel in the port). The port's kernels take
+probabilities and compute their copy counts themselves.
 
-On the CPU the port's wrapper runs the kernel's plain version (counts
-inversion + ``index_select``); the JAX expansion runs its Pallas kernel in
-interpret mode, as ``tests/test_ops.py`` does. One jitted JAX expansion per
-particle count keeps the interpret-mode compiles to three.
+On the CPU the port's wrapper runs the kernel's plain version (``copy_counts``,
+counts inversion, ``index_select``); the JAX expansion runs its Pallas kernel
+in interpret mode, as ``tests/test_ops.py`` does. One jitted JAX expansion
+per particle count keeps the interpret-mode compiles to three.
 
 Tolerances: on the SAME copy-count boundaries, indices and values are
-bit-identical (integer index arithmetic, an exact gather). From weights,
-``torch.cumsum`` and ``jnp.cumsum`` add in different orders, so at large n a
-boundary ``n * cumw - u`` can fall on the other side of an integer: counts
-then differ by exactly 1 at a small share of boundaries.
+bit-identical (integer index arithmetic, an exact gather). From weights, the
+port sums in exact fixed point and the JAX package in float32, so at large n
+a boundary ``n * cumw - u`` can fall on the other side of an integer: counts
+then differ by exactly 1 at a small share of boundaries. The port's own
+counts are exact integers until the last conversions, so any order of the
+prefix sum gives the same bits.
 """
 
 import jax
@@ -67,7 +70,8 @@ def _check_same_counts(lw, v, v2, u):
     np.testing.assert_array_equal(idx.numpy(), inv)
     np.testing.assert_array_equal(planes.numpy(), np.asarray(jnp.take(jnp.asarray(v2d.numpy()), inv, axis=1)))
 
-    (tv, tv2), tidx = texpand.expand_from_counts(_t(counts), (_t(v), _t(v2)))
+    planes, tidx = texpand._expand_plain(_t(counts), texpand._to_planes((_t(v), _t(v2)), len(v)))
+    tv, tv2 = texpand._from_planes(planes, (_t(v), _t(v2)))
     np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     np.testing.assert_array_equal(tv2.numpy(), np.asarray(jv2))
@@ -154,15 +158,16 @@ def _boundaries_both(n, seed=0, u=0.37):
     probs = np.asarray(jutils.normalize(jnp.asarray(lw)))
     u = np.float32(u)
     cj = np.asarray(jexpand._counts_from_probs(jnp.asarray(probs), jnp.asarray(u)))
-    ct = texpand._counts_from_probs(_t(probs), torch.tensor(u)).numpy()
+    ct = tresample.copy_counts(_t(probs), torch.tensor(u)).numpy()
     return probs, u, cj, ct
 
 
 def test_resampler_from_weights_large_n_ties():
-    """Past 2^17 both packages take the two-stage cumsum, but add in
-    different orders. Fed the same probabilities, every copy-count boundary
-    agrees or differs by exactly 1, at <= 2% of boundaries (the counts at
-    2e5 and 1e6: ``PYTHONPATH=. python tests/test_torch_port_ops.py``); an
+    """At large n the JAX package's float32 sum (two-stage past 2^17) and the
+    port's exact fixed-point sum round differently. Fed the same
+    probabilities, every copy-count boundary agrees or differs by exactly 1,
+    at <= 2% of boundaries (803 of 2e5 and 17,884 of 1e6:
+    ``PYTHONPATH=. python tests/test_torch_port_ops.py``); an
     ancestor index moves only where a boundary moved, and only across
     sources that share that boundary (zero-copy runs), so indices differ at
     <= 2% of positions."""
@@ -183,6 +188,134 @@ def test_resampler_from_weights_large_n_ties():
         lo, hi = sorted((ij[i], it[i]))
         # every source in [lo, hi) has its boundary right at i or i + 1
         assert np.all(np.abs(cj[lo:hi].astype(np.int64) - i - 0.5) == 0.5)
+
+
+# -- the exact fixed-point copy counts -------------------------------------------
+
+
+@pytest.mark.parametrize("n,seed", [(257, 0), (512, 1), (1000, 3), (4096, 1), (4096, 2)])
+def test_plain_counts_match_jax_counts_small_n(n, seed):
+    """The port's copy counts from probabilities == the JAX package's
+    ``_counts_from_probs`` on the same probabilities at n <= 4096 (N(0, 2)
+    log-weights; seeds where no float32 boundary lands on a tie)."""
+    rng = np.random.default_rng(seed)
+    lw = rng.normal(0.0, 2.0, n).astype(np.float32)
+    u = np.float32(rng.uniform())
+    probs = np.asarray(jutils.normalize(jnp.asarray(lw)))
+    want = np.asarray(jexpand._counts_from_probs(jnp.asarray(probs), jnp.asarray(u)))
+    np.testing.assert_array_equal(tresample.copy_counts(_t(probs), torch.tensor(u)).numpy(), want)
+
+
+def _blocked_prefix(x, block):
+    """Inclusive prefix sums over the last axis in another association:
+    ``block``-wide block sums, an exclusive prefix over the blocks, then each
+    block's running sum plus its carry (numpy, in ``x``'s own dtype)."""
+    n = x.shape[-1]
+    rows = -(-n // block)
+    padded = np.zeros(x.shape[:-1] + (rows * block,), x.dtype)
+    padded[..., :n] = x
+    v = padded.reshape(x.shape[:-1] + (rows, block))
+    sums = v.sum(-1, dtype=x.dtype)
+    carry = np.cumsum(sums, axis=-1, dtype=x.dtype) - sums
+    return (np.cumsum(v, axis=-1, dtype=x.dtype) + carry[..., None]).reshape(padded.shape)[..., :n]
+
+
+@pytest.mark.parametrize("block", [1, 7, 32, 512, 4096])
+def test_plain_counts_do_not_depend_on_the_order_of_the_sum(block):
+    """The property the kernels rely on: the int64 prefix taken in blocks
+    (as a kernel's threads, warps and tiles take it) gives the same copy
+    counts, bit for bit, as ``torch.cumsum``, for one lane and for lanes. A
+    float32 sum in the same blocks changes bits (checked alongside, so the
+    test can tell the two apart)."""
+    rng = np.random.default_rng(block)
+    p32 = None
+    for shape in ((20_011,), (3, 400)):
+        n = shape[-1]
+        probs = torch.softmax(_t(rng.normal(0.0, 2.0, shape).astype(np.float32)), dim=-1)
+        u = _t(rng.uniform(size=shape[:-1]).astype(np.float32))
+        q = tresample.fixed_point(probs).numpy()
+        counts = tresample.counts_from_prefix(_t(_blocked_prefix(q, block)), u)
+        np.testing.assert_array_equal(counts.numpy(), tresample.copy_counts(probs, u).numpy())
+        assert counts.dtype == torch.int32 and int(counts[..., -1].min()) == n
+        p32 = probs.numpy() if p32 is None else p32
+    if block > 1:
+        assert (_blocked_prefix(p32, block) != np.cumsum(p32, dtype=np.float32)).any()
+
+
+def _reference_counts(probs, u):
+    """Independent numpy reference of the copy counts: ``np.rint`` (half to
+    even), an int64 ``np.cumsum``, float64 then float32, and float32
+    arithmetic for ``n * cumw - u``."""
+    n = probs.shape[-1]
+    s = np.cumsum(np.rint(probs.astype(np.float64) * 2.0**60).astype(np.int64))
+    cumw = (s.astype(np.float64) * 2.0**-60).astype(np.float32)
+    cumw[-1] = 1.0
+    counts = np.clip(np.ceil(np.float32(n) * cumw - np.float32(u)), 0, n).astype(np.int32)
+    counts[-1] = n
+    return counts
+
+
+def _adversarial_probs(name, n):
+    """Probabilities where a wrong rounding or a missing pin would show."""
+    if name == "uniform":
+        return np.full(n, 1.0 / n, np.float32)
+    p = np.zeros(n, np.float32)
+    if name.startswith("hot"):
+        p[{"hot-first": 0, "hot-middle": n // 2, "hot-last": n - 1}[name]] = 1.0
+        return p
+    rng = np.random.default_rng(n)
+    if name == "tiny":  # below 2^-60 (no mass) beside healthy particles
+        p = rng.uniform(0.5, 1.5, n).astype(np.float32)
+        p[::3] = 1e-20
+        p[1::5] = 2.0**-61
+        return (p / p.sum(dtype=np.float64)).astype(np.float32)
+    p[::3] = 1.0  # zero-weight runs
+    return (p / p.sum()).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", ["uniform", "hot-first", "hot-middle", "hot-last", "tiny", "zero-runs"])
+@pytest.mark.parametrize("n", [1, 2, 257])
+def test_plain_counts_monotone_on_adversarial_inputs(n, name):
+    """Uniform weights with u at 0, 2^-24, 0.5, 1 - 2^-24 and 1 (every
+    ``n * cumw - u`` near an integer), one hot particle, probabilities below
+    2^-60 and zero-weight runs: the counts equal an independent numpy
+    reference and are monotone with the last boundary n and no running
+    maximum; for u <= 1/2 no source without mass gets a copy (for u near 1,
+    ``n - u`` rounds to n in float32 and the last position takes the last
+    source, in both packages)."""
+    probs = _adversarial_probs(name, n)
+    for u in (0.0, 2.0**-24, 0.5, 1.0 - 2.0**-24, 1.0):
+        counts = tresample.copy_counts(_t(probs), torch.tensor(u, dtype=torch.float32)).numpy()
+        np.testing.assert_array_equal(counts, _reference_counts(probs, u))
+        assert counts[-1] == n and counts.min() >= 0 and (np.diff(counts) >= 0).all()
+        idx = tresample.invert_counts(_t(counts)).numpy()
+        assert ((idx >= 0) & (idx < n)).all()
+        massless = tresample.fixed_point(_t(probs)).numpy() == 0
+        if u <= 0.5:
+            assert not massless[idx].any()
+
+
+@pytest.mark.parametrize("n,batch", [(257, ()), (3200, ()), (400, (16,)), (3200, (5,)), (40, (2, 3))])
+def test_plain_from_probs_is_counts_then_expansion(n, batch):
+    """Each kernel's plain version from probabilities (what a CPU tensor gets
+    from the wrapper) == plain counts, then the plain expansion from counts,
+    == the counts resampler + gather, bit for bit."""
+    rng = np.random.default_rng(n + len(batch))
+    probs = torch.softmax(_t(rng.normal(0.0, 2.0, (n, *batch)).astype(np.float32)), dim=0)
+    u = _t(rng.uniform(size=batch).astype(np.float32))
+    want = tresample.systematic_counts(None, probs, normalized=True, u=u)
+    if not batch:
+        v2d = _t(rng.normal(size=(2, n)).astype(np.float32))
+        out, idx = texpand.fused_expand(probs, u, v2d)
+        ref_out, ref_idx = texpand._expand_plain(tresample.copy_counts(probs, u), v2d)
+    else:
+        lanes = probs.reshape(n, -1)
+        planes = _t(rng.normal(size=(2, n, lanes.shape[1])).astype(np.float32))
+        out, idx = texpand.fused_expand_lanes(lanes, u.reshape(-1), planes)
+        ref_out, ref_idx = texpand._expand_lanes_plain(tresample.copy_counts(lanes.T, u.reshape(-1)), planes)
+    assert idx.dtype == torch.int32
+    assert torch.equal(idx, ref_idx) and torch.equal(out, ref_out)
+    np.testing.assert_array_equal(idx.numpy().reshape(want.shape), want.numpy())
 
 
 # -- lane batches ----------------------------------------------------------------
@@ -272,19 +405,24 @@ def test_lane_resampler_from_weights_matches_jax(n, batch, seed):
     np.testing.assert_array_equal(tw.numpy(), np.take_along_axis(lw, want, axis=0))
     _, idx2 = texpand.systematic_expand_lanes(torch.Generator().manual_seed(0), _t(lw), _t(vals))
     assert idx2.shape == (n, *batch) and idx2.dtype == torch.int32
-    # the kernel takes contiguous counts only
-    assert texpand._lane_counts_from_probs(torch.softmax(_t(lw).reshape(n, -1), 0), _t(u).reshape(-1)).is_contiguous()
+    # the lane kernel's plain version writes idx in the kernel's (n, L) layout
+    _, pidx = texpand._expand_lanes_probs_plain(torch.softmax(_t(lw).reshape(n, -1), 0), _t(u).reshape(-1),
+                                                _t(vals[..., 0]).reshape(1, n, -1))
+    assert pidx.is_contiguous() and pidx.shape == (n, np.prod(batch))
 
 
 def test_fused_expand_refuses_other_devices():
     """The wrapper takes the plain version only for CPU tensors: anything
-    else launches the kernel or raises — no quiet fallback."""
-    counts = torch.empty(8, dtype=torch.int32, device="meta")
+    else launches the kernel or raises — no quiet fallback, and no mix of
+    devices."""
+    probs = torch.empty(8, dtype=torch.float32, device="meta")
     v2d = torch.empty(1, 8, dtype=torch.float32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
-        texpand.fused_expand(counts, v2d)
+        texpand.fused_expand(probs, torch.empty((), device="meta"), v2d)
     with pytest.raises(ValueError, match="CUDA"):
-        texpand.fused_expand_lanes(counts.reshape(2, 4), v2d.reshape(1, 4, 2))
+        texpand.fused_expand_lanes(probs.reshape(4, 2), torch.empty(2, device="meta"), v2d.reshape(1, 4, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        texpand.fused_expand(torch.full((8,), 0.125), torch.tensor(0.5), v2d)
 
 
 if __name__ == "__main__":
@@ -294,11 +432,8 @@ if __name__ == "__main__":
         _, _, cj, ct = _boundaries_both(n)
         dc = np.abs(cj.astype(np.int64) - ct)
         print(f"n={n}: {int((dc > 0).sum())} of {n} boundaries differ, largest difference {int(dc.max())}")
-    # the port's boundaries before their running maximum: how many fall below
-    # their predecessor (the two-stage cumsum's row seams)
+    # the port's boundaries without a running maximum: none falls below its
+    # predecessor (the fixed-point sum is exact, every later step monotone)
     for n in (1_000_000, 1_000_003):
-        probs, u, _, _ = _boundaries_both(n)
-        cumw = tresample.prob_cumsum(_t(probs))
-        cumw[-1] = 1.0
-        raw = torch.clamp(torch.ceil(n * cumw - float(u)), 0, n).to(torch.int64)
-        print(f"n={n}: {int((raw[1:] < raw[:-1]).sum())} boundaries below their predecessor before the running max")
+        probs, u, _, ct = _boundaries_both(n)
+        print(f"n={n}: {int((ct[1:] < ct[:-1]).sum())} boundaries below their predecessor")
