@@ -38,8 +38,31 @@ Phases, in order; any failure exits non-zero before the result line:
    re-filter), the posterior's bounds, and the gap to one fit on the CPU
    within ``POST_TOL_SD`` posterior standard deviations.
 
+7. The reference README's flagship flow: ``sine_diffusion_model(dt=0.05)``
+   observed T = 500 times (``sample_states`` on the CPU, seed 0, so the truth
+   is known), ``APF(N = 1000, proposal=LinearGaussianObservations(),
+   record_states=True)`` on the card (FLAG_RUNS runs), then exact FFBS (an
+   (N, N) weight matrix per step) and fixed-lag smoothing of the last run.
+   Checks a finite log-likelihood, filter RMSE against the truth below
+   ``FLAG_RMSE_MAX``, FFBS RMSE no worse than the filter's, the card's mean
+   log-likelihood within 4 standard errors of FLAG_RUNS CPU runs' (plain
+   versions), the expand kernel launched once per APF step, and the kernel
+   equal to its plain version on the last run's cloud.
+8. Rejection FFBSi over a recorded SISR history of ``LinearStateSpaceModel(
+   AR(0.2, 0.7, 0.4), (1.0, 0.25))``, T = 200: N = 1e5 with M = N
+   trajectories, and N = 1e6 with M = 4096 (``systematic_m``). Each: one
+   warm-up pass and FFBSI_TIMED timed passes; checks the smoothed means at
+   every t >= 1 against a float64 RTS smoother within ``4.5 sqrt(max var /
+   M) + 0.02``, no NaN (the bound guard quiet), and the expand kernel
+   launched once per resample fire (more than 0). Prints the wall per pass,
+   trajectory draws/s, host syncs and fallback passes per pass, and the peak
+   device memory. Then SISR over 8 lanes of 400 particles through the lane
+   kernel, smoothed by FFBSi over lanes against the same smoother. Each
+   kernel equals its plain version on each run's last cloud.
+
 With ``--profile``, also the device operations per observation (main path
-1) and per APF step (main path 2). Prints a ``{"kernels": [...]}`` line,
+1), per APF step (main path 2 and phase 7), and per backward step of FFBS
+(phase 7) and FFBSi (phase 8), each from one traced run. Prints a ``{"kernels": [...]}`` line,
 then, as the last line,
 ``{"ok": true, "device": {...}}``.
 """
@@ -85,6 +108,17 @@ SMC2_TIMED = 2
 # wrong history or drops the Jacobian moves gamma or tau by whole posterior
 # standard deviations.
 POST_TOL_SD = 1.0
+# phase 7: examples/sine_apf.py's full size; the filter RMSE limit is twice
+# the observation noise (the reference's health check: the filter tracks at
+# the observation scale, not the prior's)
+FLAG_N, FLAG_T, FLAG_DT, FLAG_RUNS = 1000, 500, 0.05, 8
+FLAG_RMSE_MAX = 0.2
+# phase 8: tools/round4_perf.py's FFBSi configuration (N, M) and the lane run
+AR_ALPHA, AR_BETA, AR_SIGMA, AR_OBS_S = 0.2, 0.7, 0.4, 0.25
+FFBSI_T = 200
+FFBSI_SIZES = ((100_000, None), (1_000_000, 4096))
+FFBSI_TIMED = 3
+LANES_N, LANES_K = 400, 8
 
 
 def simulate_obs(n_obs: int):
@@ -170,7 +204,7 @@ def check_expand(torch, expand) -> float:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     n_cases, worst = 0, 0.0
-    for n in (1_000_000, 1_000_003, 8193, 257, 2, 1):
+    for n in (1_000_000, 1_000_003, 100_000, 8193, 1000, 257, 2, 1):
         ar = torch.arange(n, device=dev)
         weights = {"random": torch.randn(n, generator=g, device=dev) * 0.5,
                    "random-wide": torch.randn(n, generator=g, device=dev) * 2.0}
@@ -192,7 +226,7 @@ def check_expand(torch, expand) -> float:
                     raise AssertionError(f"expand kernel != plain at n={n} d={d} {name} u={u}: {bad} indices differ")
                 n_cases += 1
     torch.cuda.synchronize()
-    print(f"phase 3: expand kernel == plain version on {n_cases} cases (n in 1e6, 1e6+3, 8193, 257, 2, 1; "
+    print(f"phase 3: expand kernel == plain version on {n_cases} cases (n in 1e6, 1e6+3, 1e5, 8193, 1000, 257, 2, 1; "
           "d in 1, 3; random, degenerate, zero-run, uniform and sub-2^-60 probabilities; u random, "
           "0, 2^-24, 0.5, 1-2^-24, 1); tolerance: bit for bit (torch.equal), since indices are integers "
           "and the gather copies")
@@ -328,15 +362,26 @@ def main(argv) -> int:
     lanes = apf_lanes(torch, pt, expand, copy_counts, y, card)
 
     # -- 6. main path 2: SMC2 ---------------------------------------------------
-    lanes["launches"] = smc2(torch, pt, expand, y, card, profile="--profile" in argv)
+    smc2_launches = smc2(torch, pt, expand, y, card, profile="--profile" in argv)
+
+    # -- 7. the flagship flow -------------------------------------------------
+    flag_launches, flag_err = flagship(torch, pt, expand, card, profile="--profile" in argv)
+
+    # -- 8. rejection FFBSi at N = 1e5 and 1e6, SISR over lanes --------------------
+    ffbsi_launches, lane_launches, ffbsi_err, lane_run_err = ffbsi(torch, pt, expand, card,
+                                                                   profile="--profile" in argv)
+
+    k1_paths = {"phase 4": launches, "phase 7": flag_launches, "phase 8": ffbsi_launches}
+    lane_paths = {"phase 5": lanes["launches"], "phase 6": smc2_launches, "phase 8": lane_launches}
 
     kernels = [{
         "name": "expand",
         "route": "cuda",
         "source": "pyfilter_tpu_torch/ops/csrc/expand.cu",
         "replaces": "pyfilter_tpu/ops/expand.py:110",
-        "launches": launches,
-        "max_abs_err": max(max_err, err),
+        "launches": sum(k1_paths.values()),
+        "launches_by_path": k1_paths,
+        "max_abs_err": max(max_err, err, flag_err, ffbsi_err),
         "ms": k_ms,
         "plain_ms": p_ms,
         "bound_ms": bound_ms,
@@ -347,8 +392,9 @@ def main(argv) -> int:
         "route": "cuda",
         "source": "pyfilter_tpu_torch/ops/csrc/expand_lanes.cu",
         "replaces": "pyfilter_tpu/ops/expand.py:438, pyfilter_tpu/ops/expand.py:489",
-        "launches": lanes["launches"],
-        "max_abs_err": max(lanes_err, lanes["err"]),
+        "launches": sum(lane_paths.values()),
+        "launches_by_path": lane_paths,
+        "max_abs_err": max(lanes_err, lanes["err"], lane_run_err),
         "ms": lanes["ms"],
         "plain_ms": lanes["plain_ms"],
         "bound_ms": lanes["bound_ms"],
@@ -371,7 +417,8 @@ def check_expand_lanes(torch, expand) -> float:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     n_cases, worst = 0, 0.0
-    shapes = ((400, 1000), (257, 5), (40, 16), (72, 16), (800, 1000), (3200, 1000), (7104, 40), (7105, 40), (2, 9))
+    shapes = ((400, 1000), (400, 8), (257, 5), (40, 16), (72, 16), (800, 1000), (3200, 1000), (7104, 40), (7105, 40),
+              (2, 9))
     for n, n_lanes in shapes:
         for d in (1, 2):
             planes = torch.randn(d, n, n_lanes, generator=g, device=dev)
@@ -401,6 +448,28 @@ def check_expand_lanes(torch, expand) -> float:
     return worst
 
 
+def check_on_cloud(torch, expand, probs, planes, label: str) -> float:
+    """A kernel against its plain version on a path's own last cloud, bit
+    for bit: the single-lane kernel for ``probs`` ``(n,)`` and ``planes``
+    ``(d, n)``, the lane kernel for ``(n, L)`` and ``(d, n, L)``. Returns the
+    largest absolute difference (0)."""
+    probs, planes = probs.contiguous(), planes.contiguous()
+    if probs.dim() == 1:
+        u = torch.rand((), device="cuda")
+        out, idx = expand.fused_expand(probs, u, planes)
+        ref_out, ref_idx = expand._expand_probs_plain(probs, u, planes)
+    else:
+        u = torch.rand(probs.shape[1], device="cuda")
+        out, idx = expand.fused_expand_lanes(probs, u, planes)
+        ref_out, ref_idx = expand._expand_lanes_probs_plain(probs, u, planes)
+    torch.cuda.synchronize()
+    err = float((out - ref_out).abs().max())
+    if not (torch.equal(idx, ref_idx) and torch.equal(out, ref_out)):
+        raise AssertionError(f"kernel != plain version on {label}: {int((idx != ref_idx).sum())} indices differ")
+    print(f"  kernel == plain version on {label}, shapes {tuple(planes.shape)}: bit for bit (torch.equal)")
+    return err
+
+
 def apf_lanes(torch, pt, expand, copy_counts, y, card) -> dict:
     """Phase 5: the APF at SMC2_N particles on SMC2_K lanes of the true
     parameters, on the card and on the CPU; then the lane kernel per fire."""
@@ -420,6 +489,8 @@ def apf_lanes(torch, pt, expand, copy_counts, y, card) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, steps = expand.fused_expand_lanes.launches, pt.APF.corrections
+    if expand.fused_expand.launches:
+        raise AssertionError(f"the lane APF launched the single-lane kernel {expand.fused_expand.launches} times")
     card_ll = res.log_likelihood.cpu().numpy().astype(np.float64)
     cpu_ll = run("cpu", torch.Generator().manual_seed(2))[1].log_likelihood.numpy().astype(np.float64)
     if not (np.isfinite(card_ll).all() and np.isfinite(cpu_ll).all()):
@@ -478,7 +549,7 @@ def apf_lanes(torch, pt, expand, copy_counts, y, card) -> dict:
     print(f"  kernel timed without the spin (as earlier runs timed) {k_nospin_ms} ms; plain counts prep {prep_ms} ms; "
           f"counts-only yardstick (searchsorted + gather on ready counts) {c_ms} ms; library chain's outputs "
           f"equal the kernel's at {chain_share:.6f} of positions (float32 cumsum); card {card}")
-    return {"err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": bound_ms}
+    return {"err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": bound_ms, "launches": launches}
 
 
 def smc2(torch, pt, expand, y, card, profile: bool = False) -> int:
@@ -562,6 +633,221 @@ def smc2(torch, pt, expand, y, card, profile: bool = False) -> int:
     print(f"  trigger read + host sync on an idle stream: {sync_us:.3f} us each; {syncs} syncs per fit "
           f"cost about {[round(s * sync_us / 1e3, 3) for s in syncs]} ms")
     return launches
+
+
+def flagship(torch, pt, expand, card, profile: bool = False) -> tuple:
+    """Phase 7: the reference README's flagship flow on the card against the
+    known truth and against the same filter on the CPU; with ``profile``, one
+    more run and one FFBS pass under the profiler. Returns the expand
+    kernel's launches over the card runs and their smoothing, and its largest
+    difference from the plain version on the last cloud."""
+    import numpy as np
+
+    from pyfilter_tpu_torch.filters.particle.proposals import LinearGaussianObservations
+
+    cpu_model = pt.examples.sine_diffusion_model(dt=FLAG_DT, device="cpu")
+    x_true, y = cpu_model.sample_states(torch.Generator().manual_seed(0), FLAG_T).get_paths()
+    x_true, y = x_true.numpy().astype(np.float64), y.numpy()
+    model = pt.examples.sine_diffusion_model(dt=FLAG_DT)
+
+    def make(m, device):
+        return pt.APF(m, FLAG_N, proposal=LinearGaussianObservations(), record_states=True, device=device)
+
+    def rmse(means) -> float:
+        return float(np.sqrt(np.mean((means.cpu().numpy().astype(np.float64) - x_true) ** 2)))
+
+    filt = make(model, "cuda")
+    filt.batch_filter(torch.Generator(device="cuda").manual_seed(100), y)  # warm-up
+    expand.fused_expand.launches = expand.fused_expand_lanes.launches = 0
+    pt.APF.corrections = 0
+    lls, walls = [], []
+    for rep in range(FLAG_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = filt.batch_filter(torch.Generator(device="cuda").manual_seed(rep), y)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        lls.append(float(res.log_likelihood))
+    t0 = time.perf_counter()
+    ffbs = filt.smooth(torch.Generator(device="cuda").manual_seed(50), res, method="ffbs")
+    torch.cuda.synchronize()
+    ffbs_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fl = filt.smooth(None, res, method="fl")
+    torch.cuda.synchronize()
+    fl_wall = time.perf_counter() - t0
+    launches, steps = expand.fused_expand.launches, pt.APF.corrections
+    if not (launches == steps == FLAG_RUNS * FLAG_T):
+        raise AssertionError(f"expand kernel launched {launches} times for {steps} APF steps")
+    if expand.fused_expand_lanes.launches:
+        raise AssertionError("the single-lane APF launched the lane kernel")
+    # the expand kernel on the last cloud: state values and pre-weights, as
+    # the APF's correction resamples them
+    state = res.latest_state
+    pre = filt.proposal.pre_weight(filt.model, torch.as_tensor(y[-1], device="cuda"), state.x)
+    err = check_on_cloud(torch, expand, pt.normalize(pre + state.log_weights),
+                         torch.stack([state.x.value, pre]), f"phase 7's APF cloud (n={FLAG_N})")
+
+    f_rmse, s_rmse, l_rmse = rmse(res.filter_means), rmse(ffbs.mean(1)[1:]), rmse(fl.mean(1)[1:])
+    hist = res.states
+    print(f"phase 7: APF(N={FLAG_N}, LinearGaussianObservations, record_states) on the sine diffusion, "
+          f"T={FLAG_T}, dt={FLAG_DT}: {FLAG_RUNS} runs, wall seconds {walls} (best {min(walls)}); "
+          f"history {tuple(hist.values.shape)}; expand launches {launches} for {steps} APF steps; card {card}")
+    print(f"  log-likelihood {lls}; FFBS ({FLAG_N} trajectories, ({FLAG_N}, {FLAG_N}) weights a step) "
+          f"{ffbs_wall:.4f} s, fixed-lag {fl_wall:.4f} s")
+    print(f"  RMSE against the truth: filter {f_rmse}, FFBS {s_rmse}, fixed-lag {l_rmse} (filter limit "
+          f"{FLAG_RMSE_MAX}; FFBS must not exceed the filter's)")
+    if not all(math.isfinite(v) for v in lls):
+        raise AssertionError(f"non-finite log-likelihood: {lls}")
+    if not (f_rmse < FLAG_RMSE_MAX and s_rmse <= f_rmse and math.isfinite(l_rmse)):
+        raise AssertionError(f"flagship health checks failed: RMSE filter {f_rmse}, FFBS {s_rmse}, fixed-lag {l_rmse}")
+
+    cpu_filt = make(cpu_model, "cpu")
+    t0 = time.perf_counter()
+    cpu_lls = [float(cpu_filt.batch_filter(torch.Generator().manual_seed(seed), y).log_likelihood)
+               for seed in range(FLAG_RUNS)]
+    cpu_wall = time.perf_counter() - t0
+    card_ll, cpu_ll = np.asarray(lls), np.asarray(cpu_lls)
+    gap = abs(card_ll.mean() - cpu_ll.mean())
+    limit = 4 * math.sqrt(card_ll.var(ddof=1) / FLAG_RUNS + cpu_ll.var(ddof=1) / FLAG_RUNS)
+    print(f"  CPU (plain versions, {FLAG_RUNS} seeds, {cpu_wall:.1f} s): mean {cpu_ll.mean()} sd "
+          f"{cpu_ll.std(ddof=1)}; card mean {card_ll.mean()} sd {card_ll.std(ddof=1)}; gap {gap} (limit {limit})")
+    if not gap < limit:
+        raise AssertionError(f"card and CPU flagship log-likelihoods differ by {gap} (> {limit})")
+    if profile:
+        ops = profile_run(torch, "phase 7, APF run",
+                          lambda: filt.batch_filter(torch.Generator(device="cuda").manual_seed(60), y))
+        print(f"  device operations per APF step {ops / FLAG_T:.2f}")
+        ops = profile_run(torch, "phase 7, FFBS pass",
+                          lambda: filt.smooth(torch.Generator(device="cuda").manual_seed(61), res, method="ffbs"))
+        print(f"  device operations per FFBS backward step {ops / FLAG_T:.2f}")
+    return launches, err
+
+
+def rts_ar(y, alpha: float, beta: float, sigma: float, obs_s: float):
+    """Float64 Kalman filter and RTS smoother of ``x' = alpha + beta x +
+    sigma e``, ``x_0 ~ N(alpha, sigma^2)``, observed as ``y = x + obs_s v``:
+    the smoothed means and variances at t = 1..T."""
+    import numpy as np
+
+    n = len(y)
+    fm, fp, pm, pp = (np.zeros(n) for _ in range(4))
+    m, p = alpha, sigma**2
+    for t in range(n):
+        pm[t], pp[t] = alpha + beta * m, beta**2 * p + sigma**2
+        gain = pp[t] / (pp[t] + obs_s**2)
+        m, p = pm[t] + gain * (float(y[t]) - pm[t]), (1.0 - gain) * pp[t]
+        fm[t], fp[t] = m, p
+    sm, sp = fm.copy(), fp.copy()
+    for t in range(n - 2, -1, -1):
+        g = fp[t] * beta / pp[t + 1]
+        sm[t] = fm[t] + g * (sm[t + 1] - pm[t + 1])
+        sp[t] = fp[t] + g * g * (sp[t + 1] - pp[t + 1])
+    return sm, sp
+
+
+def ffbsi(torch, pt, expand, card, profile: bool = False):
+    """Phase 8: rejection FFBSi at N = 1e5 (M = N) and N = 1e6 (M = 4096),
+    then SISR over lanes with FFBSi over the lanes; with ``profile``, one
+    more pass at each size under the profiler. Returns the expand kernel's
+    and the lane kernel's launches over the filter runs, then each kernel's
+    largest difference from its plain version on the runs' last clouds."""
+    import numpy as np
+
+    from pyfilter_tpu_torch.filters.particle.smoothing import ffbsi_smooth, transition_log_sup
+
+    def ar_model(device=None):
+        hidden = pt.timeseries.models.AR(AR_ALPHA, AR_BETA, AR_SIGMA, device=device)
+        return pt.timeseries.LinearStateSpaceModel(hidden, (1.0, AR_OBS_S))
+
+    _, y = ar_model("cpu").sample_states(torch.Generator().manual_seed(0), FFBSI_T).get_paths()
+    y = y.numpy()
+    sm_mean, sm_var = rts_ar(y, AR_ALPHA, AR_BETA, AR_SIGMA, AR_OBS_S)
+    model = ar_model()
+    log_sup = transition_log_sup(model)
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    def check_means(traj, m: int, label: str):
+        if bool(torch.isnan(traj).any()):
+            raise AssertionError(f"{label}: NaN in the smoothed trajectories (the bound guard fired)")
+        means = traj.double().mean(dim=tuple(range(1, traj.dim())))[1:].cpu().numpy()
+        worst, tol = float(np.abs(means - sm_mean).max()), 4.5 * math.sqrt(sm_var.max() / m) + 0.02
+        print(f"  {label}: smoothed means vs the RTS smoother: worst |gap| {worst} over t = 1..{FFBSI_T} "
+              f"(limit {tol})")
+        if not worst < tol:
+            raise AssertionError(f"{label}: smoothed means off the RTS smoother by {worst} (> {tol})")
+
+    expand.fused_expand.launches = expand.fused_expand_lanes.launches = 0
+    k1_launches, k1_err = 0, 0.0
+    for n, m in FFBSI_SIZES:
+        filt = pt.SISR(model, n, record_states=True, record_moments=False)
+        torch.cuda.reset_peak_memory_stats()
+        before = expand.fused_expand.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = filt.batch_filter(gen(n), y)
+        torch.cuda.synchronize()
+        filter_wall = time.perf_counter() - t0
+        fires, launches = filt.n_resamples, expand.fused_expand.launches - before
+        k1_launches += launches
+        if not (launches == fires > 0):
+            raise AssertionError(f"N={n}: expand kernel launched {launches} times for {fires} resample fires")
+        last = res.latest_state
+        k1_err = max(k1_err, check_on_cloud(torch, expand, pt.normalize(last.log_weights),
+                                            last.x.value.reshape(1, -1), f"phase 8's SISR cloud (n={n})"))
+        hist_bytes = sum(h.numel() * h.element_size() for h in res.states[1:])
+
+        def smooth(seed):
+            return ffbsi_smooth(gen(seed), model, res.states, filt.resampler, log_density_sup=log_sup,
+                                n_trajectories=m)
+
+        smooth(1)  # warm-up
+        walls, syncs, passes = [], [], []
+        for rep in range(FFBSI_TIMED):
+            ffbsi_smooth.host_syncs = ffbsi_smooth.fallback_passes = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            traj = smooth(2 + rep)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            syncs.append(ffbsi_smooth.host_syncs)
+            passes.append(ffbsi_smooth.fallback_passes)
+        peak = torch.cuda.max_memory_allocated()
+        n_traj = traj.shape[1]
+        k_sub = min(n_traj, max(128, n_traj // 512))
+        print(f"phase 8: SISR(N={n}, record_states) on the AR model, T={FFBSI_T}: {filter_wall:.4f} s, "
+              f"{fires} resample fires = expand launches; history {hist_bytes / 1e9:.4f} GB; card {card}")
+        print(f"  FFBSi M={n_traj}: wall per pass {walls} s (best {min(walls)}); trajectory draws/s "
+              f"{(FFBSI_T + 1) * n_traj / min(walls):.6g}; host syncs per pass {syncs}; fallback passes per "
+              f"pass {passes} (k_sub {k_sub}, block {max(64, min(n, (1 << 25) // k_sub))}); peak device memory "
+              f"{peak / 2**30:.4f} GiB; card {card}")
+        check_means(traj, n_traj, f"N={n}, M={n_traj}")
+        if profile:
+            ffbsi_smooth.fallback_passes = 0
+            ops = profile_run(torch, f"phase 8, FFBSi pass N={n} M={n_traj}", lambda: smooth(9))
+            print(f"  device operations per backward step {ops / FFBSI_T:.2f} "
+                  f"({ffbsi_smooth.fallback_passes} fallback passes in the traced pass)")
+        del res, traj
+
+    lanes = pt.SISR(model, LANES_N, batch_shape=(LANES_K,), record_states=True, record_moments=False)
+    expand.fused_expand_lanes.launches = 0
+    res = lanes.batch_filter(gen(7), y)
+    lane_launches = expand.fused_expand_lanes.launches
+    if not (lane_launches == lanes.n_resamples == FFBSI_T):
+        raise AssertionError(f"lane kernel launched {lane_launches} times for {lanes.n_resamples} SISR steps")
+    last = res.latest_state
+    lane_err = check_on_cloud(torch, expand, pt.normalize(last.log_weights), last.x.value.unsqueeze(0),
+                              f"phase 8's SISR lane cloud (n={LANES_N}, L={LANES_K})")
+    ffbsi_smooth.host_syncs = ffbsi_smooth.fallback_passes = 0
+    traj = ffbsi_smooth(gen(8), model, res.states, lanes.resampler, log_density_sup=log_sup)
+    torch.cuda.synchronize()
+    print(f"  SISR over lanes (N={LANES_N} x {LANES_K}): lane kernel launches {lane_launches}; FFBSi over the "
+          f"lanes {tuple(traj.shape)}: host syncs {ffbsi_smooth.host_syncs}, fallback passes "
+          f"{ffbsi_smooth.fallback_passes}")
+    check_means(traj, LANES_N * LANES_K, f"lanes N={LANES_N} x {LANES_K}")
+    return k1_launches, lane_launches, k1_err, lane_err
 
 
 def profile_run(torch, label: str, fn, trace: str | None = None):

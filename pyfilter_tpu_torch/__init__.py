@@ -8,14 +8,17 @@ resample + gather runs in hand-written CUDA kernels for Hopper
 (``ops/csrc/expand.cu`` for one lane, ``ops/csrc/expand_lanes.cu`` for lane
 batches), built with ``nvcc`` at first use.
 
-Ported so far: the bootstrap SISR filter on the stochastic-volatility model
-(single lane), and SMC² over a lane-batched APF on the same model.
+Ported so far: SISR and the APF (single lane and lane batches) with the
+bootstrap proposal and the optimal proposal for linear-Gaussian
+observations; recorded histories with exact FFBS, rejection FFBSi and
+fixed-lag smoothing; SMC² over a lane-batched APF; the AR, random-walk,
+linear, Verhulst and sine-diffusion models.
 """
 
 __version__ = "0.1.0"
 
 from . import convert, distributions, examples, filters, inference, ops, resampling, timeseries, utils
-from .filters import APF, SISR, FilterResult, ParticleFilter
+from .filters import APF, SISR, FilterHistory, FilterResult, ParticleFilter
 from .utils import get_ess, log_likelihood, normalize
 
 __all__ = [
@@ -32,6 +35,7 @@ __all__ = [
     "APF",
     "ParticleFilter",
     "FilterResult",
+    "FilterHistory",
     "normalize",
     "get_ess",
     "log_likelihood",

@@ -4,8 +4,9 @@ The port never imports the JAX package: a caller turns the JAX objects'
 leaves into numpy arrays (``np.asarray``) and hands them here, which builds
 the port's objects from them — so both packages can start from one
 particle cloud (one lane or a lane batch), one set of model parameters
-(scalars or one per lane) and one context's parameter values. Only numpy
-arrays, numpy scalars and Python numbers are accepted.
+(scalars or one per lane), one context's parameter values, and one recorded
+filter history (which the port's smoothers then run on). Only numpy arrays,
+numpy scalars and Python numbers are accepted.
 """
 
 from __future__ import annotations
@@ -14,8 +15,9 @@ import numpy as np
 import torch
 
 from . import examples
+from .filters.result import FilterHistory
 from .filters.state import ParticleFilterCorrection
-from .timeseries import TimeseriesState
+from .timeseries import LinearStateSpaceModel, TimeseriesState, models
 from .utils import resolve_device
 
 _NUMERIC = (np.ndarray, np.generic, int, float)
@@ -75,6 +77,41 @@ def sv_model_from_numpy(kappa, gamma, sigma, mu, nu, tau, dt, device=None):
     params = [_tensor(n, v, torch.float32, device) for n, v in
               zip(("kappa", "gamma", "sigma", "mu", "nu", "tau"), (kappa, gamma, sigma, mu, nu, tau))]
     return examples.stochastic_volatility_model(*params, dt=float(_check("dt", dt)), device=device)
+
+
+def history_from_numpy(time_indexes, values, log_weights, prev_indices, device=None) -> FilterHistory:
+    """A ``FilterHistory`` from the numpy leaves of the JAX package's one
+    (``time_indexes``, ``values``, ``log_weights``, ``prev_indices``); the
+    time indexes stay on the host, as the port records them."""
+    device = resolve_device(device)
+    return FilterHistory(
+        _tensor("time_indexes", time_indexes, torch.float32, "cpu"),
+        _tensor("values", values, torch.float32, device),
+        _tensor("log_weights", log_weights, torch.float32, device),
+        _tensor("prev_indices", prev_indices, torch.int32, device),
+    )
+
+
+def ar_from_numpy(alpha, beta, sigma, device=None) -> models.AR:
+    """The AR(1) process from the JAX one's ``parameters`` (scalars, or one
+    value per lane)."""
+    device = resolve_device(device)
+    params = (_tensor(n, v, torch.float32, device) for n, v in (("alpha", alpha), ("beta", beta), ("sigma", sigma)))
+    return models.AR(*params, device=device)
+
+
+def random_walk_from_numpy(sigma, device=None) -> models.RandomWalk:
+    """The random walk from the JAX one's ``parameters``."""
+    device = resolve_device(device)
+    return models.RandomWalk(_tensor("sigma", sigma, torch.float32, device), device=device)
+
+
+def linear_ssm_from_numpy(hidden, a, b, s, event_shape=(), observe_every_step: int = 1) -> LinearStateSpaceModel:
+    """The linear-Gaussian state-space model over the port's ``hidden``
+    process from the JAX model's ``parameters`` ``(a, b, s)``, on the
+    process's device."""
+    params = tuple(_tensor(n, v, torch.float32, hidden.device) for n, v in (("a", a), ("b", b), ("s", s)))
+    return LinearStateSpaceModel(hidden, params, event_shape=event_shape, observe_every_step=observe_every_step)
 
 
 def set_context_values(context, values: dict):

@@ -1,14 +1,15 @@
 """Distribution base class.
 
 Counterpart of ``pyfilter_tpu/distributions/base.py``: ``sample``,
-``log_prob``, ``batch_shape`` / ``event_shape``, ``support`` and
-``equivalent_to`` (the prior check of the inference context). Parameters are
+``log_prob``, ``batch_shape`` / ``event_shape``, ``support``, ``expand`` /
+``to_event`` and ``equivalent_to`` (the prior check of the inference context). Parameters are
 tensors, named in ``arg_names``; every draw takes an explicit
 ``torch.Generator`` on the parameters' device.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Sequence
 
 import torch
@@ -37,6 +38,27 @@ class Distribution:
     @property
     def support(self) -> constraints.Constraint:
         return constraints.real
+
+    def expand(self, batch_shape) -> "Distribution":
+        """The same distribution with every parameter broadcast to
+        ``batch_shape`` (each parameter keeps its trailing event axes)."""
+        batch_shape = tuple(batch_shape)
+        cur_batch = tuple(self.batch_shape)
+        new = copy.copy(self)
+        for name in self.arg_names:
+            leaf = torch.as_tensor(getattr(self, name))
+            extra = max(leaf.dim() - len(cur_batch), 0)
+            setattr(new, name, leaf.expand(batch_shape + tuple(leaf.shape[leaf.dim() - extra:])))
+        return new
+
+    def to_event(self, reinterpreted_batch_ndims: int = 1) -> "Distribution":
+        """Reinterpret the trailing ``reinterpreted_batch_ndims`` batch axes
+        as event axes."""
+        from .independent import Independent
+
+        if reinterpreted_batch_ndims == 0:
+            return self
+        return Independent(self, reinterpreted_batch_ndims)
 
     def equivalent_to(self, other: "Distribution") -> bool:
         """Same class with numerically equal parameters."""

@@ -1,18 +1,41 @@
-"""Example models: the stochastic-volatility model and its prior-registering
-builder (the two main paths).
+"""Example models: the sine-diffusion model of the reference README, and the
+stochastic-volatility model with its prior-registering builder.
 
-Counterpart of ``pyfilter_tpu/examples.py`` (``stochastic_volatility_model``
-and ``stochastic_volatility_builder`` only).
+Counterpart of ``pyfilter_tpu/examples.py`` (``sine_diffusion_model``,
+``stochastic_volatility_model`` and ``stochastic_volatility_builder`` only).
 """
 
 from __future__ import annotations
 
 import math
 
+import torch
+
 from . import distributions as dist
 from . import timeseries as ts
 from .timeseries import models
 from .utils import resolve_device
+
+
+def _sine_drift(x, gamma, sigma):
+    return torch.sin(x.value - gamma), sigma
+
+
+def sine_diffusion_model(
+    gamma: float = 0.0, sigma: float = 1.0, dt: float = 0.05, obs_a: float = 1.0, obs_s: float = 0.1, device=None
+):
+    """Sine-drift SDE observed linearly (the reference README's flagship
+    model), with its parameters on ``device`` (the card unless ``device="cpu"``)."""
+    device = resolve_device(device)
+    gamma, sigma = (models.parameter(p, device) for p in (gamma, sigma))
+    proc = ts.AffineEulerMaruyama(
+        _sine_drift,
+        (gamma, sigma),
+        dist.Normal(models.parameter(0.0, device), models.parameter(math.sqrt(dt), device)),
+        lambda g, s: dist.Normal(torch.zeros_like(g), torch.ones_like(g)),
+        dt=dt,
+    )
+    return ts.LinearStateSpaceModel(proc, (obs_a, obs_s))
 
 
 def sv_observation(x, mu, nu, tau):

@@ -3,7 +3,7 @@
 from . import particle
 from .base import BaseFilter
 from .particle import APF, SISR, ParticleFilter
-from .result import FilterResult
+from .result import FilterHistory, FilterResult
 from .state import ParticleFilterCorrection, ParticleFilterPrediction
 
 __all__ = [
@@ -12,6 +12,7 @@ __all__ = [
     "SISR",
     "APF",
     "FilterResult",
+    "FilterHistory",
     "ParticleFilterCorrection",
     "ParticleFilterPrediction",
     "particle",

@@ -6,6 +6,14 @@ all-NaN ``lax.cond`` is decided on the host copy of the observations, so it
 costs no device sync. A filter takes a model, or a model *builder* (a
 callable taking an inference context) that :meth:`initialize_model` runs;
 ``batch_shape`` runs that many independent filters as lanes of one cloud.
+
+``record_states=True`` records the history t = 0..T (initial state first)
+into leaves preallocated on the device, one row written per step (a list
+stacked at the end would double the peak: at N = 1e6 and T = 200 the leaves
+take 2.4 GB). ``record_states=k`` keeps the last ``k`` states in a rolling
+buffer. ``record_intermediary`` with ``observe_every_step > 1`` also records
+every sub-step, which then runs one propagation at a time instead of the
+batched ``propagate_substeps``.
 """
 
 from __future__ import annotations
@@ -16,7 +24,7 @@ import numpy as np
 import torch
 
 from ..utils import resolve_device, same_device
-from .result import FilterResult
+from .result import FilterHistory, FilterResult
 from .state import ParticleFilterCorrection, ParticleFilterPrediction
 
 
@@ -25,9 +33,18 @@ class BaseFilter:
     (or a builder of one) on ``device`` (the card unless ``device="cpu"``).
     ``nan_strategy="skip"`` propagates without correcting on an all-NaN
     observation. ``batch_shape`` lanes are independent filters whose model
-    parameters carry the lane axes."""
+    parameters carry the lane axes. ``record_states`` (``True`` or a bound
+    ``k``) and ``record_intermediary`` record the history (module docstring)."""
 
-    def __init__(self, model, nan_strategy: str = "skip", batch_shape=(), device=None):
+    def __init__(
+        self,
+        model,
+        record_states=False,
+        record_intermediary: bool = False,
+        nan_strategy: str = "skip",
+        batch_shape=(),
+        device=None,
+    ):
         if nan_strategy != "skip":
             raise NotImplementedError("only nan_strategy='skip' is ported")
         self.device = resolve_device(device)
@@ -36,6 +53,8 @@ class BaseFilter:
         else:
             self.model, self.model_builder = None, None
             self._set_model(model)
+        self.record_states = record_states
+        self.record_intermediary = record_intermediary
         self.nan_strategy = nan_strategy
         self.batch_shape = tuple(batch_shape)
 
@@ -90,12 +109,18 @@ class BaseFilter:
         y_dev = torch.as_tensor(y_host, device=self.device)
         return self._filter(generator, y_dev, bool(np.isnan(y_host).all()), state, first_step)
 
-    def _filter(self, generator, y, all_nan: bool, state, first_step: bool):
+    def _filter(self, generator, y, all_nan: bool, state, first_step: bool, on_substep=None):
+        """:meth:`filter` on a device ``y``; ``on_substep(prediction)``, when
+        given, sees every sub-step's prediction (one propagation at a time)."""
         n_sub = 0 if first_step else self.model.observe_every_step - 1
         prediction = self.predict(generator, state)
-        if n_sub:
+        if n_sub and on_substep is None:
             x_new = self.model.hidden.propagate_substeps(generator, prediction.x, n_sub)
             prediction = prediction._replace(x=x_new)
+        elif n_sub:
+            for _ in range(n_sub):
+                prediction = prediction._replace(x=self.model.hidden.propagate(generator, prediction.x))
+                on_substep(prediction)
         if all_nan:
             return prediction.create_state_from_prediction(
                 generator, self.model, compute_moments=getattr(self, "record_moments", True)
@@ -118,9 +143,14 @@ class BaseFilter:
         y_dev = torch.as_tensor(y_host, device=self.device)
 
         state = self.initialize(generator) if initial_state is None else initial_state
+        recorder = self._recorder(state, n_steps)
+        on_substep = recorder.record_substep if recorder is not None and recorder.intermediary else None
         lls, means, variances = [], [], []
         for t in range(n_steps):
-            state = self._filter(generator, y_dev[t], bool(all_nan[t]), state, first_step=t == 0)
+            state = self._filter(generator, y_dev[t], bool(all_nan[t]), state, first_step=t == 0,
+                                 on_substep=None if t == 0 else on_substep)
+            if recorder is not None:
+                recorder.record(state)
             lls.append(state.log_likelihood)
             means.append(state.mean)
             variances.append(state.variance)
@@ -132,4 +162,54 @@ class BaseFilter:
             filter_means=torch.stack(means),
             filter_variances=torch.stack(variances),
             latest_state=state,
+            states=None if recorder is None else recorder.history(),
         )
+
+    def _recorder(self, state0, n_steps: int) -> "_HistoryRecorder | None":
+        """The history recorder ``record_states`` asks for, holding ``state0``."""
+        rs = self.record_states
+        if rs is False or rs is None:
+            return None
+        total = n_steps + 1
+        if rs is True:
+            intermediary = bool(self.record_intermediary) and self.model.observe_every_step > 1 and n_steps > 1
+            rows = 2 + (n_steps - 1) * self.model.observe_every_step if intermediary else total
+            return _HistoryRecorder(state0, rows, intermediary=intermediary)
+        if not isinstance(rs, int) or rs < 2 or rs > total:
+            raise ValueError(f"record_states={rs} must be True or an int in [2, num_observations + 1]")
+        if self.record_intermediary:
+            raise ValueError("bounded record_states cannot record intermediaries")
+        return _HistoryRecorder(state0, rs, rolling=True)
+
+
+class _HistoryRecorder:
+    """History leaves preallocated on the device (``rows`` states), one row
+    written per recorded state; ``rolling`` keeps the last ``rows`` states
+    in a ring, unrolled by :meth:`history`."""
+
+    def __init__(self, state0, rows: int, intermediary: bool = False, rolling: bool = False):
+        leaves = (state0.x.value, state0.log_weights, state0.prev_indices)
+        self.buffers = [torch.empty((rows,) + tuple(a.shape), dtype=a.dtype, device=a.device) for a in leaves]
+        self.rows, self.intermediary, self.rolling = rows, intermediary, rolling
+        self.times: list[float] = []
+        self._write(state0.x.time_index, leaves)
+
+    def _write(self, time_index: float, leaves):
+        slot = len(self.times) % self.rows
+        for buf, leaf in zip(self.buffers, leaves):
+            buf[slot] = leaf
+        self.times.append(time_index)
+
+    def record(self, state):
+        """A corrected (or propagated) state."""
+        self._write(state.x.time_index, (state.x.value, state.log_weights, state.prev_indices))
+
+    def record_substep(self, prediction):
+        """A sub-step's state, with the weights and indices it carries."""
+        self._write(prediction.x.time_index, (prediction.x.value, prediction.log_weights, prediction.indices))
+
+    def history(self) -> FilterHistory:
+        buffers = self.buffers
+        if self.rolling:
+            buffers = [torch.roll(b, -(len(self.times) % self.rows), dims=0) for b in buffers]
+        return FilterHistory(torch.tensor(self.times[-self.rows:], dtype=torch.float32), *buffers)

@@ -1,8 +1,10 @@
-"""Particle filter base: particle shapes, initialisation, the fused-resample rule.
+"""Particle filter base: particle shapes, initialisation, the fused-resample
+rule, and smoothing over a recorded history.
 
 Counterpart of ``pyfilter_tpu/filters/particle/base.py``. Particles are
-``(N, *batch_shape)``: particle axis 0, lane axes next. Recorded histories
-and smoothing come later.
+``(N, *batch_shape)``: particle axis 0, lane axes next. The smoothers walk the
+history backwards in a Python loop (the JAX package's reverse ``lax.scan``)
+and write each step's draws into one output preallocated on the device.
 """
 
 from __future__ import annotations
@@ -10,9 +12,46 @@ from __future__ import annotations
 import torch
 
 from ...ops import systematic_counts, systematic_expand, systematic_expand_lanes
+from ...resampling import systematic_m
+from ...timeseries import TimeseriesState
+from ...utils import batched_gather, same_device
 from ..base import BaseFilter
+from ..result import FilterHistory, FilterResult
 from ..state import ParticleFilterCorrection
 from .proposals import Bootstrap, Proposal
+
+
+def gumbel(generator, shape, like: torch.Tensor) -> torch.Tensor:
+    """Standard Gumbel noise ``-log(E)``, ``E ~ Exp(1)`` drawn by
+    ``exponential_`` (never 0, unlike a uniform whose ``-log(-log(U))`` can
+    be infinite), with ``like``'s dtype and device."""
+    return -torch.log(torch.empty(shape, dtype=like.dtype, device=like.device).exponential_(generator=generator))
+
+
+def categorical(generator, logits: torch.Tensor) -> torch.Tensor:
+    """One categorical draw over the last axis of ``logits`` per leading
+    index, by Gumbel-max: ``argmax(logits + g)``, as ``jax.random.categorical``
+    draws it."""
+    return torch.argmax(logits + gumbel(generator, logits.shape, logits), dim=-1)
+
+
+def trajectory_ends(generator, resampler, log_w: torch.Tensor, n_trajectories: int | None) -> torch.Tensor:
+    """The smoothers' draws at the last step from its log-weights ``log_w``:
+    ``resampler``'s N, or ``systematic_m``'s ``n_trajectories`` (one lane only)."""
+    if n_trajectories is None:
+        return resampler(generator, log_w)
+    if log_w.dim() > 1:
+        raise ValueError("n_trajectories requires a laneless history")
+    return systematic_m(generator, log_w, int(n_trajectories))
+
+
+def ffbs_logits(model, vals_t, lw_t, time_index: float, traj_next) -> torch.Tensor:
+    """The exact backward kernel's logits ``w_t^i + log p(x_{t+1}^j | x_t^i)``
+    for every trajectory ``j`` and particle ``i``: ``(M, *batch, N)``."""
+    ev = model.hidden.event_ndim
+    density = model.hidden.build_density(TimeseriesState(time_index, vals_t, ev))  # batch (N, *batch)
+    w_state = density.log_prob(traj_next.unsqueeze(1))  # (M, N, *batch)
+    return torch.movedim(lw_t.unsqueeze(0) + w_state, 1, -1)
 
 
 class ParticleFilter(BaseFilter):
@@ -33,12 +72,21 @@ class ParticleFilter(BaseFilter):
         resampling_method=systematic_counts,
         proposal: Proposal = None,
         ess_threshold: float = 0.9,
+        record_states=False,
+        record_intermediary: bool = False,
         record_moments: bool = True,
         nan_strategy: str = "skip",
         batch_shape=(),
         device=None,
     ):
-        super().__init__(model, nan_strategy=nan_strategy, batch_shape=batch_shape, device=device)
+        super().__init__(
+            model,
+            record_states=record_states,
+            record_intermediary=record_intermediary,
+            nan_strategy=nan_strategy,
+            batch_shape=batch_shape,
+            device=device,
+        )
         self.n_particles = int(particles)
         self.resampler = resampling_method
         self.proposal = proposal if proposal is not None else Bootstrap()
@@ -91,3 +139,62 @@ class ParticleFilter(BaseFilter):
         return ParticleFilterCorrection.from_weighted_particles(
             x, weights, ll, self._identity, compute_moments=self.record_moments
         )
+
+    # -- smoothing ------------------------------------------------------------
+    def smooth(self, generator, states, method: str = "ffbs", **kwargs) -> torch.Tensor:
+        """Smoothed trajectories ``(T, M, *batch, *event)`` from a recorded
+        history (a ``FilterResult`` of ``record_states=True`` or its
+        ``FilterHistory``), on the filter's device. ``method``:
+
+        - ``"ffbs"``: exact forward-filter backward-sampling, an ``(M, N)``
+          weight matrix per step; ``n_trajectories`` sets ``M`` (default N,
+          laneless histories only otherwise);
+        - ``"ffbsi"``: rejection-sampling FFBSi, the same law at O(N) expected
+          work per step (``smoothing.ffbsi_smooth`` and its arguments);
+        - ``"fl"``: fixed-lag genealogy tracing through the recorded indices.
+        """
+        history = states.states if isinstance(states, FilterResult) else states
+        if history is None:
+            raise ValueError("smoothing requires record_states=True on the filter")
+        for leaf in history[1:]:
+            if not same_device(leaf.device, self.device):
+                raise ValueError(f"the history lies on {leaf.device}, the filter on {self.device}")
+        method = method.lower()
+        if method == "ffbs":
+            return self._smooth_ffbs(generator, history, **kwargs)
+        if method == "ffbsi":
+            from .smoothing import ffbsi_smooth
+
+            return ffbsi_smooth(generator, self.model, history, self.resampler, **kwargs)
+        if method == "fl":
+            return self._smooth_fl(history, **kwargs)
+        raise NotImplementedError(f"unsupported smoothing method '{method}'")
+
+    def _smooth_ffbs(self, generator, history: FilterHistory, n_trajectories: int | None = None) -> torch.Tensor:
+        """Exact backward sampling: at each step every trajectory re-selects
+        its ancestor from the ``(M, N)`` logits of :func:`ffbs_logits` by one
+        :func:`categorical` draw."""
+        ev = self.model.hidden.event_ndim
+        values, log_w = history.values, history.log_weights
+        times = history.time_indexes.tolist()
+        idx_last = trajectory_ends(generator, self.resampler, log_w[-1], n_trajectories)
+        traj_last = batched_gather(values[-1], idx_last, ev)
+        out = torch.empty((values.shape[0],) + tuple(traj_last.shape), dtype=values.dtype, device=values.device)
+        out[-1] = traj_last
+        for t in range(values.shape[0] - 2, -1, -1):
+            logits = ffbs_logits(self.model, values[t], log_w[t], times[t], out[t + 1])
+            out[t] = batched_gather(values[t], categorical(generator, logits), ev)
+        return out
+
+    def _smooth_fl(self, history: FilterHistory) -> torch.Tensor:
+        """Fixed-lag smoothing: trace each final particle's genealogy back
+        through the recorded ancestor indices."""
+        ev = self.model.hidden.event_ndim
+        values, prev_inds = history.values, history.prev_indices
+        out = torch.empty_like(values)
+        out[-1] = values[-1]
+        inds = self._identity
+        for t in range(values.shape[0] - 2, -1, -1):
+            inds = batched_gather(prev_inds[t + 1], inds, 0)
+            out[t] = batched_gather(values[t], inds, ev)
+        return out

@@ -1,11 +1,13 @@
 """SISR — sequential importance sampling with adaptive resampling.
 
-Counterpart of ``pyfilter_tpu/filters/particle/sisr.py`` (single lane). The
-JAX package gates the resample with a scalar ``lax.cond`` on the device; here
-the gate is one host-side ``if`` per observation, the one device-to-host
-sync of the step, which keeps the skip semantics: on the steps whose ESS is
-healthy no resampling work is launched at all. Lane batches (the JAX
-package's ``resample_lanes`` branch) are not ported yet.
+Counterpart of ``pyfilter_tpu/filters/particle/sisr.py``. A single lane is
+gated by one host-side ``if`` per observation (the JAX package's scalar
+``lax.cond``), the one device-to-host sync of the step, which keeps the skip
+semantics: on the steps whose ESS is healthy no resampling work is launched
+at all. A lane batch resamples every lane in one fused pass (the lane kernel
+on the card) and keeps the result on the lanes whose ESS is low, a per-lane
+``where`` on the device with no host sync, as the JAX package's
+``resample_lanes`` branch does.
 """
 
 from __future__ import annotations
@@ -19,28 +21,48 @@ from .base import ParticleFilter
 
 class SISR(ParticleFilter):
     def predict(self, generator, state) -> ParticleFilterPrediction:
-        """ESS-gated resampling: below ``ess_threshold * N`` the cloud
-        resamples and its weights reset; otherwise it passes through with
-        identity ancestor indices."""
-        if self.batch_shape:
-            raise NotImplementedError("SISR over lane batches is not ported yet")
+        """ESS-gated resampling: below ``ess_threshold * N`` a lane resamples
+        and its weights reset; otherwise it passes through with identity
+        ancestor indices (never the previous step's, which the fixed-lag
+        smoother would trace)."""
         normalized = state.normalized_weights()
         ess = get_ess(normalized, normalized=True)
         ts_state = state.x
+        if self.batch_shape:
+            return self._resample_lanes(generator, state, normalized, ess)
         if not bool(ess < self.resample_threshold):  # the host sync of the step
             return ParticleFilterPrediction(ts_state, state.log_weights, normalized, self._identity)
 
         self.n_resamples += 1
-        if self._use_fused_resample(ts_state.value):
-            new_vals, indices = self._fused_resample(generator, normalized, ts_state.value, normalized=True)
-        else:
-            indices = self.resampler(generator, normalized, normalized=True)
-            new_vals = batched_gather(ts_state.value, indices, ts_state.event_ndim)
+        new_vals, indices = self._resample(generator, normalized, ts_state)
         return ParticleFilterPrediction(
             ts_state.copy(values=new_vals),
             torch.zeros_like(state.log_weights),
             torch.full_like(normalized, 1.0 / self.n_particles),
             indices,
+        )
+
+    def _resample(self, generator, normalized, ts_state):
+        """Resampled values and ancestor indices: the fused pass for a
+        float32 cloud with the default resampler, else resampler + gather."""
+        if self._use_fused_resample(ts_state.value):
+            return self._fused_resample(generator, normalized, ts_state.value, normalized=True)
+        indices = self.resampler(generator, normalized, normalized=True)
+        return batched_gather(ts_state.value, indices, ts_state.event_ndim), indices
+
+    def _resample_lanes(self, generator, state, normalized, ess) -> ParticleFilterPrediction:
+        """Every lane resampled at once (one fire), kept where the lane's ESS
+        is below the threshold."""
+        ts_state = state.x
+        self.n_resamples += 1
+        resampled, fresh_idx = self._resample(generator, normalized, ts_state)
+        mask = ess < self.resample_threshold  # (*batch), broadcast over the particle axis
+        vals_mask = mask.reshape(mask.shape + (1,) * ts_state.event_ndim)
+        return ParticleFilterPrediction(
+            ts_state.copy(values=torch.where(vals_mask, resampled, ts_state.value)),
+            torch.where(mask, 0.0, state.log_weights),
+            torch.where(mask, 1.0 / self.n_particles, normalized),
+            torch.where(mask, fresh_idx, self._identity),
         )
 
     def correct(self, generator, y, prediction) -> ParticleFilterCorrection:

@@ -1,0 +1,239 @@
+"""O(N) particle smoothing: rejection-sampling FFBSi.
+
+Counterpart of ``pyfilter_tpu/filters/particle/smoothing.py`` (without PaRIS
+and the in-trace bound). Each trajectory draws ancestor candidates
+uniformly, ``i ~ Uniform{0..N-1}``, and accepts with probability
+``(w_i / max w) · p(x_{t+1} | x_i) / sup p``: the accepted law is exactly the
+backward kernel's, ``∝ w_i p(x_{t+1} | x_i)``. All ``max_rounds`` rounds are
+drawn at once (one ``randint``, one gather, one density evaluation) and each
+target takes its first acceptance; targets with none are finished exactly by
+a Gumbel-max categorical streamed over particle blocks. The bound comes from
+:func:`transition_log_sup` (homoscedastic affine processes) or from the
+caller.
+
+Where the JAX package decides on the device (``lax.cond`` on every target
+accepted, a ``while_loop`` over the failed slots), the port reads the number
+of failed slots once per backward step, one host sync, and from it knows how
+many fallback passes to launch. A violated bound is accumulated on the device
+and poisons the output with NaN without a read. ``ffbsi_smooth.host_syncs``
+and ``ffbsi_smooth.fallback_passes`` count both since they were last set to 0.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ...distributions import Independent, MultivariateNormal, Normal
+from ...timeseries import TimeseriesState
+from ...utils import batched_gather
+from .base import gumbel, trajectory_ends
+
+_LOG_2PI = math.log(2.0 * math.pi)
+
+
+def _max_log_prob(dist) -> torch.Tensor:
+    """Log of the density at its mode, for the Gaussian increment families;
+    anything else needs an explicit ``log_density_sup``."""
+    if isinstance(dist, Normal):
+        return -torch.log(torch.as_tensor(dist.scale)) - 0.5 * _LOG_2PI
+    if isinstance(dist, Independent) and isinstance(dist.base_dist, Normal):
+        base = dist.base_dist
+        per = (-torch.log(torch.as_tensor(base.scale)) - 0.5 * _LOG_2PI).expand(base.batch_shape)
+        k = dist.reinterpreted_batch_ndims
+        return torch.sum(per, dim=tuple(range(-k, 0))) if k else per
+    if isinstance(dist, MultivariateNormal):
+        diag = torch.diagonal(dist.scale_tril, dim1=-2, dim2=-1)
+        return -0.5 * diag.shape[-1] * _LOG_2PI - torch.sum(torch.log(diag), dim=-1)
+    raise ValueError(f"no analytic density bound for {type(dist).__name__}; pass log_density_sup explicitly")
+
+
+def transition_log_sup(model) -> torch.Tensor:
+    """Upper bound on ``log p(x' | x)`` over all ``(x, x', t)`` for an affine
+    process whose diffusion depends on neither state nor time: the density
+    of ``loc(x) + scale · W`` peaks at ``max density(W) / |det scale|``.
+
+    Homoscedasticity is checked by probing ``mean_scale`` at three states
+    and three times (host values); a state- or time-dependent scale, or a
+    process that is not affine, raises: pass ``log_density_sup`` then."""
+    hidden = model.hidden
+    if not hasattr(hidden, "mean_scale") or not hasattr(hidden, "increment_distribution"):
+        raise ValueError(
+            "transition_log_sup needs an affine process (mean_scale + increment_distribution); "
+            "pass log_density_sup explicitly"
+        )
+    ev = int(hidden.event_ndim)
+    d = int(hidden.initial_distribution().event_shape[0]) if ev == 1 else 1
+    device = hidden.device
+
+    def scale_at(v, t):
+        value = torch.full((d,) if ev == 1 else (), v, dtype=torch.float32, device=device)
+        _, scale = hidden.mean_scale(TimeseriesState(t, value, ev))
+        return torch.as_tensor(scale, dtype=torch.float64, device=device)
+
+    probes = [scale_at(v, t) for v in (0.0, 0.7, -1.3) for t in (0.0, 1.0, 7.0)]
+    shapes = [p.shape for p in probes]
+    host = torch.cat([p.reshape(-1) for p in probes]).cpu().split([p.numel() for p in probes])
+    scale0 = host[0].reshape(shapes[0])
+    for s, shape in zip(host[1:], shapes[1:]):
+        if shape != shapes[0] or not torch.allclose(s.reshape(shape), scale0, rtol=1e-5, atol=1e-7):
+            raise ValueError(
+                "state- or time-dependent diffusion scale: no generic transition-density bound; "
+                "pass log_density_sup explicitly (e.g. from the scale's known infimum)"
+            )
+
+    mlp = _max_log_prob(hidden.increment_distribution)
+    s = probes[0].to(torch.float32)
+    if s.dim() >= 2 and s.shape[-1] == s.shape[-2] == d:
+        logdet = torch.linalg.slogdet(s)[1]
+    else:
+        per = torch.log(torch.abs(s))
+        if per.dim() == 0:
+            logdet = d * per
+        else:
+            logdet = torch.sum(per.expand(per.shape[:-1] + (d,)) if ev == 1 else per, dim=-1)
+    return (mlp - logdet).to(torch.float32)
+
+
+def _streaming_categorical(generator, model, vals_t, lw_t, time_index: float, targets, ev: int, block: int):
+    """The exact backward kernel's draw for every target, Gumbel-max streamed
+    over particle blocks: O(N·J) work, O(J · block) memory."""
+    n = vals_t.shape[0]
+    j_shape = tuple(targets.shape[: targets.dim() - ev])
+    best_val = torch.full(j_shape, -math.inf, dtype=lw_t.dtype, device=lw_t.device)
+    best_idx = torch.zeros(j_shape, dtype=torch.int64, device=lw_t.device)
+    for start in range(0, n, block):
+        sl_v, sl_lw = vals_t[start : start + block], lw_t[start : start + block]
+        density = model.hidden.build_density(TimeseriesState(time_index, sl_v, ev))
+        lp = density.log_prob(targets.unsqueeze(1))  # (J, B, *batch)
+        tot = sl_lw.unsqueeze(0) + lp + gumbel(generator, lp.shape, lp)
+        mv, mi = torch.max(tot, dim=1)
+        upd = mv > best_val
+        best_val = torch.where(upd, mv, best_val)
+        best_idx = torch.where(upd, mi + start, best_idx)
+    return best_idx
+
+
+def backward_indices(
+    generator,
+    model,
+    vals_t,
+    lw_t,
+    time_index: float,
+    targets,
+    log_sup,
+    max_rounds: int = 16,
+    block: int = 64,
+):
+    """One backward-kernel draw per target, index ``i`` with probability
+    ``∝ w_t^i p(target | x_t^i)``. ``vals_t`` ``(N, *batch, *event)``,
+    ``lw_t`` ``(N, *batch)`` unnormalised log-weights, ``targets`` ``(J,
+    *batch, *event)`` (J may differ from N only without lanes). Returns
+    ``(indices (J, *batch) int64, violated)``: ``violated`` is a 0-d bool
+    tensor on the device, True when a candidate's density exceeded
+    ``log_sup`` (the accepted law would then be biased)."""
+    ev = model.hidden.event_ndim
+    j_shape = tuple(targets.shape[: targets.dim() - ev])
+    j = j_shape[0]
+    if j_shape[1:] != tuple(lw_t.shape[1:]):
+        raise ValueError(f"lane axes mismatch: targets {j_shape} vs weights {tuple(lw_t.shape)}")
+    if j != lw_t.shape[0] and len(j_shape) > 1:
+        raise ValueError("J != N requires laneless inputs")
+    n, r, dev = vals_t.shape[0], int(max_rounds), lw_t.device
+    lw_shift = lw_t - torch.amax(lw_t, dim=0, keepdim=True)  # log(w_i / max w)
+
+    if r > 0:
+        cand = torch.randint(0, n, (r,) + j_shape, generator=generator, device=dev)
+        flat = cand.reshape((r * j,) + j_shape[1:])
+        if len(j_shape) == 1 and ev <= 1:
+            # one packed gather of (value..., log-weight) rows
+            packed = torch.cat([vals_t if ev == 1 else vals_t[:, None], lw_shift[:, None]], dim=-1)
+            g = packed.index_select(0, flat).reshape(r, j, -1)
+            x_c, lw_c = (g[..., :-1] if ev == 1 else g[..., 0]), g[..., -1]
+        else:
+            x_c = batched_gather(vals_t, flat, ev).reshape((r,) + tuple(targets.shape))
+            lw_c = batched_gather(lw_shift, flat, 0).reshape((r,) + j_shape)
+        density = model.hidden.build_density(TimeseriesState(time_index, x_c, ev))
+        lp = density.log_prob(targets.unsqueeze(0))  # (R, J, *batch)
+        violated = torch.any(lp > log_sup + 1e-4)
+        log_u = torch.log(torch.rand((r,) + j_shape, generator=generator, dtype=lp.dtype, device=dev))
+        acc = log_u < lw_c + lp - log_sup
+        first = torch.argmax(acc.to(torch.uint8), dim=0)  # the first accepting round
+        idx = torch.gather(cand, 0, first.unsqueeze(0))[0]
+        failed = ~torch.any(acc, dim=0)
+    else:  # everything goes through the exact fallback
+        idx = torch.zeros(j_shape, dtype=torch.int64, device=dev)
+        failed = torch.ones(j_shape, dtype=torch.bool, device=dev)
+        violated = torch.zeros((), dtype=torch.bool, device=dev)
+
+    n_fail = int(failed.sum())  # the host sync of the step
+    ffbsi_smooth.host_syncs += 1
+    if n_fail == 0:
+        return idx, violated
+    if len(j_shape) > 1:
+        # lanes: one exact pass over every target, kept on the failed ones
+        ffbsi_smooth.fallback_passes += 1
+        exact = _streaming_categorical(generator, model, vals_t, lw_t, time_index, targets, ev, block)
+        return torch.where(failed, exact, idx), violated
+
+    # laneless: only the failed slots, in passes of k_sub; each failed slot
+    # goes to its rank among the failures (a cumsum), so the first n_fail
+    # entries of `order` are the failed slots, with no second read
+    k_sub = min(j, max(128, j // 512))
+    block_eff = max(int(block), min(n, (1 << 25) // max(k_sub, 1)))
+    rank = torch.where(failed, torch.cumsum(failed, dim=0) - 1, j)
+    order = torch.full((j + 1,), j, dtype=torch.int64, device=dev).scatter_(0, rank, torch.arange(j, device=dev))
+    for start in range(0, n_fail, k_sub):
+        ffbsi_smooth.fallback_passes += 1
+        sel = order[start : min(start + k_sub, n_fail)]
+        exact = _streaming_categorical(
+            generator, model, vals_t, lw_t, time_index, targets.index_select(0, sel), ev, block_eff
+        )
+        idx = idx.index_copy(0, sel, exact)
+    return idx, violated
+
+
+def ffbsi_smooth(
+    generator,
+    model,
+    history,
+    resampler,
+    log_density_sup=None,
+    max_rounds: int = 16,
+    block: int = 64,
+    n_trajectories: int | None = None,
+    check_bound: bool = True,
+) -> torch.Tensor:
+    """Rejection-FFBSi trajectories ``(T, M, *batch, *event)`` over a
+    recorded history, the exact FFBS's law at O(N) expected work per step;
+    ``M = n_trajectories`` (laneless histories only; default N), the
+    realistic configuration at large N. A transition density observed above
+    the bound (a wrong ``log_density_sup``) poisons the whole output with
+    NaN unless ``check_bound=False``."""
+    ev = model.hidden.event_ndim
+    values, log_w = history.values, history.log_weights
+    times = history.time_indexes.tolist()
+    if log_density_sup is None:
+        log_sup = transition_log_sup(model)
+    else:
+        log_sup = torch.as_tensor(log_density_sup, dtype=values.dtype, device=values.device)
+
+    idx_last = trajectory_ends(generator, resampler, log_w[-1], n_trajectories)
+    traj_last = batched_gather(values[-1], idx_last, ev)
+    out = torch.empty((values.shape[0],) + tuple(traj_last.shape), dtype=values.dtype, device=values.device)
+    out[-1] = traj_last
+    violated = torch.zeros((), dtype=torch.bool, device=values.device)
+    for t in range(values.shape[0] - 2, -1, -1):
+        idx, v = backward_indices(
+            generator, model, values[t], log_w[t], times[t], out[t + 1], log_sup, max_rounds, block
+        )
+        out[t] = batched_gather(values[t], idx, ev)
+        violated |= v
+    if check_bound:
+        out = torch.where(violated, math.nan, out)
+    return out
+
+
+ffbsi_smooth.host_syncs = 0
+ffbsi_smooth.fallback_passes = 0

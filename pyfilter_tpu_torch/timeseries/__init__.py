@@ -1,17 +1,20 @@
-"""The model layer of the port (the subset the SISR main path uses)."""
+"""The model layer of the port."""
 
 from . import models
 from .affine import affine_transform
-from .process import AffineEulerMaruyama, AffineProcess, StructuralStochasticProcess
-from .ssm import StateSpaceModel
-from .state import TimeseriesState
+from .process import AffineEulerMaruyama, AffineProcess, LinearModel, StructuralStochasticProcess
+from .ssm import LinearStateSpaceModel, StateSpaceModel
+from .state import StateSpacePath, TimeseriesState
 
 __all__ = [
     "TimeseriesState",
+    "StateSpacePath",
     "StructuralStochasticProcess",
     "AffineProcess",
     "AffineEulerMaruyama",
+    "LinearModel",
     "StateSpaceModel",
+    "LinearStateSpaceModel",
     "affine_transform",
     "models",
 ]

@@ -1,8 +1,10 @@
-"""Pre-built processes: ``Verhulst`` (the volatility of the stochastic-
-volatility model).
+"""Pre-built processes: ``AR``, ``RandomWalk`` and ``Verhulst`` (the
+volatility of the stochastic-volatility model).
 
 Counterpart of ``pyfilter_tpu/timeseries/models.py``. Like the JAX package,
 and unlike ``bench.py``'s torch loop, the volatility is not clamped.
+Parameters are float32 tensors on the process's device (the card unless
+``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ import torch
 
 from ..distributions import Normal
 from ..utils import resolve_device
-from .process import AffineEulerMaruyama
+from .process import AffineEulerMaruyama, AffineProcess
 
 
 def _verhulst_drift(x, kappa, gamma, sigma):
@@ -36,3 +38,40 @@ class Verhulst(AffineEulerMaruyama):
         params = tuple(parameter(p, device) for p in (kappa, gamma, sigma))
         increment = Normal(parameter(0.0, device), torch.sqrt(parameter(dt, device)))
         super().__init__(_verhulst_drift, params, increment, _verhulst_initial, dt=dt)
+
+
+def _standard_normal(device) -> Normal:
+    return Normal(parameter(0.0, device), parameter(1.0, device))
+
+
+def _ar_mean_scale(x, alpha, beta, sigma):
+    return alpha + beta * x.value, sigma
+
+
+def _ar_initial(alpha, beta, sigma):
+    return Normal(alpha, sigma)
+
+
+class AR(AffineProcess):
+    r"""AR(1): ``x' = alpha + beta * x + sigma * eps``; initial ``N(alpha, sigma)``."""
+
+    def __init__(self, alpha, beta, sigma, device=None):
+        device = resolve_device(device)
+        params = tuple(parameter(p, device) for p in (alpha, beta, sigma))
+        super().__init__(_ar_mean_scale, params, _standard_normal(device), _ar_initial)
+
+
+def _rw_mean_scale(x, sigma):
+    return x.value, sigma
+
+
+def _rw_initial(sigma):
+    return Normal(torch.zeros_like(sigma), sigma)
+
+
+class RandomWalk(AffineProcess):
+    """Gaussian random walk ``x' = x + sigma * eps``; initial ``N(0, sigma)``."""
+
+    def __init__(self, sigma, device=None):
+        device = resolve_device(device)
+        super().__init__(_rw_mean_scale, (parameter(sigma, device),), _standard_normal(device), _rw_initial)

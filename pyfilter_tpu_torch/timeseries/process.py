@@ -1,5 +1,5 @@
-"""Stochastic processes: the structural base, affine processes and their
-Euler–Maruyama discretisation.
+"""Stochastic processes: the structural base, affine processes, their
+Euler–Maruyama discretisation and the linear-Gaussian process.
 
 Counterpart of ``pyfilter_tpu/timeseries/process.py``. Processes are plain
 objects holding their parameter tensors; every draw takes an explicit
@@ -12,7 +12,7 @@ from typing import Callable, Sequence
 
 import torch
 
-from ..distributions import Distribution, Normal
+from ..distributions import Distribution, Independent, Normal
 from .affine import affine_transform
 from .state import TimeseriesState
 
@@ -90,7 +90,8 @@ class AffineProcess(StructuralStochasticProcess):
         """ONE batched draw of all ``n`` increments, then ``loc + scale * eps``
         per sub-step — law-equal to ``n`` separate ``propagate`` calls."""
         inc = self.increment_distribution
-        if n <= 0 or not isinstance(inc, Normal):
+        elementwise = isinstance(inc, Normal) or (isinstance(inc, Independent) and isinstance(inc.base_dist, Normal))
+        if n <= 0 or not elementwise:
             return super().propagate_substeps(generator, x, n)
 
         loc, scale = self.mean_scale(x)
@@ -118,3 +119,23 @@ class AffineEulerMaruyama(AffineProcess):
     def mean_scale(self, x: TimeseriesState) -> tuple:
         drift, scale = self.mean_scale_fn(x, *self.parameters)
         return x.value + drift * self.dt, scale
+
+
+def _linear_mean_scale(x, a, b, sigma):
+    if a.dim() >= 2:
+        return b + torch.einsum("...ij,...j->...i", a, x.value), sigma
+    return b + a * x.value, sigma
+
+
+class LinearModel(AffineProcess):
+    r"""Linear-Gaussian process ``x' = b + A x + sigma * eps``. Parameters
+    ``(a, sigma)`` or ``(a, b, sigma)`` (tensors); a missing offset becomes 0."""
+
+    def __init__(self, parameters, increment_distribution, initial_kernel, event_ndim=None):
+        parameters = tuple(parameters)
+        if len(parameters) == 2:
+            a, sigma = parameters
+            parameters = (a, torch.zeros_like(sigma), sigma)
+        elif len(parameters) != 3:
+            raise ValueError("LinearModel takes (a, sigma) or (a, b, sigma)")
+        super().__init__(_linear_mean_scale, parameters, increment_distribution, initial_kernel, event_ndim=event_ndim)

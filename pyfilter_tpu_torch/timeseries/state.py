@@ -1,4 +1,4 @@
-"""Timeseries state.
+"""Timeseries state and sampled paths.
 
 Counterpart of ``pyfilter_tpu/timeseries/state.py``. ``time_index`` is a
 host-side Python float here: the process time advances on the host, so a
@@ -6,6 +6,8 @@ sub-step costs no device work for it.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -36,3 +38,16 @@ class TimeseriesState:
     def propagate_from(self, values, time_increment: float = 1.0) -> "TimeseriesState":
         """New state at ``time_index + time_increment`` with the given values."""
         return TimeseriesState(self.time_index + time_increment, values, self.event_ndim)
+
+
+class StateSpacePath(NamedTuple):
+    """A sampled trajectory of a state-space model: ``x`` and ``y`` stacked
+    along the leading time axis, NaN observations on unobserved sub-steps;
+    ``time_indexes`` ``(T,)`` on the host."""
+
+    time_indexes: torch.Tensor
+    x: torch.Tensor
+    y: torch.Tensor | None = None
+
+    def get_paths(self):
+        return self.x, self.y

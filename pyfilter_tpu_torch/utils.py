@@ -1,8 +1,8 @@
 """Core weight numerics for sequential Monte Carlo, in PyTorch.
 
 Counterpart of ``pyfilter_tpu/utils.py``: ``normalize``, ``normalize_log``,
-``get_ess``, ``log_likelihood``, ``get_mean_and_variance`` and
-``batched_gather``, with the same conventions — the PARTICLE axis is axis 0,
+``get_ess``, ``log_likelihood``, ``get_mean_and_variance``,
+``construct_diag_from_flat`` and ``batched_gather``, with the same conventions — the PARTICLE axis is axis 0,
 lane axes follow, event axes come last. ``normalize`` scrubs NaN and +inf
 log-weights to -inf and backfills lanes whose weights are all -inf with the
 uniform 1/N.
@@ -101,6 +101,18 @@ def get_mean_and_variance(
     if not covariance:
         return mean, torch.sum(w * torch.square(centered), dim=0)
     return mean, torch.einsum("n...i,n...j->...ij", w * centered, centered)
+
+
+def construct_diag_from_flat(x: torch.Tensor, event_ndim: int = 1) -> torch.Tensor:
+    """Batched diagonal matrix from a flat scale: ``event_ndim`` 0 takes a
+    scalar to ``(..., 1, 1)``, 1 takes ``(..., d)`` to ``(..., d, d)``."""
+    if event_ndim == 0:
+        return x[..., None, None]
+    if event_ndim == 1:
+        if x.shape[-1] == 1:
+            return x[..., None]
+        return x[..., None] * torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
+    raise ValueError("event rank must be <= 1")
 
 
 def batched_gather(x: torch.Tensor, indices: torch.Tensor, event_ndim: int = 0) -> torch.Tensor:

@@ -143,3 +143,101 @@ def test_apf_lanes_on_card_go_through_the_kernel(cuda):
     res = filt.batch_filter(torch.Generator(device=cuda).manual_seed(0), y)
     assert torch.isfinite(res.log_likelihood).all() and res.log_likelihood.shape == (64,)
     assert expand.fused_expand_lanes.launches - before == pt.APF.corrections - steps == 20
+
+
+def _ar_model(device=None):
+    hidden = pt.timeseries.models.AR(0.2, 0.7, 0.4, device=device)
+    return pt.timeseries.LinearStateSpaceModel(hidden, (1.0, 0.25))
+
+
+def _ar_data_and_oracle(n_obs=60):
+    """AR observations from the float64 oracle of ``tests/kalman.py`` and its
+    RTS smoothing moments."""
+    import numpy as np
+
+    from kalman import KalmanFilter
+
+    oracle = KalmanFilter([[0.7]], [[1.0]], [[0.16]], [[0.0625]], transition_offsets=[0.2],
+                          initial_state_mean=[0.2], initial_state_covariance=[[0.16]])
+    _, y = oracle.sample(n_obs, rng=np.random.default_rng(11))
+    sm, sp = oracle.smooth(y)
+    return y[:, 0].astype(np.float32), sm[:, 0], sp[:, 0, 0]
+
+
+@pytest.mark.cuda
+def test_record_states_on_card(cuda):
+    """Full and bounded histories on the card: leaves on the device, time
+    indexes on the host, the bounded one the tail of the full one; every
+    resample fire one launch of the expand kernel."""
+    y, _, _ = _ar_data_and_oracle(30)
+    filt = pt.SISR(_ar_model(), 4096, record_states=True)
+    before = expand.fused_expand.launches
+    res = filt.batch_filter(torch.Generator(device=cuda).manual_seed(0), y)
+    h = res.states
+    assert h.values.shape == h.log_weights.shape == h.prev_indices.shape == (31, 4096)
+    assert h.values.device.type == "cuda" and h.time_indexes.device.type == "cpu"
+    assert h.time_indexes.tolist() == list(range(31))
+    assert expand.fused_expand.launches - before == filt.n_resamples > 0
+    tail = pt.SISR(_ar_model(), 4096, record_states=5).batch_filter(torch.Generator(device=cuda).manual_seed(0), y)
+    for a, b in zip(tail.states, h):
+        assert torch.equal(a, b[-5:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["ffbs", "ffbsi"])
+def test_smoothers_on_card_against_oracle(cuda, method):
+    """Exact FFBS and rejection FFBSi on the card hit the RTS smoothing
+    marginals within the JAX package's Monte Carlo bound."""
+    import numpy as np
+
+    y, sm_mean, sm_var = _ar_data_and_oracle()
+    filt = pt.SISR(_ar_model(), 2000, record_states=True)
+    res = filt.batch_filter(torch.Generator(device=cuda).manual_seed(1), y)
+    traj = filt.smooth(torch.Generator(device=cuda).manual_seed(2), res, method=method)
+    assert traj.shape == (61, 2000) and traj.device.type == "cuda"
+    means = traj.double().mean(dim=1).cpu().numpy()[1:]
+    np.testing.assert_allclose(means, sm_mean, atol=4.5 * np.sqrt(sm_var / 2000).max() + 0.02)
+
+
+@pytest.mark.cuda
+def test_sisr_lanes_kernel_matches_plain_run(cuda, monkeypatch):
+    """SISR over lanes through the lane kernel, and the same run (same
+    generator seed) through its plain version: identical histories and
+    log-likelihoods, one lane-kernel launch per step."""
+    y, _, _ = _ar_data_and_oracle(30)
+
+    def run():
+        filt = pt.SISR(_ar_model(), 400, batch_shape=(8,), record_states=True)
+        return filt.batch_filter(torch.Generator(device=cuda).manual_seed(3), y)
+
+    before = expand.fused_expand_lanes.launches
+    kernel = run()
+    assert expand.fused_expand_lanes.launches - before == 30
+    monkeypatch.setattr(expand, "fused_expand_lanes", expand._expand_lanes_probs_plain)
+    plain = run()
+    assert torch.equal(kernel.log_likelihood, plain.log_likelihood)
+    for a, b in zip(kernel.states[1:], plain.states[1:]):
+        assert torch.equal(a, b)
+
+
+def test_entry_points_refuse_without_a_card(monkeypatch):
+    """Without a card, the smoothing path's entry points raise unless given
+    ``device="cpu"``: models, filters that record, SISR over lanes, converted
+    histories."""
+    import numpy as np
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cpu_model = _ar_model("cpu")
+    for make in (
+        lambda: pt.timeseries.models.AR(0.2, 0.7, 0.4),
+        lambda: pt.timeseries.models.RandomWalk(0.3),
+        lambda: pt.examples.sine_diffusion_model(),
+        lambda: pt.SISR(cpu_model, 100, record_states=True),
+        lambda: pt.SISR(cpu_model, 100, batch_shape=(3,)),
+        lambda: pt.convert.history_from_numpy(np.zeros(2), np.zeros((2, 4)), np.zeros((2, 4)), np.zeros((2, 4), int)),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    filt = pt.SISR(cpu_model, 100, record_states=True, device="cpu")
+    res = filt.batch_filter(torch.Generator().manual_seed(0), np.zeros(5, np.float32))
+    assert filt.smooth(torch.Generator().manual_seed(1), res, method="ffbsi").device.type == "cpu"
