@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py             # the phases below, on one card
     python3 chip_smoke.py --profile   # also: one traced run of each main path
+    python3 chip_smoke.py --ness-spread [CARD_FITS [CPU_FITS]]   # phase 9's seed sweep only
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -12,8 +13,9 @@ Phases, in order; any failure exits non-zero before the result line:
    ``build/kernels/``, one ``nvcc`` per source, all started together.
 3. Kernels: each kernel (counts prep from probabilities and expansion)
    against its plain PyTorch version on the card, at the main paths' shapes
-   and at the edge cases (degenerate, zero-run, uniform and sub-2^-60
-   weights; uniforms 0, 2^-24, 0.5, 1-2^-24, 1), bit for bit.
+   (the lane kernel with d = 1, 2 and 3 value planes) and at the edge cases
+   (degenerate, zero-run, uniform and sub-2^-60 weights; uniforms 0, 2^-24,
+   0.5, 1-2^-24, 1), bit for bit.
 4. Main path: bootstrap SISR on the stochastic-volatility model at
    N = 1e6, T = 200 observations (5 hidden sub-steps each): one warm-up run,
    then three timed runs with every kernel's launch count set to 0 before
@@ -60,9 +62,26 @@ Phases, in order; any failure exits non-zero before the result line:
    kernel, smoothed by FFBSi over lanes against the same smoother. Each
    kernel equals its plain version on each run's last cloud.
 
+9. Online parameter inference on the Lorenz-63 model (``examples/
+   lorenz_ness.py`` at full size, the reference's ``lorenz.ipynb``): the
+   LORENZ_T = 300 observed rows of ``lorenz63_model().sample_states`` (CPU,
+   seed 0), ``NESS(SISR(lorenz63_builder, 400), 1000)`` on the card (a
+   warm-up, then one timed fit per seed of NESS_SEEDS): finite weights, the
+   lane kernel launched once per SISR lane step (d = 3), equal to its plain
+   version on the last cloud, and a count of fits that find the truth within
+   the range that the JAX package's fits give. Then NESSMC2 and SMC2FW at
+   their defaults (switch 50, block 10) over the first 100 observations: finite weights, the switch after observation 50, SMC2FW's
+   second stage firing on its block schedule. Last, one CPU fit: the
+   card's fits that find the truth land where the JAX package's and the
+   CPU fit's do (``NESS_TOL_SE``).
+
+``--ness-spread`` runs only phase 9's seed sweep (card and CPU fits and the
+gaps between them).
+
 With ``--profile``, also the device operations per observation (main path
-1), per APF step (main path 2 and phase 7), and per backward step of FFBS
-(phase 7) and FFBSi (phase 8), each from one traced run. Prints a ``{"kernels": [...]}`` line,
+1 and phase 9), per APF step (main path 2 and phase 7), per backward step of
+FFBS (phase 7) and FFBSi (phase 8), and per NESS rejuvenation (phase 9),
+each from one traced run. Prints a ``{"kernels": [...]}`` line,
 then, as the last line,
 ``{"ok": true, "device": {...}}``.
 """
@@ -119,6 +138,37 @@ FFBSI_T = 200
 FFBSI_SIZES = ((100_000, None), (1_000_000, 4096))
 FFBSI_TIMED = 3
 LANES_N, LANES_K = 400, 8
+# phase 9: examples/lorenz_ness.py's full size (the reference's lorenz.ipynb):
+# SISR 400 x K = 1000 parameter lanes, 10 sub-steps, T = 300 observations
+LORENZ_N, LORENZ_K, LORENZ_T, LORENZ_OES = 400, 1000, 300, 10
+LORENZ_TRUE = {"s": 10.0, "r": 28.0, "b": 8.0 / 3.0}
+# The NESS posterior over seeds is bimodal on this workload: one observation
+# drops the parameter ESS to about 1, and from there some fits find the truth
+# (posterior sd of s about 0.15) while the rest freeze near another point
+# (posterior sds below 0.02). A fit finds the truth when each posterior mean
+# lies within 1% of its Uniform prior's width (35, 40, 19) of the true value.
+# Of the JAX package's 32 fits below, those that find it lie within 0.7% of
+# the width and the others 1.2-59% away in at least one parameter.
+NESS_FOUND_WITHIN = {"s": 0.35, "r": 0.40, "b": 0.19}
+# The card fits one NESS per seed of NESS_SEEDS (fixed, not picked by
+# outcome), and the port's CPU fit is the sweep's first seed. The JAX
+# package's fits at this configuration on the CPU (seeds 10-320;
+# ``tests/test_torch_port_ness.py`` run as a script; PERF.md) are the
+# reference: 11 of 32 find the truth. NESS_FOUND_RANGE holds the counts among
+# the 16 card fits that a two-sided Fisher exact test at 1% does not set
+# apart from that. Fits that find the truth still differ between seeds by up
+# to 7.7 of their posterior sds (the JAX readings), so they are compared in
+# units of the spread between seeds of the JAX fits' posterior means
+# (JAX_FOUND: its mean and that spread, per parameter): the mean over the
+# card's fits that find the truth within NESS_TOL_SE standard errors of the
+# JAX fits' mean and of the CPU fit, which must find the truth too.
+NESS_SEEDS, NESS_CPU_SEED = tuple(range(10, 170, 10)), 10
+NESS_FOUND_RANGE = (1, 12)
+JAX_FOUND_N = 11
+JAX_FOUND = {"s": (9.998362941359614, 0.09619523072211195), "r": (27.942921450997407, 0.021936274311088664),
+             "b": (2.64768846316189, 0.03919174652425058)}
+NESS_TOL_SE = 4.0
+HYBRID_T, HYBRID_SWITCH, HYBRID_BLOCK = 100, 50, 10
 
 
 def simulate_obs(n_obs: int):
@@ -246,6 +296,10 @@ def main(argv) -> int:
     import numpy as np
 
     import pyfilter_tpu_torch as pt
+
+    if argv[:1] == ["--ness-spread"]:
+        counts = [int(a) for a in argv[1:]] + [8, 2][len(argv) - 1:]
+        return ness_spread(torch, pt, *counts[:2])
     from pyfilter_tpu_torch.ops import _build, expand
     from pyfilter_tpu_torch.ops.resample import copy_counts
 
@@ -371,8 +425,12 @@ def main(argv) -> int:
     ffbsi_launches, lane_launches, ffbsi_err, lane_run_err = ffbsi(torch, pt, expand, card,
                                                                    profile="--profile" in argv)
 
+    # -- 9. NESS on the Lorenz-63 model, and the hybrids ------------------------
+    ness_launches, hybrid_launches, ness_err = lorenz_ness(torch, pt, expand, card, profile="--profile" in argv)
+
     k1_paths = {"phase 4": launches, "phase 7": flag_launches, "phase 8": ffbsi_launches}
-    lane_paths = {"phase 5": lanes["launches"], "phase 6": smc2_launches, "phase 8": lane_launches}
+    lane_paths = {"phase 5": lanes["launches"], "phase 6": smc2_launches, "phase 8": lane_launches,
+                  "phase 9 NESS": ness_launches, "phase 9 hybrids": hybrid_launches}
 
     kernels = [{
         "name": "expand",
@@ -394,7 +452,7 @@ def main(argv) -> int:
         "replaces": "pyfilter_tpu/ops/expand.py:438, pyfilter_tpu/ops/expand.py:489",
         "launches": sum(lane_paths.values()),
         "launches_by_path": lane_paths,
-        "max_abs_err": max(lanes_err, lanes["err"], lane_run_err),
+        "max_abs_err": max(lanes_err, lanes["err"], lane_run_err, ness_err),
         "ms": lanes["ms"],
         "plain_ms": lanes["plain_ms"],
         "bound_ms": lanes["bound_ms"],
@@ -409,7 +467,8 @@ def main(argv) -> int:
 
 def check_expand_lanes(torch, expand) -> float:
     """Phase 3: the lane kernel (counts prep and expansion) against its plain
-    version, bit for bit, with weight scales 1 and 6, one degenerate lane per
+    version, bit for bit, with d = 1, 2 and 3 value planes (3 runs the
+    remainder pass after a pair of planes), weight scales 1 and 6, one degenerate lane per
     case (all mass on the first, middle or last particle), one lane of
     alternating zero-weight runs, one of uniform weights, random uniforms and
     the edge uniforms. n = 7104 keeps the counts in shared memory and n = 7105
@@ -420,7 +479,7 @@ def check_expand_lanes(torch, expand) -> float:
     shapes = ((400, 1000), (400, 8), (257, 5), (40, 16), (72, 16), (800, 1000), (3200, 1000), (7104, 40), (7105, 40),
               (2, 9))
     for n, n_lanes in shapes:
-        for d in (1, 2):
+        for d in (1, 2, 3):
             planes = torch.randn(d, n, n_lanes, generator=g, device=dev)
             for scale in (1.0, 6.0):
                 for hot in (0, n // 2, n - 1):
@@ -443,7 +502,7 @@ def check_expand_lanes(torch, expand) -> float:
                         n_cases += 1
     torch.cuda.synchronize()
     print(f"phase 3: lane kernel == plain version on {n_cases} cases ((n, L) in {', '.join(map(str, shapes))}; "
-          "d in 1, 2; scales 1, 6; a degenerate lane, zero-weight runs, uniform weights, random u and u in "
+          "d in 1, 2, 3; scales 1, 6; a degenerate lane, zero-weight runs, uniform weights, random u and u in "
           "0, 2^-24, 0.5, 1-2^-24, 1); tolerance: bit for bit (torch.equal)")
     return worst
 
@@ -848,6 +907,190 @@ def ffbsi(torch, pt, expand, card, profile: bool = False):
           f"{ffbsi_smooth.fallback_passes}")
     check_means(traj, LANES_N * LANES_K, f"lanes N={LANES_N} x {LANES_K}")
     return k1_launches, lane_launches, k1_err, lane_err
+
+
+def lorenz_data(torch, pt):
+    """Phase 9's observations: the observed rows (every LORENZ_OES-th) of
+    ``lorenz63_model().sample_states`` on the CPU, seed 0, at the true
+    parameters: (LORENZ_T, 2)."""
+    model = pt.examples.lorenz63_model(device="cpu")
+    _, ys = model.sample_states(torch.Generator().manual_seed(0), LORENZ_T * LORENZ_OES).get_paths()
+    return ys[~torch.isnan(ys).any(dim=1)].numpy()
+
+
+def finds_truth(mean: dict) -> bool:
+    """Whether a Lorenz fit's posterior means (by name) all lie within
+    NESS_FOUND_WITHIN of the true values."""
+    return all(abs(mean[n] - LORENZ_TRUE[n]) < NESS_FOUND_WITHIN[n] for n in LORENZ_TRUE)
+
+
+def lorenz_fit(torch, pt, y, device: str, seed: int, make=None, **kwargs):
+    """One fit of ``make(SISR(lorenz63_builder, LORENZ_N), LORENZ_K,
+    **kwargs)`` (``inference.NESS`` unless given) over ``y`` on ``device``,
+    its context and generator seeded from ``seed``. Returns the algorithm, its
+    state, the wall seconds of ``fit`` and of reading the posterior, and the
+    posterior mean and sd of (s, r, b) by name."""
+    from pyfilter_tpu_torch import inference as inf
+
+    def gen(s):
+        return torch.Generator(device=device).manual_seed(s)
+
+    ctx = inf.make_context(generator=gen(seed), device=device)
+    filt = pt.SISR(pt.examples.lorenz63_builder, LORENZ_N, device=device)
+    alg = (make or inf.NESS)(filt, LORENZ_K, context=ctx, generator=gen(seed + 1), device=device, **kwargs)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = alg.fit(y)
+    w = state.normalized_weights()
+    stacked = ctx.stack_parameters(constrained=True)
+    mean = w @ stacked
+    sd = torch.sqrt(w @ torch.square(stacked - mean))
+    mean, sd = mean.tolist(), sd.tolist()  # the host read ends the card's work
+    wall = time.perf_counter() - t0
+    return alg, state, wall, dict(zip(ctx.parameters, mean)), dict(zip(ctx.parameters, sd))
+
+
+def lorenz_ness(torch, pt, expand, card, profile: bool = False):
+    """Phase 9: NESS at the notebook's configuration on the card (warm-up,
+    then one timed fit per seed of NESS_SEEDS), the lane kernel on the last
+    fit's cloud, NESSMC2 and SMC2FW over the first HYBRID_T observations,
+    with ``profile`` one traced fit and one traced rejuvenation, and last one
+    CPU fit that the card's fits that find the truth are held against.
+    Returns the lane kernel's launches over the timed fits and over the
+    hybrids, and its largest difference from the plain version on the last
+    cloud."""
+    y = lorenz_data(torch, pt)
+    names = list(LORENZ_TRUE)
+    lorenz_fit(torch, pt, y, "cuda", 0)  # warm-up
+    expand.fused_expand.launches = expand.fused_expand_lanes.launches = 0
+    runs, steps, walls = [], 0, []
+    for seed in NESS_SEEDS:
+        alg, state, wall, mean, sd = lorenz_fit(torch, pt, y, "cuda", seed)
+        steps += alg.filter.n_resamples
+        walls.append(wall)
+        runs.append((seed, mean, sd, finds_truth(mean)))
+        if not bool(torch.isfinite(state.w).all()):
+            raise AssertionError(f"non-finite NESS weights on the card (seed {seed})")
+        print(f"phase 9: NESS fit, seed {seed}: {wall:.4f} s; rejuvenations {alg.kernel.n_rejuvenations}; "
+              f"host syncs {alg.n_host_syncs}; SISR lane steps {alg.filter.n_resamples}; finds the truth {runs[-1][3]}")
+        print(f"  posterior mean {mean}; sd {sd}")
+    launches = expand.fused_expand_lanes.launches
+    print(f"  NESS(SISR({LORENZ_N}), K={LORENZ_K}), T={LORENZ_T} x {LORENZ_OES} sub-steps: best fit {min(walls):.4f} s "
+          f"over {len(NESS_SEEDS)} seeds; lane kernel launches {launches} for {steps} SISR lane steps; card {card}")
+    if expand.fused_expand.launches:
+        raise AssertionError(f"NESS launched the single-lane kernel {expand.fused_expand.launches} times")
+    if not (launches == steps == len(NESS_SEEDS) * LORENZ_T):
+        raise AssertionError(f"lane kernel launched {launches} times for {steps} SISR lane steps")
+    n_found = sum(run[3] for run in runs)
+    lo, hi = NESS_FOUND_RANGE
+    print(f"  {n_found} of {len(runs)} card fits find the truth {LORENZ_TRUE} (each mean within {NESS_FOUND_WITHIN}); "
+          f"the JAX package's readings allow {lo} to {hi}")
+    if not lo <= n_found <= hi:
+        raise AssertionError(f"{n_found} of {len(runs)} card NESS fits find the truth, outside {NESS_FOUND_RANGE}")
+    latest = state.filter_state.latest_state
+    err = check_on_cloud(torch, expand, pt.normalize(latest.log_weights), latest.x.value.permute(2, 0, 1),
+                         f"phase 9's SISR lane cloud (n={LORENZ_N}, L={LORENZ_K}, d=3)")
+
+    # the hybrids at their defaults: SMC2 up to observation HYBRID_SWITCH,
+    # then NESS or FixedWidthNESS
+    from pyfilter_tpu_torch import inference as inf
+
+    expand.fused_expand_lanes.launches = 0
+    for name, kwargs in (("NESSMC2", {}), ("SMC2FW", {"ness_kw": {"block_len": HYBRID_BLOCK}})):
+        switched, fired = [], []
+
+        def make(*args, cls=getattr(inf, name), switched=switched, fired=fired, **kw):
+            alg = cls(*args, switch=HYBRID_SWITCH, **kw)
+            on_switch, rejuvenate = alg.do_on_switch, alg._second._do_rejuvenate
+            alg.do_on_switch = lambda f, s, st: switched.append(st.current_iteration) or on_switch(f, s, st)
+            alg._second._do_rejuvenate = lambda st: fired.append(st.current_iteration) or rejuvenate(st)
+            return alg
+
+        alg, state, wall, mean, sd = lorenz_fit(torch, pt, y[:HYBRID_T], "cuda", 70, make=make, **kwargs)
+        first = alg._first.kernel
+        print(f"phase 9: {name}(switch={HYBRID_SWITCH}{', block_len=' + str(HYBRID_BLOCK) if kwargs else ''}) "
+              f"over {HYBRID_T} observations: {wall:.4f} s; SMC2 stage: rejuvenations {first.n_rejuvenations}, "
+              f"PMMH transitions {first.n_transitions}, doublings {first.n_doublings}; second stage: "
+              f"rejuvenations {alg._second.kernel.n_rejuvenations} at iterations {fired}; switch at iteration "
+              f"{switched}; posterior mean {mean}, sd {sd}")
+        if not bool(torch.isfinite(state.w).all()):
+            raise AssertionError(f"non-finite {name} weights")
+        if switched != [HYBRID_SWITCH + 1]:
+            raise AssertionError(f"{name} switched at {switched}, not after observation {HYBRID_SWITCH}")
+        schedule = [HYBRID_SWITCH + i for i in range(1, HYBRID_T - HYBRID_SWITCH) if i % HYBRID_BLOCK == 0]
+        if kwargs and fired != schedule:
+            raise AssertionError(f"SMC2FW's second stage fired at {fired}, its block schedule gives {schedule}")
+    hybrid_launches = expand.fused_expand_lanes.launches
+    print(f"  lane kernel launches over both hybrids (forward steps and PMMH re-filters) {hybrid_launches}")
+
+    if profile:
+        traced = []
+        ops = profile_run(torch, "phase 9, NESS fit", lambda: traced.append(lorenz_fit(torch, pt, y, "cuda", 90)))
+        alg, state = traced[0][:2]
+        n_rej = alg.kernel.n_rejuvenations
+        rej_ops = profile_run(torch, "phase 9, one NESS rejuvenation", lambda: alg._do_rejuvenate(state))
+        print(f"  device operations per rejuvenation {rej_ops}; per observation (SISR lane step and its "
+              f"{LORENZ_OES - 1} sub-steps, the fit's {n_rej} rejuvenations taken out) "
+              f"{(ops - n_rej * rej_ops) / LORENZ_T:.2f}")
+
+    t0 = time.perf_counter()
+    _, cpu_state, _, cpu_mean, cpu_sd = lorenz_fit(torch, pt, y, "cpu", NESS_CPU_SEED)
+    print(f"  CPU fit (plain versions, seed {NESS_CPU_SEED}): {time.perf_counter() - t0:.1f} s; posterior mean "
+          f"{cpu_mean}; sd {cpu_sd}")
+    if not bool(torch.isfinite(cpu_state.w).all()):
+        raise AssertionError("non-finite NESS weights on the CPU")
+    if not finds_truth(cpu_mean):
+        raise AssertionError(f"the CPU reference fit (seed {NESS_CPU_SEED}) froze away from the truth: {cpu_mean}")
+    found = [(mean, sd) for _, mean, sd, hit in runs if hit]
+    for seed, mean, sd, hit in runs:
+        if hit:
+            print(f"  card fit (seed {seed}) vs CPU: |gap| / posterior sd "
+                  f"{ {n: abs(mean[n] - cpu_mean[n]) / max(sd[n], cpu_sd[n]) for n in names} }")
+    for n in names:
+        avg = sum(mean[n] for mean, _ in found) / len(found)
+        jax_mean, spread = JAX_FOUND[n]
+        se_jax = spread * math.sqrt(1 / len(found) + 1 / JAX_FOUND_N)
+        se_cpu = spread * math.sqrt(1 / len(found) + 1)
+        print(f"  {n}: mean over the card's {len(found)} fits that find the truth {avg}; JAX fits' {jax_mean} "
+              f"({(avg - jax_mean) / se_jax:+.3f} SE); CPU fit's {cpu_mean[n]} ({(avg - cpu_mean[n]) / se_cpu:+.3f} "
+              f"SE; limit {NESS_TOL_SE})")
+        if not (abs(avg - jax_mean) < NESS_TOL_SE * se_jax and abs(avg - cpu_mean[n]) < NESS_TOL_SE * se_cpu):
+            raise AssertionError(f"the card's NESS fits that find the truth put {n} at {avg}: JAX fits {jax_mean}, "
+                                 f"CPU fit {cpu_mean[n]}, standard errors {se_jax}, {se_cpu}")
+    return launches, hybrid_launches, err
+
+
+def ness_spread(torch, pt, card_fits: int, cpu_fits: int) -> int:
+    """``--ness-spread``: phase 9's NESS configuration over the seeds 10, 20,
+    ... on the card and on the CPU (the first ``card_fits`` and ``cpu_fits``
+    of them): each fit's wall seconds, rejuvenations, parameter ESS after a
+    few steps, posterior mean and sd and whether it finds the truth; the gap
+    between every two fits that find it, per parameter in units of the larger
+    posterior sd."""
+    import itertools
+
+    print(card_line())
+    y = lorenz_data(torch, pt)
+    lorenz_fit(torch, pt, y, "cuda", 0)  # warm-up
+    runs = [("cuda", 10 * (i + 1)) for i in range(card_fits)] + [("cpu", 10 * (i + 1)) for i in range(cpu_fits)]
+    found = []
+    for device, seed in runs:
+        alg, state, wall, mean, sd = lorenz_fit(torch, pt, y, device, seed)
+        ess = [round(float(state.ess[t]), 2) for t in (1, 2, 3, 10, len(state.ess) - 1)]
+        print(f"{device} seed {seed}: {wall:.3f} s; rejuvenations {alg.kernel.n_rejuvenations}; finite weights "
+              f"{bool(torch.isfinite(state.w).all())}; finds the truth {finds_truth(mean)}; parameter ESS after "
+              f"steps 0, 1, 2, 9 and the last {ess}; posterior mean {mean}; sd {sd}", flush=True)
+        if finds_truth(mean):
+            found.append((f"{device}:{seed}", mean, sd))
+    print(f"{len(found)} of {len(runs)} fits find the truth")
+    worst = 0.0
+    for (la, ma, sa), (lb, mb, sb) in itertools.combinations(found, 2):
+        gaps = {n: abs(ma[n] - mb[n]) / max(sa[n], sb[n]) for n in ma}
+        worst = max(worst, max(gaps.values()))
+        print(f"  {la} vs {lb}: |gap| / posterior sd {gaps}")
+    print(f"largest gap between fits that find the truth: {worst} posterior sd")
+    return 0
 
 
 def profile_run(torch, label: str, fn, trace: str | None = None):

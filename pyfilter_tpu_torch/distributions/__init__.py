@@ -1,10 +1,10 @@
-"""The distribution layer of the port (the subset the ported filters, smoothers
-and SMC² use)."""
+"""The distribution layer of the port (the subset the ported filters, smoothers,
+SMC² and NESS use)."""
 
 from . import constraints
 from .base import Distribution
-from .bijectors import Affine, Bijector, Chain, Exp, Identity, SinhArcsinh, biject_to
-from .core import Exponential, LogNormal, Normal
+from .bijectors import Affine, Bijector, Chain, Exp, Identity, Sigmoid, SinhArcsinh, biject_to
+from .core import Exponential, LogNormal, Normal, Uniform
 from .independent import Independent
 from .mvn import MultivariateNormal, robust_cholesky
 from .transformed import TransformedDistribution
@@ -17,11 +17,13 @@ __all__ = [
     "Chain",
     "Exp",
     "Identity",
+    "Sigmoid",
     "SinhArcsinh",
     "biject_to",
     "Normal",
     "LogNormal",
     "Exponential",
+    "Uniform",
     "Independent",
     "MultivariateNormal",
     "robust_cholesky",

@@ -1,6 +1,7 @@
 """Bijectors (invertible elementwise transforms): ``Affine``, ``SinhArcsinh``,
-their ``Chain``, ``Identity``, ``Exp``, the inverse of each (``.inv``) and
-``biject_to`` (a constraint's bijector from the unconstrained reals).
+their ``Chain``, ``Identity``, ``Exp``, ``Sigmoid``, the inverse of each
+(``.inv``) and ``biject_to`` (a constraint's bijector from the unconstrained
+reals).
 
 Counterpart of ``pyfilter_tpu/distributions/bijectors.py``. The sinh-arcsinh
 transform keeps the JAX package's own log/exp/sqrt formulas (``_asinh``,
@@ -14,6 +15,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from . import constraints
 
@@ -94,7 +96,22 @@ class Affine(Bijector):
         return (y - self.loc) / self.scale
 
     def log_abs_det_jacobian(self, x, y):
-        return torch.broadcast_to(torch.log(torch.abs(self.scale)), x.shape)
+        scale = torch.as_tensor(self.scale, dtype=x.dtype, device=x.device)
+        return torch.broadcast_to(torch.log(torch.abs(scale)), x.shape)
+
+
+class Sigmoid(Bijector):
+    """``y = 1 / (1 + exp(-x))``; the inverse keeps the JAX package's
+    ``log(y) - log1p(-y)``, so a value on a bound maps to an infinity in both."""
+
+    def forward(self, x):
+        return torch.sigmoid(x)
+
+    def inverse(self, y):
+        return torch.log(y) - torch.log1p(-y)
+
+    def log_abs_det_jacobian(self, x, y):
+        return -F.softplus(-x) - F.softplus(x)
 
 
 def _asinh(x):
@@ -181,9 +198,12 @@ class Chain(Bijector):
 def biject_to(constraint: constraints.Constraint) -> Bijector:
     """Bijector from the unconstrained reals onto the support of
     ``constraint``: the identity for the reals, ``Exp`` for the positive
-    half-line (the JAX package's choices)."""
+    half-line, ``Sigmoid`` then ``Affine(low, high - low)`` for an interval
+    (the JAX package's choices)."""
     if constraint is constraints.real or constraint is constraints.real_vector:
         return Identity()
     if constraint is constraints.positive:
         return Exp()
+    if isinstance(constraint, constraints.Interval):
+        return Chain([Sigmoid(), Affine(constraint.low, constraint.high - constraint.low)])
     raise NotImplementedError(f"no bijector registered for constraint {constraint!r}")

@@ -1,9 +1,9 @@
 """Support constraints of distributions and priors: ``real``,
-``real_vector`` and ``positive``.
+``real_vector``, ``positive``, ``Interval`` and ``unit_interval``.
 
 Counterpart of ``pyfilter_tpu/distributions/constraints.py`` (the subset the
-SMC² path's priors use). Each is a singleton that ``bijectors.biject_to``
-maps onto a bijector from the unconstrained reals.
+SMC² and NESS paths' priors use). ``bijectors.biject_to`` maps each onto a
+bijector from the unconstrained reals.
 """
 
 from __future__ import annotations
@@ -30,6 +30,19 @@ class _RealVector(Constraint):
         return "RealVector()"
 
 
+class Interval(Constraint):
+    """The open interval ``(low, high)``; the bounds are floats or tensors
+    (a prior's own, so building its bijector reads nothing from the device)."""
+
+    def __init__(self, low, high):
+        self.low = low
+        self.high = high
+
+    def __repr__(self):
+        return f"Interval(low={self.low}, high={self.high})"
+
+
 real = _Real()
 positive = _Positive()
 real_vector = _RealVector()
+unit_interval = Interval(0.0, 1.0)

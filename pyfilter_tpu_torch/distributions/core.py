@@ -1,5 +1,6 @@
 """Concrete distributions: ``Normal`` (the SISR main path), ``LogNormal``
-and ``Exponential`` (the SMC² path's priors).
+and ``Exponential`` (the SMC² path's priors) and ``Uniform`` (the Lorenz
+model's priors).
 
 Counterpart of ``pyfilter_tpu/distributions/core.py``.
 """
@@ -81,3 +82,36 @@ class Exponential(Distribution):
 
     def log_prob(self, value):
         return torch.log(self.rate) - self.rate * value
+
+
+class Uniform(Distribution):
+    arg_names = ("low", "high")
+
+    def __init__(self, low: torch.Tensor, high: torch.Tensor):
+        self.low = low
+        self.high = high
+
+    @property
+    def batch_shape(self):
+        return tuple(torch.broadcast_shapes(self.low.shape, self.high.shape))
+
+    @property
+    def support(self):
+        return constraints.Interval(self.low, self.high)
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        u = torch.rand(shape, generator=generator, dtype=self.low.dtype, device=self.low.device)
+        return self.low + (self.high - self.low) * u
+
+    def log_prob(self, value):
+        """``-log(high - low)`` on the closed interval, ``-inf`` outside."""
+        inside = (value >= self.low) & (value <= self.high)
+        lp = -torch.log(self.high - self.low) + torch.zeros_like(value)
+        return torch.where(inside, lp, -math.inf)
+
+    def cdf(self, value):
+        return torch.clamp((value - self.low) / (self.high - self.low), 0.0, 1.0)
+
+    def icdf(self, q):
+        return self.low + (self.high - self.low) * q

@@ -1,8 +1,10 @@
-"""Example models: the sine-diffusion model of the reference README, and the
-stochastic-volatility model with its prior-registering builder.
+"""Example models: the sine-diffusion model of the reference README, the
+stochastic-volatility model and the Lorenz-63 model, the last two with their
+prior-registering builders.
 
 Counterpart of ``pyfilter_tpu/examples.py`` (``sine_diffusion_model``,
-``stochastic_volatility_model`` and ``stochastic_volatility_builder`` only).
+``stochastic_volatility_model``, ``stochastic_volatility_builder``,
+``lorenz63_model`` and ``lorenz63_builder`` only).
 """
 
 from __future__ import annotations
@@ -80,3 +82,52 @@ def stochastic_volatility_builder(context, dt: float = 0.2):
     nu = context.named_parameter("nu", dist.Normal(const(0.0), const(0.15)))
     tau = context.named_parameter("tau", dist.LogNormal(const(0.0), const(0.1)))
     return ts.StateSpaceModel(vol, sv_observation, (mu, nu, tau), observe_every_step=int(1.0 / dt))
+
+
+def _lorenz_drift(x, s, r, b, sigma):
+    x0, x1, x2 = x.value[..., 0], x.value[..., 1], x.value[..., 2]
+    dx = -s * (x0 - x1)
+    dy = r * x0 - x1 - x0 * x2
+    dz = x0 * x1 - b * x2
+    return torch.stack((dx, dy, dz), dim=-1), sigma
+
+
+def _lorenz_initial(s, r, b, *rest):
+    mean = s.new_tensor([-5.91652, -5.52332, 24.5723])
+    scale = s.new_full((3,), math.sqrt(10.0))
+    return dist.Normal(mean, scale).to_event(1)
+
+
+def lorenz63_model(
+    s=10.0, r=28.0, b=8.0 / 3.0, observe_every_step: int = 10, dt: float = 1e-2, device=None
+):
+    """3-D Lorenz SDE (unit diffusion, Euler–Maruyama at ``dt``) observed
+    through ``0.8 * (x0, x2)`` plus noise of variance 0.1 every
+    ``observe_every_step`` sub-steps (the reference's ``lorenz.ipynb``).
+    ``s``, ``r``, ``b`` are numbers or tensors (one value per lane); the
+    parameters live on ``device`` (the card unless ``device="cpu"``)."""
+    device = resolve_device(device)
+    s, r, b, sigma = (models.parameter(p, device) for p in (s, r, b, 1.0))
+    increment = dist.Normal(models.parameter(0.0, device), models.parameter(math.sqrt(dt), device))
+    hidden = ts.AffineEulerMaruyama(
+        _lorenz_drift, (s, r, b, sigma), increment.expand((3,)).to_event(1), _lorenz_initial, dt=dt, event_ndim=1
+    )
+    mat = models.parameter([[0.8, 0.0, 0.0], [0.0, 0.0, 0.8]], device)
+    scale = models.parameter([math.sqrt(0.1)] * 2, device)
+    return ts.LinearStateSpaceModel(
+        hidden, (mat, torch.zeros_like(scale), scale), event_shape=(2,), observe_every_step=observe_every_step
+    )
+
+
+def lorenz63_builder(context, observe_every_step: int = 10):
+    """The Lorenz-63 model with uniform priors on (s, r, b) registered on
+    ``context`` (the reference notebook's ``build_prob_model``), built on the
+    context's device."""
+
+    def uniform(low, high):
+        return dist.Uniform(models.parameter(low, context.device), models.parameter(high, context.device))
+
+    s = context.named_parameter("s", uniform(5.0, 40.0))
+    r = context.named_parameter("r", uniform(10.0, 50.0))
+    b = context.named_parameter("b", uniform(1.0, 20.0))
+    return lorenz63_model(s, r, b, observe_every_step=observe_every_step, device=context.device)

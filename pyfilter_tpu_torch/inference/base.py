@@ -30,6 +30,10 @@ class BaseAlgorithm:
     def filter(self):
         return self._filter
 
+    @filter.setter
+    def filter(self, value):
+        self._filter = value
+
     def fit(self, y, logging: DefaultLogger = None) -> AlgorithmState:
         raise NotImplementedError
 

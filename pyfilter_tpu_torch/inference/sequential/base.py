@@ -3,14 +3,14 @@
 Counterpart of ``pyfilter_tpu/inference/sequential/base.py``, as the
 reference library runs it: ``fit`` is a Python loop of one filter move over
 all parameter lanes per observation, with the rejuvenation trigger read on
-the host after each (one device-to-host sync per observation). The JAX
-package's chunked scans exist only to spare XLA recompiles and TPU round
-trips, and are not ported.
+the host at each (one device-to-host sync per observation). The JAX
+package's chunked scans, and the chunked hybrid ``fit`` built on them, exist
+only to spare XLA recompiles and TPU round trips, and are not ported.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -70,20 +70,12 @@ class SequentialParticleAlgorithm(BaseAlgorithm):
         state.append(correction)
         return state
 
-    def _trigger_rows(self, t0: int, n: int):
-        """Per-step trigger rows for steps ``t0 .. t0+n-1``: an ESS threshold
-        vector (rejuvenate after step ``t0+j`` when ``ess < thr[j]``) and a
-        boolean ``force`` schedule. Non-finite weights always trigger."""
-        raise NotImplementedError
-
-    def _chunk_trigger(self, t0: int, ess, nonfinite) -> Optional[int]:
-        """First local index ``j`` such that rejuvenation must run after step
-        ``t0 + j``, or None (host values)."""
-        thr, force = self._trigger_rows(t0, len(ess))
-        for j, (e, nf) in enumerate(zip(ess, nonfinite)):
-            if nf or e < thr[j] or force[j]:
-                return j
-        return None
+    def _read_trigger(self, state: SequentialAlgorithmState) -> tuple:
+        """The last parameter ESS and whether a lane weight is not finite, in
+        one host read (counted in ``n_host_syncs``)."""
+        ess, finite = torch.stack([state.ess[-1], torch.isfinite(state.w).all().to(state.w.dtype)]).tolist()
+        self.n_host_syncs += 1
+        return ess, finite == 0.0
 
     def _do_rejuvenate(self, state):
         """Run the rejuvenation kernel and adopt what it returns."""
@@ -111,3 +103,52 @@ class SequentialParticleAlgorithm(BaseAlgorithm):
                 if not bool(torch.isfinite(state.w).all()):
                     state = self._do_rejuvenate(state)
             return state
+
+
+class CombinedSequentialParticleAlgorithm(SequentialParticleAlgorithm):
+    """Run one algorithm for the observations up to ``switch`` (steps 0 to
+    ``switch``), then another, which takes over the first's context and
+    filter. ``kwargs`` (``record_moments``, ...) apply to both stages;
+    ``first_kw`` / ``second_kw`` entries override them per stage. Both stages
+    draw from this algorithm's generator, on its device."""
+
+    def __init__(
+        self,
+        filter_,
+        num_particles: int,
+        switch: int,
+        first_kw: Dict[str, Any] = None,
+        second_kw: Dict[str, Any] = None,
+        context=None,
+        generator=None,
+        device=None,
+        **kwargs,
+    ):
+        super().__init__(filter_, num_particles, context=context, generator=generator, device=device, **kwargs)
+        shared = dict(kwargs, generator=self.generator, device=self.device)
+        self._first = self.make_first(filter_, self.context, num_particles, **{**shared, **(first_kw or {})})
+        self._second = self.make_second(filter_, self.context, num_particles, **{**shared, **(second_kw or {})})
+        self._when_to_switch = int(switch)
+        self._is_switched = False
+
+    def make_first(self, filter_, context, particles, **kwargs) -> SequentialParticleAlgorithm:
+        raise NotImplementedError
+
+    def make_second(self, filter_, context, particles, **kwargs) -> SequentialParticleAlgorithm:
+        raise NotImplementedError
+
+    def do_on_switch(self, first, second, state):
+        raise NotImplementedError
+
+    def initialize(self):
+        return self._first.initialize()
+
+    def _step(self, y, state):
+        if not self._is_switched:
+            if state.current_iteration <= self._when_to_switch:
+                return self._first._step(y, state)
+            self._is_switched = True
+            state = self.do_on_switch(self._first, self._second, state)
+            self._second.context = self._first.context
+            self._second.filter = self._first.filter
+        return self._second._step(y, state)

@@ -13,7 +13,6 @@ from __future__ import annotations
 from typing import Union
 
 import numpy as np
-import torch
 
 from ..state import SMC2State
 from .base import SequentialParticleAlgorithm
@@ -52,14 +51,8 @@ class SMC2(SequentialParticleAlgorithm):
         weight is not finite."""
         state.append_data(y)
         state = self._filter_step(y, state)
-        # the step's one host sync: the ESS and the finiteness flag together
-        ess, finite = torch.stack([state.ess[-1], torch.isfinite(state.w).all().to(state.w.dtype)]).tolist()
-        self.n_host_syncs += 1
-        if self._chunk_trigger(state.current_iteration, [ess], [finite == 0.0]) is not None:
+        ess, nonfinite = self._read_trigger(state)
+        threshold = np.float32(self._threshold.get_threshold(state.current_iteration) * self.num_particles)
+        if nonfinite or ess < threshold:
             state = self._do_rejuvenate(state)
         return state
-
-    def _trigger_rows(self, t0, n):
-        k = self.num_particles
-        thr = np.asarray([self._threshold.get_threshold(t0 + j) * k for j in range(n)], np.float32)
-        return thr, np.zeros(n, np.bool_)

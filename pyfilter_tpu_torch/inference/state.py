@@ -41,13 +41,20 @@ class RunningFilterResult:
             self.filter_means.append(correction.mean)
             self.filter_variances.append(correction.variance)
 
-    def resample(self, indices: torch.Tensor) -> "RunningFilterResult":
+    def resample(self, indices: torch.Tensor, entire_history: bool = True) -> "RunningFilterResult":
+        """Gather the lanes by ``indices``; with ``entire_history=False`` the
+        recorded moments are carried over as they are (the online kernel's
+        choice: only the latest state and log-likelihood move)."""
         idx = indices.long()
         new = RunningFilterResult(
             self.latest_state.resample(indices), self.log_likelihood.index_select(0, idx), self.record_moments
         )
-        new.filter_means = [m.index_select(0, idx) for m in self.filter_means]
-        new.filter_variances = [v.index_select(0, idx) for v in self.filter_variances]
+        if entire_history:
+            new.filter_means = [m.index_select(0, idx) for m in self.filter_means]
+            new.filter_variances = [v.index_select(0, idx) for v in self.filter_variances]
+        else:
+            new.filter_means = list(self.filter_means)
+            new.filter_variances = list(self.filter_variances)
         return new
 
     def exchange(self, other, mask: torch.Tensor) -> "RunningFilterResult":

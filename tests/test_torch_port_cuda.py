@@ -112,14 +112,15 @@ def _lane_weights(n, n_lanes, scale, g, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,n_lanes", [(400, 100), (257, 5), (40, 16), (72, 16), (800, 64), (3200, 33), (1, 4),
-                                       (2, 9), (7104, 9), (7105, 9)])
-@pytest.mark.parametrize("d", [1, 2])
+@pytest.mark.parametrize("n,n_lanes", [(400, 100), (400, 1000), (257, 5), (40, 16), (72, 16), (800, 64), (3200, 33),
+                                       (1, 4), (2, 9), (7104, 9), (7105, 9)])
+@pytest.mark.parametrize("d", [1, 2, 3])
 def test_expand_lanes_kernel_matches_plain_on_card(cuda, n, n_lanes, d):
     """Bit for bit against the plain version (counts prep included): weight
     scales 1 and 6, a degenerate lane, zero-weight runs, uniform weights,
     random uniforms and the edge uniforms; n = 7104 keeps the counts in
-    shared memory, n = 7105 takes the global scratch route."""
+    shared memory, n = 7105 takes the global scratch route; d = 3 runs the
+    remainder pass after a pair of planes (the Lorenz model's 3-D state)."""
     g = torch.Generator(device=cuda).manual_seed(n + n_lanes + d)
     planes = torch.randn(d, n, n_lanes, generator=g, device=cuda)
     for scale in (1.0, 6.0):

@@ -264,3 +264,11 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tinf.SMC2(filt, 4, context=ctx)
     tinf.SMC2(filt, 4, context=ctx, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt.examples.lorenz63_model()
+    lorenz = pt.SISR(pt.examples.lorenz63_builder, 8, device="cpu")
+    for make in (tinf.NESS, tinf.FixedWidthNESS, lambda *a, **kw: tinf.NESSMC2(*a, switch=5, **kw),
+                 lambda *a, **kw: tinf.SMC2FW(*a, switch=5, **kw)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make(lorenz, 4, context=ctx)
+        make(lorenz, 4, context=ctx, device="cpu")
