@@ -4,6 +4,7 @@
     python3 chip_smoke.py             # the phases below, on one card
     python3 chip_smoke.py --profile   # also: one traced run of each main path
     python3 chip_smoke.py --ness-spread [CARD_FITS [CPU_FITS]]   # phase 9's seed sweep only
+    python3 chip_smoke.py --apf-bias [SEEDS]   # phase 5's APF over more seeds only
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -75,15 +76,42 @@ Phases, in order; any failure exits non-zero before the result line:
    card's fits that find the truth land where the JAX package's and the
    CPU fit's do (``NESS_TOL_SE``).
 
+10. The reference notebook's SMC2 (``examples/stochastic_volatility_smc2.py``
+   at full size, the reference's ``stochastic-volatility.ipynb``): NB_T = 500
+   observations of phase 4's simulator, ``SMC2(APF(stochastic_volatility_
+   builder, 400), 1000, num_steps=5, distance_threshold=0.025)`` from a Sobol
+   start (``make_context(use_quasi=True)``) on the card, a warm-up and
+   NB_TIMED timed fits: finite weights, the lane kernel launched once per APF
+   step and equal to its plain version on the last cloud, the distance stop
+   firing, the Sobol start's moments against the priors', gamma and tau in
+   phase 6's bounds, and each posterior mean within NB_TOL_SD spreads
+   between seeds of the JAX package's fits of the same configuration
+   (NB_JAX).
+11. Batch PMMH (``examples/batch_inference_zoo.py`` part 1 at full width,
+   num_samples cut to 150): ``PMMH(SISR(AR model, 300), 150, num_chains=4,
+   RandomWalk(0.08), initializer="seed")`` over T = 400 observations of the
+   AR model on the card: finite chains, the lane kernel launched once per
+   SISR lane step (chains' re-filters and the seed pass over 200 lanes) and
+   equal to its plain version on the last cloud of each, the pooled
+   post-burn-in means within PMMH_TOL_SD posterior sds of the exact
+   posterior (a float64 Kalman likelihood on a grid), and one more
+   transition that accepts and rejects as the host's float64 log-ratio
+   (priors with their Jacobians) says, its kernel following the chain. Then
+   one SISR step at N = 2^24 on one lane: past the expand kernel's size
+   limit it resamples through its resampler and a gather, and the kernel
+   does not launch.
+
 ``--ness-spread`` runs only phase 9's seed sweep (card and CPU fits and the
-gaps between them).
+gaps between them). ``--apf-bias [SEEDS]`` runs only phase 5's APF over
+SEEDS seeds (16 by default) on the card and on the CPU.
 
 With ``--profile``, also the device operations per observation (main path
-1 and phase 9), per APF step (main path 2 and phase 7), per backward step of
-FFBS (phase 7) and FFBSi (phase 8), and per NESS rejuvenation (phase 9),
-each from one traced run. Prints a ``{"kernels": [...]}`` line,
-then, as the last line,
-``{"ok": true, "device": {...}}``.
+1 and phase 9), per APF step (main path 2, phases 7 and 10), per backward
+step of FFBS (phase 7) and FFBSi (phase 8), per NESS rejuvenation (phase 9)
+and per SISR lane step (phase 11), each from one traced run, and the host
+time of one notebook rejuvenation with and without the distance stop.
+Prints a ``{"kernels": [...]}`` line, then, as the last line, ``{"ok":
+true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -169,6 +197,53 @@ JAX_FOUND = {"s": (9.998362941359614, 0.09619523072211195), "r": (27.94292145099
              "b": (2.64768846316189, 0.03919174652425058)}
 NESS_TOL_SE = 4.0
 HYBRID_T, HYBRID_SWITCH, HYBRID_BLOCK = 100, 50, 10
+# phase 10: examples/stochastic_volatility_smc2.py at full size (the
+# reference's stochastic-volatility notebook): SMC2(APF 400) x K = 1000,
+# five PMMH steps with the adaptive distance stop, a Sobol start, T = 500
+NB_N, NB_K, NB_T, NB_STEPS, NB_DISTANCE = 400, 1000, 500, 5, 0.025
+NB_TIMED = 2
+# The JAX package's fits at this configuration on the CPU (its own Sobol
+# engine, seeded per fit; ``tests/test_torch_port_quasi.py`` run as a script,
+# seeds 10-160; PERF.md): per parameter the mean over fits of the posterior
+# mean and its spread between seeds. Each card fit's posterior mean must lie
+# within NB_TOL_SD JAX spreads, scaled by sqrt(1 + 1 / NB_JAX_N) (the spread
+# of one new fit about a mean of NB_JAX_N), of the JAX fits' mean.
+NB_JAX_N = 16
+NB_JAX = {"kappa": (0.05963398119416333, 0.0021728216376560006), "gamma": (1.1237550812641803, 0.007099848737197796),
+          "sigma": (0.06149545325972347, 0.0018871368999632714), "mu": (-0.0545479950512443, 0.007158011742576175),
+          "nu": (0.006546594264634529, 0.0044313454292809), "tau": (0.9128273436691505, 0.004172942001831331)}
+NB_TOL_SD = 4.0
+# the JAX fits cut 4-7 of their 7-9 rejuvenations short by the distance stop
+NB_JAX_STOPS = (4, 7)
+# The Sobol start's moments in unconstrained space: a scrambled-Sobol mean
+# over NB_K points errs far less than the 1/sqrt(NB_K) prior sds of a
+# pseudo-random one, so each parameter's start mean must lie within
+# 1/sqrt(NB_K) prior sds of the prior's. Its variance must lie within twice
+# a pseudo-random variance's standard error, sqrt((kurtosis - 1) / NB_K),
+# of the prior's (relative): the log of the Exponential prior is heavy in its
+# left tail, where one squeezed point near 0 moves the variance by up to 6%
+# (CPU, four seeds). The prior's moments are those of 10^6 pseudo-random
+# draws pushed through the same bijection on the host in float64. A wrong
+# icdf or a missing bijection moves them by whole sds.
+# phase 11: examples/batch_inference_zoo.py part 1 at the example's full
+# width (T, particles, chains, seeds), num_samples cut from 1500 to the
+# example's --quick 150; burn-in one third, as the example
+PMMH_N, PMMH_T, PMMH_CHAINS, PMMH_SAMPLES, PMMH_SEEDS, PMMH_SCALE = 300, 400, 4, 150, 200, 0.08
+PMMH_TRUE, PMMH_OBS = {"beta": 0.7, "sigma": 0.3}, 0.2
+# The pooled post-burn-in means against the exact grid posterior, in its
+# sds. Eight CPU fits of the port at this configuration (seeds 30-100;
+# ``tests/test_torch_port_pmmh.py`` run as a script; PERF.md) gave gaps with
+# a spread of 0.435 sd for beta and 0.225 for sigma (means -0.015 and
+# +0.033, largest 0.678): the limit is 4x the larger spread.
+PMMH_TOL_SD = 1.75
+# The transition gate's bracket about the host's acceptance log-ratio: 20x
+# the float32 rounding of the card's ratio (log-likelihoods near -173, whose
+# ulp is 1.5e-5, and priors and the Hastings term near 1), and far below the
+# 0.09 nats, one sd, that a dropped Jacobian moves a random-walk step's ratio
+# by (beta near 0.73, steps of sd PMMH_SCALE on both parameters).
+PMMH_BRACKET = 2e-3
+# the fused resample's size limit (repair of the single-lane route)
+FUSED_LIMIT = 1 << 24
 
 
 def simulate_obs(n_obs: int):
@@ -300,6 +375,8 @@ def main(argv) -> int:
     if argv[:1] == ["--ness-spread"]:
         counts = [int(a) for a in argv[1:]] + [8, 2][len(argv) - 1:]
         return ness_spread(torch, pt, *counts[:2])
+    if argv[:1] == ["--apf-bias"]:
+        return apf_bias(torch, pt, int(argv[1]) if len(argv) > 1 else 16)
     from pyfilter_tpu_torch.ops import _build, expand
     from pyfilter_tpu_torch.ops.resample import copy_counts
 
@@ -428,9 +505,17 @@ def main(argv) -> int:
     # -- 9. NESS on the Lorenz-63 model, and the hybrids ------------------------
     ness_launches, hybrid_launches, ness_err = lorenz_ness(torch, pt, expand, card, profile="--profile" in argv)
 
+    # -- 10. the reference notebook's SMC2 (Sobol start, distance stop) ---------
+    nb_launches, nb_err = notebook(torch, pt, expand, card, profile="--profile" in argv)
+
+    # -- 11. batch PMMH, and the single-lane route past the fused size limit -----
+    pmmh_launches, pmmh_err = batch_pmmh(torch, pt, expand, card, profile="--profile" in argv)
+    fused_limit(torch, pt, expand, card)
+
     k1_paths = {"phase 4": launches, "phase 7": flag_launches, "phase 8": ffbsi_launches}
     lane_paths = {"phase 5": lanes["launches"], "phase 6": smc2_launches, "phase 8": lane_launches,
-                  "phase 9 NESS": ness_launches, "phase 9 hybrids": hybrid_launches}
+                  "phase 9 NESS": ness_launches, "phase 9 hybrids": hybrid_launches, "phase 10": nb_launches,
+                  "phase 11": pmmh_launches}
 
     kernels = [{
         "name": "expand",
@@ -452,7 +537,7 @@ def main(argv) -> int:
         "replaces": "pyfilter_tpu/ops/expand.py:438, pyfilter_tpu/ops/expand.py:489",
         "launches": sum(lane_paths.values()),
         "launches_by_path": lane_paths,
-        "max_abs_err": max(lanes_err, lanes["err"], lane_run_err, ness_err),
+        "max_abs_err": max(lanes_err, lanes["err"], lane_run_err, ness_err, nb_err, pmmh_err),
         "ms": lanes["ms"],
         "plain_ms": lanes["plain_ms"],
         "bound_ms": lanes["bound_ms"],
@@ -529,29 +614,33 @@ def check_on_cloud(torch, expand, probs, planes, label: str) -> float:
     return err
 
 
+def apf_true(torch, pt, y, device: str, seed: int):
+    """Phase 5's run: the APF at SMC2_N particles on SMC2_K lanes of the true
+    parameters over ``y`` on ``device``, its generator seeded from ``seed``.
+    Returns the filter and its result."""
+    model = pt.examples.stochastic_volatility_model(KAPPA, GAMMA, SIGMA, MU, NU, TAU, dt=DT, device=device)
+    filt = pt.APF(model, SMC2_N, batch_shape=(SMC2_K,), record_moments=False, device=device)
+    return filt, filt.batch_filter(torch.Generator(device=device).manual_seed(seed), y)
+
+
 def apf_lanes(torch, pt, expand, copy_counts, y, card) -> dict:
-    """Phase 5: the APF at SMC2_N particles on SMC2_K lanes of the true
-    parameters, on the card and on the CPU; then the lane kernel per fire."""
+    """Phase 5: :func:`apf_true` on the card and on the CPU; then the lane
+    kernel per fire."""
     import numpy as np
 
-    def run(device, gen):
-        model = pt.examples.stochastic_volatility_model(KAPPA, GAMMA, SIGMA, MU, NU, TAU, dt=DT, device=device)
-        filt = pt.APF(model, SMC2_N, batch_shape=(SMC2_K,), record_moments=False, device=device)
-        return filt, filt.batch_filter(gen, y)
-
-    run("cuda", torch.Generator(device="cuda").manual_seed(0))  # warm-up
+    apf_true(torch, pt, y, "cuda", 0)  # warm-up
     expand.fused_expand.launches = expand.fused_expand_lanes.launches = 0
     pt.APF.corrections = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    filt, res = run("cuda", torch.Generator(device="cuda").manual_seed(1))
+    filt, res = apf_true(torch, pt, y, "cuda", 1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, steps = expand.fused_expand_lanes.launches, pt.APF.corrections
     if expand.fused_expand.launches:
         raise AssertionError(f"the lane APF launched the single-lane kernel {expand.fused_expand.launches} times")
     card_ll = res.log_likelihood.cpu().numpy().astype(np.float64)
-    cpu_ll = run("cpu", torch.Generator().manual_seed(2))[1].log_likelihood.numpy().astype(np.float64)
+    cpu_ll = apf_true(torch, pt, y, "cpu", 2)[1].log_likelihood.numpy().astype(np.float64)
     if not (np.isfinite(card_ll).all() and np.isfinite(cpu_ll).all()):
         raise AssertionError("non-finite lane log-likelihoods")
     if not (launches == steps == N_OBS):
@@ -1090,6 +1179,354 @@ def ness_spread(torch, pt, card_fits: int, cpu_fits: int) -> int:
         worst = max(worst, max(gaps.values()))
         print(f"  {la} vs {lb}: |gap| / posterior sd {gaps}")
     print(f"largest gap between fits that find the truth: {worst} posterior sd")
+    return 0
+
+
+def notebook_fit(torch, pt, y, device: str, seed: int, t_obs: int | None = None):
+    """One fit of the reference notebook's SMC2 (``examples/
+    stochastic_volatility_smc2.py``): ``SMC2(APF(stochastic_volatility_builder,
+    NB_N), NB_K, num_steps=NB_STEPS, distance_threshold=NB_DISTANCE)`` from a
+    Sobol start, over ``y[:t_obs]`` on ``device``, its context and generator
+    seeded from ``seed``. Returns the algorithm, its state, its context, the
+    wall seconds of ``fit`` and of reading the posterior, the posterior mean
+    and sd by name, and the unconstrained start (the first Sobol draw)."""
+    from pyfilter_tpu_torch import inference as inf
+
+    def gen(s):
+        return torch.Generator(device=device).manual_seed(s)
+
+    ctx = inf.make_context(use_quasi=True, generator=gen(seed), device=device)
+    start = []
+    initialize = ctx.initialize_parameters
+    ctx.initialize_parameters = lambda: initialize() or start.append(ctx.stack_parameters(constrained=False))
+    alg = inf.SMC2(pt.APF(pt.examples.stochastic_volatility_builder, NB_N, device=device), NB_K,
+                   num_steps=NB_STEPS, distance_threshold=NB_DISTANCE, context=ctx, generator=gen(seed + 1),
+                   device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = alg.fit(y[:t_obs])
+    w = state.normalized_weights()
+    stacked = ctx.stack_parameters(constrained=True)
+    mean = w @ stacked
+    sd = torch.sqrt(torch.clamp(w @ torch.square(stacked - mean), min=1e-12))
+    mean, sd = mean.tolist(), sd.tolist()  # the host read ends the card's work
+    wall = time.perf_counter() - t0
+    return alg, state, ctx, wall, dict(zip(ctx.parameters, mean)), dict(zip(ctx.parameters, sd)), start[0]
+
+
+def start_moments_gate(torch, pt, ctx, start) -> None:
+    """Phase 10's gate on the Sobol start (its limits: the comment after
+    NB_JAX_STOPS): each
+    parameter's mean and variance over the NB_K lanes, in unconstrained
+    space, against 10^6 pseudo-random prior draws pushed through the same
+    bijection on the host in float64."""
+    import numpy as np
+
+    from pyfilter_tpu_torch.inference import prior as prior_ops
+
+    start = start.double().cpu().numpy()
+    g = torch.Generator().manual_seed(12)
+    for i, name in enumerate(ctx.parameters):
+        prior = ctx.get_prior(name)
+        cpu_prior = type(prior)(*(getattr(prior, a).double().cpu() for a in prior.arg_names))
+        draws = prior_ops.get_unconstrained(cpu_prior, cpu_prior.sample(g, (1_000_000,))).numpy()
+        mean, var = draws.mean(), draws.var()
+        kurtosis = ((draws - mean) ** 4).mean() / var**2
+        z = (start[:, i].mean() - mean) / math.sqrt(var)
+        ratio = start[:, i].var() / var
+        var_tol = 2 * math.sqrt((kurtosis - 1) / NB_K)
+        print(f"  Sobol start, {name} (unconstrained): mean {start[:, i].mean():.6f} vs prior {mean:.6f} "
+              f"({z:+.5f} prior sd; limit {1 / math.sqrt(NB_K):.5f}); variance / prior variance {ratio:.5f} "
+              f"(limit 1 +- {var_tol:.5f})")
+        if not (abs(z) < 1 / math.sqrt(NB_K) and abs(ratio - 1) < var_tol):
+            raise AssertionError(f"the Sobol start of {name} misses the prior's moments: {z} sd, variance x{ratio}")
+
+
+def notebook(torch, pt, expand, card, profile: bool = False):
+    """Phase 10: the reference notebook's SMC2 at full size on the card
+    (warm-up, then NB_TIMED timed fits), against the JAX package's fits of
+    the same configuration; with ``profile``, one traced fit over the first
+    100 observations and the host time of one rejuvenation with and without
+    the distance stop. Returns the lane kernel's launches over the timed fits
+    and its largest difference from the plain version on the last cloud."""
+    y = simulate_obs(NB_T)
+    notebook_fit(torch, pt, y, "cuda", 0)  # warm-up
+    expand.fused_expand.launches = expand.fused_expand_lanes.launches = 0
+    pt.APF.corrections = 0
+    for rep in range(NB_TIMED):
+        seed = 10 * (rep + 1)
+        alg, state, ctx, wall, mean, sd, start = notebook_fit(torch, pt, y, "cuda", seed)
+        k = alg.kernel
+        print(f"phase 10: notebook SMC2 fit {rep} (seed {seed}): {wall:.4f} s; rejuvenations {k.n_rejuvenations}, "
+              f"PMMH transitions {k.n_transitions}, cut short by the distance stop {k.n_distance_stops} "
+              f"(JAX fits: {NB_JAX_STOPS[0]}-{NB_JAX_STOPS[1]}), doublings {k.n_doublings} (state particles "
+              f"{alg.filter.n_particles}); host syncs {alg.n_host_syncs + k.n_host_syncs}; Sobol points "
+              f"{ctx.quasi_engine.n_drawn} in {ctx.quasi_engine.n_copies} host-to-device copies")
+        print(f"  posterior mean {mean}")
+        print(f"  posterior sd   {sd}")
+        if not bool(torch.isfinite(state.w).all()):
+            raise AssertionError(f"non-finite notebook SMC2 weights (seed {seed})")
+        if not k.n_distance_stops:
+            raise AssertionError("the distance stop never fired: distance_threshold is not wired")
+        if not (0.3 < mean["gamma"] < 3.0 and 0.5 < mean["tau"] < 2.0):
+            raise AssertionError(f"posterior means out of bounds: {mean}")
+        if rep == 0:
+            start_moments_gate(torch, pt, ctx, start)
+        if NB_JAX:
+            gaps = {n: (mean[n] - NB_JAX[n][0]) / (NB_JAX[n][1] * math.sqrt(1 + 1 / NB_JAX_N)) for n in mean}
+            print(f"  (card - JAX fits' mean) / their spread between seeds {gaps} (limit {NB_TOL_SD})")
+            if not all(abs(g) < NB_TOL_SD for g in gaps.values()):
+                raise AssertionError(f"the card's notebook posterior is off the JAX fits': {gaps}")
+    launches, steps = expand.fused_expand_lanes.launches, pt.APF.corrections
+    print(f"  SMC2 T={NB_T}, APF {NB_N} x K={NB_K}, num_steps={NB_STEPS}, distance_threshold {NB_DISTANCE}, Sobol "
+          f"start: APF steps {steps} (forward + re-filter) and lane kernel launches {launches} over {NB_TIMED} fits; "
+          f"card {card}")
+    if not (launches == steps > 0) or expand.fused_expand.launches:
+        raise AssertionError(f"lane kernel launched {launches} times for {steps} APF steps")
+    latest = state.filter_state.latest_state
+    pre = alg.filter.proposal.pre_weight(alg.filter.model, torch.tensor(float(y[-1]), device="cuda"), latest.x)
+    n = alg.filter.n_particles
+    err = check_on_cloud(torch, expand, pt.normalize(pre + latest.log_weights), torch.stack([latest.x.value, pre]),
+                         f"phase 10's last APF cloud (n={n}, L={NB_K}"
+                         f"{'; past 7104 rows, the global-scratch route' if n > 7104 else ''})")
+    if profile:
+        traced = []
+        steps = pt.APF.corrections
+        ops = profile_run(torch, "phase 10, notebook fit over 100 observations",
+                          lambda: traced.append(notebook_fit(torch, pt, y, "cuda", 90, t_obs=100)))
+        steps = pt.APF.corrections - steps
+        print(f"  device operations per APF step {ops / steps:.2f} ({steps} APF steps, forward and re-filter)")
+        alg, state = traced[0][:2]
+        for label, threshold in (("with the distance stop", NB_DISTANCE), ("without it", None)):
+            alg.kernel._dist_thresh = threshold
+            before = alg.kernel.n_transitions
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            alg._do_rejuvenate(state)
+            torch.cuda.synchronize()
+            print(f"  one rejuvenation after 100 observations {label}: {(time.perf_counter() - t0) * 1e3:.3f} ms "
+                  f"host clock, {alg.kernel.n_transitions - before} PMMH transitions")
+    return launches, err
+
+
+def pmmh_builder(pt, ctx):
+    """``examples/batch_inference_zoo.py``'s model: AR(1) with beta ~
+    Uniform(0, 1), sigma ~ LogNormal(-1, 0.5), observed with noise PMMH_OBS."""
+    def const(v):
+        return pt.timeseries.models.parameter(v, ctx.device)
+
+    beta = ctx.named_parameter("beta", pt.distributions.Uniform(const(0.0), const(1.0)))
+    sigma = ctx.named_parameter("sigma", pt.distributions.LogNormal(const(-1.0), const(0.5)))
+    return pt.timeseries.LinearStateSpaceModel(pt.timeseries.models.AR(0.0, beta, sigma, device=ctx.device),
+                                               (1.0, PMMH_OBS))
+
+
+def pmmh_data(torch, pt):
+    """Phase 11's observations: PMMH_T steps of the true AR model, simulated
+    by the port on the CPU (seed 0)."""
+    model = pt.timeseries.LinearStateSpaceModel(
+        pt.timeseries.models.AR(0.0, PMMH_TRUE["beta"], PMMH_TRUE["sigma"], device="cpu"), (1.0, PMMH_OBS))
+    return model.sample_states(torch.Generator().manual_seed(0), PMMH_T).get_paths()[1].numpy()
+
+
+def ar_grid_posterior(y, jacobian: bool = True) -> dict:
+    """The exact posterior mean and sd of (beta, sigma) for phase 11's model,
+    on a grid in float64: each point's Kalman log-likelihood (``x_0 ~
+    N(0, sigma^2)``, predict, then update on ``y_t``, as the port's filter
+    steps) plus the log-prior. With ``jacobian=False``, the posterior a chain
+    reaches when its unconstrained target omits the bijections' Jacobian."""
+    import numpy as np
+
+    beta = np.linspace(0.0005, 0.9995, 500)[:, None]
+    sigma = np.exp(np.linspace(math.log(0.05), math.log(1.0), 500))[None, :]
+    m, p = np.zeros_like(beta * sigma), np.broadcast_to(sigma**2, (beta * sigma).shape).copy()
+    ll = np.zeros_like(m)
+    for yt in np.asarray(y, np.float64):
+        m, p = beta * m, beta**2 * p + sigma**2
+        s = p + PMMH_OBS**2
+        ll -= 0.5 * (np.log(2 * math.pi * s) + (yt - m) ** 2 / s)
+        gain = p / s
+        m, p = m + gain * (yt - m), (1.0 - gain) * p
+    log_sigma_prior = -0.5 * ((np.log(sigma) + 1.0) / 0.5) ** 2 - np.log(sigma)
+    logpost = ll + log_sigma_prior
+    if not jacobian:
+        logpost = logpost - np.log(beta * (1 - beta)) - np.log(sigma)
+    # the grid is uniform in beta and in log sigma: weigh each point by its cell
+    w = np.exp(logpost - logpost.max()) * sigma
+    w /= w.sum()
+    out = {}
+    for name, v in (("beta", beta + 0 * sigma), ("sigma", sigma + 0 * beta)):
+        mean = float((w * v).sum())
+        out[name] = (mean, float(np.sqrt((w * (v - mean) ** 2).sum())))
+    return out
+
+
+def pmmh_fit(torch, pt, y, device: str, seed: int, num_samples: int = PMMH_SAMPLES):
+    """One fit of ``PMMH(SISR(pmmh_builder, PMMH_N), num_samples, PMMH_CHAINS,
+    RandomWalk(PMMH_SCALE), initializer="seed", num_seeds=PMMH_SEEDS)`` on
+    ``device``, its context and generator seeded from ``seed``. Returns the
+    algorithm, its final state, the seed pass's filter result, the chains by
+    name ``(num_samples + 1, chains)``, the wall seconds of ``fit`` (to the
+    chains on the host) and of its seed pass, each chain's acceptance rate,
+    and the pooled post-burn-in mean and sd by name."""
+    import numpy as np
+
+    from pyfilter_tpu_torch import inference as inf
+
+    def gen(s):
+        return torch.Generator(device=device).manual_seed(s)
+
+    alg = inf.PMMH(pt.SISR(lambda ctx: pmmh_builder(pt, ctx), PMMH_N, device=device), num_samples,
+                   num_chains=PMMH_CHAINS, proposal=inf.RandomWalk(PMMH_SCALE), initializer="seed",
+                   num_seeds=PMMH_SEEDS, context=inf.make_context(generator=gen(seed), device=device),
+                   generator=gen(seed + 1), device=device)
+    seed_pass, seed_chains = [], alg._seed_chains
+
+    def timed_seed_chains(y_host):
+        t0 = time.perf_counter()
+        res = seed_chains(y_host)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seed_pass.append((time.perf_counter() - t0, res))
+        return res
+
+    alg._seed_chains = timed_seed_chains
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = alg.fit(y, logging=inf.logging.DefaultLogger())
+    chains = state.as_arrays()
+    wall = time.perf_counter() - t0
+    burn = num_samples // 3
+    accept = (np.diff(chains["beta"], axis=0) != 0).mean(axis=0)
+    pooled = {n: (float(v[1 + burn:].mean()), float(v[1 + burn:].std())) for n, v in chains.items()}
+    (seed_wall, seed_res), = seed_pass
+    return alg, state, seed_res, chains, wall, seed_wall, accept, pooled
+
+
+def pmmh_transition_gate(torch, alg, state, y, device: str) -> None:
+    """Phase 11's gate on the transition itself (the posterior gate cannot
+    see a dropped Jacobian or a random walk that stays put at PMMH_SAMPLES
+    samples): one more update from the fit's last state, its candidate and
+    re-filter drawn as the fit draws them, then decided twice by
+    ``pmmh_accept``, with log-uniforms PMMH_BRACKET nats below and above the
+    acceptance log-ratio computed on the host in float64 (the log-likelihoods
+    read back; the priors and their Jacobians by formula on the unconstrained
+    values; the random walk's Hastings term is 0). Every chain must accept
+    below and reject above; the kernel of the next transition must sit at the
+    candidate where it accepted and where the chain was where it rejected."""
+    import numpy as np
+
+    from pyfilter_tpu_torch.inference.batch.mcmc.utils import pmmh_accept
+
+    def log_prior(z):  # beta = sigmoid(z_0) ~ U(0, 1); log sigma = z_1 ~ N(-1, 0.5)
+        return (-np.logaddexp(0.0, -z[:, 0]) - np.logaddexp(0.0, z[:, 0])
+                - 0.5 * ((z[:, 1] + 1.0) / 0.5) ** 2 - math.log(0.5 * math.sqrt(2 * math.pi)))
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    ctx, proposal = alg.context, alg._proposal
+    kernel = proposal.build(ctx, state, alg.filter, y)
+    z = ctx.stack_parameters(constrained=False)
+    rvs = kernel.sample(gen, ())
+    proposal_ctx = ctx.unstack_parameters(rvs, constrained=False)
+    new_res = alg.filter.initialize_model(proposal_ctx).batch_filter(gen, y)
+    z64, rvs64 = z.double().cpu().numpy(), rvs.double().cpu().numpy()
+    ratio = (new_res.log_likelihood.double().cpu().numpy() - state.filter_state.log_likelihood.double().cpu().numpy()
+             + log_prior(rvs64) - log_prior(z64))
+    moved = proposal_ctx.stack_parameters(constrained=False)  # the candidate, through the bijections and back
+    for sign, want, at in ((-1.0, True, moved), (1.0, False, z)):
+        log_u = torch.tensor(ratio + sign * PMMH_BRACKET, dtype=z.dtype, device=z.device)
+        step = pmmh_accept(ctx, state, proposal, kernel, rvs, proposal_ctx, new_res, log_u, mutate_kernel=True)
+        accepted = step.accepted.cpu().numpy()
+        if not (accepted == want).all():
+            raise AssertionError(f"PMMH acceptance {accepted.tolist()} with log u {PMMH_BRACKET} nats "
+                                 f"{'below' if want else 'above'} the host's log-ratio {ratio.tolist()}")
+        if not torch.equal(step.proposal_kernel.base_dist.loc, at):
+            raise AssertionError(f"after {'accepting' if want else 'rejecting'} the random walk's kernel is not "
+                                 "where the chain is")
+    print(f"  transition gate: each of {len(ratio)} chains accepts {PMMH_BRACKET} nats below the host's float64 "
+          f"log-ratio {np.round(ratio, 6).tolist()} and rejects above it; the kernel follows the chain")
+
+
+def batch_pmmh(torch, pt, expand, card, profile: bool = False) -> tuple:
+    """Phase 11: batch PMMH at ``examples/batch_inference_zoo.py``'s full
+    width on the card (``num_samples`` cut to PMMH_SAMPLES), its pooled
+    chains against the exact grid posterior, one more transition against the
+    host's acceptance rule, and the lane kernel against its plain version on
+    the last clouds of the chains and of the seed pass; with ``profile``, one
+    traced fit of 5 samples. Returns the lane kernel's launches and its
+    largest difference from the plain version."""
+    import numpy as np
+
+    y = pmmh_data(torch, pt)
+    exact = ar_grid_posterior(y)
+    expand.fused_expand.launches = expand.fused_expand_lanes.launches = 0
+    alg, state, seed_res, chains, wall, seed_wall, accept, pooled = pmmh_fit(torch, pt, y, "cuda", 30)
+    launches = expand.fused_expand_lanes.launches
+    steps = (PMMH_SAMPLES + 2) * PMMH_T  # the seed pass, the initial pass and one re-filter per sample
+    print(f"phase 11: PMMH(SISR({PMMH_N}), {PMMH_SAMPLES} samples, {PMMH_CHAINS} chains, RandomWalk({PMMH_SCALE}), "
+          f"seed initializer over {PMMH_SEEDS} draws), T={PMMH_T}: {wall:.4f} s, seed pass {seed_wall:.4f} s; "
+          f"acceptance per chain {accept.tolist()}; lane kernel launches {launches} for {steps} SISR lane steps; "
+          f"card {card}")
+    if not all(np.isfinite(v).all() for v in chains.values()):
+        raise AssertionError("non-finite PMMH chains")
+    if not (launches == steps) or expand.fused_expand.launches:
+        raise AssertionError(f"lane kernel launched {launches} times for {steps} SISR lane steps")
+    for name, (mean, sd) in pooled.items():
+        ex_mean, ex_sd = exact[name]
+        gap = (mean - ex_mean) / ex_sd
+        print(f"  {name}: pooled post-burn-in mean {mean:.6f} sd {sd:.6f}; exact posterior {ex_mean:.6f} sd "
+              f"{ex_sd:.6f}; gap {gap:+.4f} posterior sd (limit {PMMH_TOL_SD})")
+        if not abs(gap) < PMMH_TOL_SD:
+            raise AssertionError(f"the pooled PMMH chains put {name} {gap} posterior sd off the exact posterior")
+    pmmh_transition_gate(torch, alg, state, y, "cuda")
+    err = 0.0
+    for res, label in ((state.filter_state, "the chains' last re-filter"), (seed_res, "the seed pass")):
+        last = res.latest_state
+        err = max(err, check_on_cloud(torch, expand, pt.normalize(last.log_weights), last.x.value.unsqueeze(0),
+                                      f"phase 11's last SISR cloud of {label} (n={PMMH_N}, "
+                                      f"L={last.log_weights.shape[1]})"))
+    if profile:
+        ops = profile_run(torch, "phase 11, PMMH fit of 5 samples", lambda: pmmh_fit(torch, pt, y, "cuda", 31, 5))
+        print(f"  device operations per SISR lane step {ops / (7 * PMMH_T):.2f} "
+              "(seed pass, initial pass, 5 re-filters)")
+    return launches, err
+
+
+def fused_limit(torch, pt, expand, card) -> None:
+    """The repaired single-lane route: one SISR step at N = FUSED_LIMIT on
+    the card resamples through its resampler and a gather (the expand
+    kernel's size limit), with a finite log-likelihood."""
+    y = simulate_obs(1)
+    model = pt.examples.stochastic_volatility_model(KAPPA, GAMMA, SIGMA, MU, NU, TAU, dt=DT, device="cuda")
+    filt = pt.SISR(model, FUSED_LIMIT, ess_threshold=1.0 + 1e-6, record_moments=False, device="cuda")
+    before = expand.fused_expand.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ll = float(filt.batch_filter(torch.Generator(device="cuda").manual_seed(0), y).log_likelihood)
+    wall = time.perf_counter() - t0
+    print(f"  SISR N=2^24 (one lane, one observation): {wall:.4f} s, log-likelihood {ll}; resample fires "
+          f"{filt.n_resamples} through the resampler and a gather; expand launches "
+          f"{expand.fused_expand.launches - before}; card {card}")
+    if not (math.isfinite(ll) and filt.n_resamples == 1 and expand.fused_expand.launches == before):
+        raise AssertionError("the N = 2^24 SISR did not take the resampler route")
+
+
+def apf_bias(torch, pt, seeds: int) -> int:
+    """``--apf-bias``: :func:`apf_true` (T = N_OBS) over the seeds 100, 101,
+    ... on the card and on the CPU: the mean and spread over seeds of each
+    run's mean over lanes, and the gap of the two means in standard errors."""
+    import numpy as np
+
+    print(card_line())
+    y = simulate_obs(N_OBS)
+    card, cpu = (np.asarray([float(apf_true(torch, pt, y, device, seed)[1].log_likelihood.double().mean())
+                             for seed in range(100, 100 + seeds)]) for device in ("cuda", "cpu"))
+    se = math.sqrt(card.var(ddof=1) / len(card) + cpu.var(ddof=1) / len(cpu))
+    print(f"card mean {card.mean()} (sd between seeds {card.std(ddof=1)}), CPU mean {cpu.mean()} (sd "
+          f"{cpu.std(ddof=1)}); gap {card.mean() - cpu.mean()} = {(card.mean() - cpu.mean()) / se:+.3f} standard "
+          f"errors over {seeds} seeds each")
     return 0
 
 

@@ -11,8 +11,10 @@ batches), built with ``nvcc`` at first use.
 Ported so far: SISR and the APF (single lane and lane batches) with the
 bootstrap proposal and the optimal proposal for linear-Gaussian
 observations; recorded histories with exact FFBS, rejection FFBSi and
-fixed-lag smoothing; SMC² over a lane-batched APF; NESS, FixedWidthNESS
-and their SMC² hybrids with the KDE jitter kernels; the AR, random-walk,
+fixed-lag smoothing; SMC² over a lane-batched APF, with a quasi-random
+(Sobol) start and the adaptive distance stop; batch PMMH with random-walk
+and adaptive random-walk proposals; NESS, FixedWidthNESS and their SMC²
+hybrids with the KDE jitter kernels; the AR, random-walk,
 linear, Verhulst, sine-diffusion and Lorenz-63 models.
 """
 

@@ -1,6 +1,7 @@
 """Concrete distributions: ``Normal`` (the SISR main path), ``LogNormal``
 and ``Exponential`` (the SMC² path's priors) and ``Uniform`` (the Lorenz
-model's priors).
+model's priors), each with ``cdf``, ``icdf`` (the quasi-random start inverts
+them), ``mean`` and ``variance``.
 
 Counterpart of ``pyfilter_tpu/distributions/core.py``.
 """
@@ -37,6 +38,20 @@ class Normal(Distribution):
         z = (value - self.loc) / self.scale
         return -0.5 * torch.square(z) - torch.log(self.scale) - _LOG_SQRT_2PI
 
+    def cdf(self, value):
+        return torch.special.ndtr((value - self.loc) / self.scale)
+
+    def icdf(self, q):
+        return self.loc + self.scale * torch.special.ndtri(q)
+
+    @property
+    def mean(self):
+        return self.loc.expand(self.batch_shape)
+
+    @property
+    def variance(self):
+        return torch.square(self.scale).expand(self.batch_shape)
+
 
 class LogNormal(Distribution):
     arg_names = ("loc", "scale")
@@ -60,6 +75,21 @@ class LogNormal(Distribution):
         log_v = torch.log(value)
         return Normal(self.loc, self.scale).log_prob(log_v) - log_v
 
+    def cdf(self, value):
+        return torch.special.ndtr((torch.log(value) - self.loc) / self.scale)
+
+    def icdf(self, q):
+        return torch.exp(self.loc + self.scale * torch.special.ndtri(q))
+
+    @property
+    def mean(self):
+        return torch.exp(self.loc + 0.5 * torch.square(self.scale)).expand(self.batch_shape)
+
+    @property
+    def variance(self):
+        s2 = torch.square(self.scale)
+        return ((torch.exp(s2) - 1.0) * torch.exp(2.0 * self.loc + s2)).expand(self.batch_shape)
+
 
 class Exponential(Distribution):
     arg_names = ("rate",)
@@ -82,6 +112,20 @@ class Exponential(Distribution):
 
     def log_prob(self, value):
         return torch.log(self.rate) - self.rate * value
+
+    def cdf(self, value):
+        return -torch.expm1(-self.rate * value)
+
+    def icdf(self, q):
+        return -torch.log1p(-q) / self.rate
+
+    @property
+    def mean(self):
+        return (1.0 / self.rate).expand(self.batch_shape)
+
+    @property
+    def variance(self):
+        return (1.0 / torch.square(self.rate)).expand(self.batch_shape)
 
 
 class Uniform(Distribution):
@@ -115,3 +159,11 @@ class Uniform(Distribution):
 
     def icdf(self, q):
         return self.low + (self.high - self.low) * q
+
+    @property
+    def mean(self):
+        return ((self.low + self.high) / 2.0).expand(self.batch_shape)
+
+    @property
+    def variance(self):
+        return (torch.square(self.high - self.low) / 12.0).expand(self.batch_shape)

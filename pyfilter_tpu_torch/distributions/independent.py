@@ -41,6 +41,20 @@ class Independent(Distribution):
             return lp
         return torch.sum(lp, dim=tuple(range(-self.reinterpreted_batch_ndims, 0)))
 
+    def cdf(self, value):
+        return self.base_dist.cdf(value)
+
+    def icdf(self, q):
+        return self.base_dist.icdf(q)
+
+    @property
+    def mean(self):
+        return self.base_dist.mean
+
+    @property
+    def variance(self):
+        return self.base_dist.variance
+
     def equivalent_to(self, other) -> bool:
         return (
             type(other) is Independent

@@ -1,7 +1,8 @@
 """TransformedDistribution — a base distribution pushed through bijectors.
 
 Counterpart of ``pyfilter_tpu/distributions/transformed.py`` (the
-sinh-arcsinh observation density of the stochastic-volatility model).
+sinh-arcsinh observation density of the stochastic-volatility model, and the
+priors pushed to the unconstrained space).
 """
 
 from __future__ import annotations
@@ -43,3 +44,11 @@ class TransformedDistribution(Distribution):
         if n_sum:
             ladj = torch.sum(ladj, dim=tuple(range(-n_sum, 0)))
         return self.base_dist.log_prob(x) - ladj
+
+    def cdf(self, value):
+        """Valid for increasing bijectors (every prior bijection of the port)."""
+        return self.base_dist.cdf(self.bijector.inverse(value))
+
+    def icdf(self, q):
+        """Valid for increasing bijectors (every prior bijection of the port)."""
+        return self.bijector.forward(self.base_dist.icdf(q))

@@ -9,6 +9,8 @@ and write each step's draws into one output preallocated on the device.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ...ops import systematic_counts, systematic_expand, systematic_expand_lanes
@@ -59,11 +61,12 @@ class ParticleFilter(BaseFilter):
     ``batch_shape`` lanes after it. ``ess_threshold`` is the relative ESS
     below which the cloud resamples.
 
-    A float32 cloud with the default ``systematic_counts`` resampler resamples
-    and gathers in one pass (:meth:`_fused_resample`: ``ops.systematic_expand``
-    for one lane, ``ops.systematic_expand_lanes`` for a lane batch, each a
-    hand-written CUDA kernel on the card); any other resampler is used as
-    given, followed by a gather."""
+    A float32 cloud of fewer than 2^24 particles in all, with the default
+    ``systematic_counts`` resampler, resamples and gathers in one pass
+    (:meth:`_fused_resample`: ``ops.systematic_expand`` for one lane,
+    ``ops.systematic_expand_lanes`` for a lane batch, each a hand-written
+    CUDA kernel on the card); a larger cloud, or any other resampler, runs
+    the resampler followed by a gather, as the JAX package does."""
 
     def __init__(
         self,
@@ -105,7 +108,8 @@ class ParticleFilter(BaseFilter):
         return self._identity_cache
 
     def _use_fused_resample(self, value: torch.Tensor) -> bool:
-        return value.dtype == torch.float32 and self.resampler is systematic_counts
+        return (value.dtype == torch.float32 and self.resampler is systematic_counts
+                and math.prod(self.particles) < 1 << 24)
 
     def resample_uniform(self, generator) -> torch.Tensor:
         """The fused systematic resample's uniforms, one per lane, drawn from

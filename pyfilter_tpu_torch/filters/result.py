@@ -41,9 +41,14 @@ class FilterResult(NamedTuple):
     def loglikelihood(self) -> torch.Tensor:
         return self.log_likelihood
 
-    def resample(self, indices: torch.Tensor) -> "FilterResult":
-        """Permute the lanes by ``indices`` ``(K,)``, the history included."""
+    def resample(self, indices: torch.Tensor, entire_history: bool = True) -> "FilterResult":
+        """Permute the lanes by ``indices`` ``(K,)``, the history included;
+        with ``entire_history=False`` only the latest state and the
+        log-likelihood."""
         idx = indices.long()
+        if not entire_history:
+            return self._replace(latest_state=self.latest_state.resample(idx),
+                                 log_likelihood=self.log_likelihood.index_select(0, idx))
         states = self.states
         if states is not None:
             states = FilterHistory(states.time_indexes, *(h.index_select(2, idx) for h in states[1:]))

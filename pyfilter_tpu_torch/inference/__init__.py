@@ -1,11 +1,11 @@
-"""Parameter inference: the context, priors, PMMH pieces, SMC², NESS and
-their hybrids (counterpart of ``pyfilter_tpu/inference``, the subset the SMC²
-and NESS paths run)."""
+"""Parameter inference: the context (plain and quasi-random), priors, batch
+PMMH and its proposals, SMC², NESS and their hybrids (counterpart of
+``pyfilter_tpu/inference``, the subset those paths run)."""
 
-from . import batch, logging, prior, sequential
+from . import batch, logging, plot, prior, qmc, sequential
 from .base import BaseAlgorithm
-from .batch.mcmc import SymmetricMH
-from .context import InferenceContext, make_context
+from .batch.mcmc import PMMH, AdaptiveRandomWalk, PMMHResult, RandomWalk, SymmetricMH
+from .context import InferenceContext, QuasiInferenceContext, make_context
 from .parameter import PriorBoundParameter
 from .sequential import (
     NESS,
@@ -20,17 +20,27 @@ from .sequential import (
     TooManyIncreases,
 )
 from .state import RunningFilterResult, SequentialAlgorithmState, SMC2State, scrub_lane_increment
-from .utils import calc_mean_chol, construct_mvn
+from .qmc import EngineContainer
+from .utils import QuasiMultivariateNormal, calc_mean_chol, construct_mvn
 
 __all__ = [
     "batch",
     "logging",
+    "plot",
     "prior",
+    "qmc",
     "sequential",
     "BaseAlgorithm",
+    "PMMH",
+    "PMMHResult",
+    "RandomWalk",
+    "AdaptiveRandomWalk",
     "SymmetricMH",
     "InferenceContext",
+    "QuasiInferenceContext",
     "make_context",
+    "EngineContainer",
+    "QuasiMultivariateNormal",
     "PriorBoundParameter",
     "SMC2",
     "NESS",

@@ -1,4 +1,4 @@
-"""Batch inference (the MCMC pieces SMC² uses)."""
+"""Batch inference: particle MCMC (PMMH)."""
 
 from . import mcmc
 

@@ -1,6 +1,18 @@
-"""PMMH building blocks (the proposal and the transition SMC² uses)."""
+"""Particle MCMC: batch PMMH, its proposals and the transition SMC² shares."""
 
-from .proposals import BaseProposal, SymmetricMH
+from .pmmh import PMMH
+from .proposals import AdaptiveRandomWalk, BaseProposal, RandomWalk, SymmetricMH
+from .state import PMMHResult
 from .utils import PMMHStep, pmmh_accept, run_pmmh
 
-__all__ = ["BaseProposal", "SymmetricMH", "PMMHStep", "pmmh_accept", "run_pmmh"]
+__all__ = [
+    "PMMH",
+    "PMMHResult",
+    "BaseProposal",
+    "RandomWalk",
+    "AdaptiveRandomWalk",
+    "SymmetricMH",
+    "PMMHStep",
+    "pmmh_accept",
+    "run_pmmh",
+]

@@ -22,10 +22,18 @@ class PMMHStep(NamedTuple):
     proposal_kernel: object
 
 
-def pmmh_accept(context, state, proposal, proposal_kernel, rvs, proposal_context, new_res, log_u) -> PMMHStep:
+def _uniform(generator, like: torch.Tensor) -> torch.Tensor:
+    """The acceptance uniforms, ``like``'s shape, dtype and device."""
+    return torch.rand(like.shape, generator=generator, dtype=like.dtype, device=like.device)
+
+
+def pmmh_accept(context, state, proposal, proposal_kernel, rvs, proposal_context, new_res, log_u,
+                mutate_kernel: bool = False) -> PMMHStep:
     """Accept lane ``k`` when ``log_u[k] < diff_proposal + diff_prior +
     diff_loglik``, all on the unconstrained space; accepting lanes take the
-    candidate's filter state and parameters.
+    candidate's filter state and parameters. With ``mutate_kernel`` the
+    returned kernel is ``proposal.exchange(kernel, candidate's kernel,
+    accepted)``, else the kernel given.
 
     ``rvs``: the candidate ``(K, D)``; ``proposal_context``: the context
     holding it; ``new_res``: the re-filter under it; ``log_u``: ``(K,)``."""
@@ -36,20 +44,23 @@ def pmmh_accept(context, state, proposal, proposal_kernel, rvs, proposal_context
     diff_prop = new_prop_kernel.log_prob(params) - proposal_kernel.log_prob(rvs)
 
     accepted = log_u < diff_prop + diff_prior + diff_logl
+    kernel = proposal.exchange(proposal_kernel, new_prop_kernel, accepted) if mutate_kernel else proposal_kernel
     return PMMHStep(
         accepted,
         context.exchange(proposal_context, accepted),
         state.filter_state.exchange(new_res, accepted),
-        proposal_kernel,
+        kernel,
     )
 
 
-def run_pmmh(generator, context, state, proposal, proposal_kernel, filter_, y: np.ndarray, size=()) -> PMMHStep:
+def run_pmmh(generator, context, state, proposal, proposal_kernel, filter_, y: np.ndarray, size=(),
+             mutate_kernel: bool = False) -> PMMHStep:
     """One PMMH update over all lanes: draw the candidate, re-filter ``y``
     (host observations) under it, draw the log-uniforms, then
     :func:`pmmh_accept`. Every draw comes from ``generator``, in that order."""
     rvs = proposal_kernel.sample(generator, tuple(size))
     proposal_context = context.unstack_parameters(rvs, constrained=False)
     new_res = filter_.initialize_model(proposal_context).batch_filter(generator, y)
-    log_u = torch.log(torch.rand(new_res.log_likelihood.shape, generator=generator, device=rvs.device))
-    return pmmh_accept(context, state, proposal, proposal_kernel, rvs, proposal_context, new_res, log_u)
+    log_u = torch.log(_uniform(generator, new_res.log_likelihood))
+    return pmmh_accept(context, state, proposal, proposal_kernel, rvs, proposal_context, new_res, log_u,
+                       mutate_kernel=mutate_kernel)

@@ -1,13 +1,14 @@
 """Inference context: the named parameter and prior store.
 
-Counterpart of ``pyfilter_tpu/inference/context.py`` (without the quasi
-context and ``state_dict``). Model builders call
-``context.named_parameter(name, prior)``; the first call samples the
-parameter's lanes from the prior with the context's ``torch.Generator``, on
-the context's ``device``. ``resample``, ``exchange`` and
-``unstack_parameters`` return new contexts; algorithms ``absorb`` them into
-the context the user holds, so that handle always shows the current
-posterior.
+Counterpart of ``pyfilter_tpu/inference/context.py`` (without
+``state_dict``). Model builders call ``context.named_parameter(name,
+prior)``; the first call samples the parameter's lanes from the prior with
+the context's ``torch.Generator``, on the context's ``device``. ``resample``,
+``exchange`` and ``unstack_parameters`` return new contexts; algorithms
+``absorb`` them into the context the user holds, so that handle always shows
+the current posterior. :class:`QuasiInferenceContext` re-initializes the
+parameters from scrambled Sobol points; its clones carry no engine, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from ..distributions import Distribution
 from ..utils import resolve_device
 from . import prior as prior_ops
 from .parameter import PriorBoundParameter
+from .qmc import EngineContainer
 
 
 class NotSamePriorError(Exception):
@@ -134,6 +136,9 @@ class InferenceContext:
         for k, v in self._value_dict.items():
             yield k, (v if constrained else prior_ops.get_unconstrained(self._prior_dict[k], v))
 
+    def get_shape(self, name: str, constrained: bool = True) -> tuple:
+        return self._shapes(constrained)[name]
+
     def update_parameter(self, name: str, value, constrained: bool = True):
         value = torch.as_tensor(value, dtype=torch.float32, device=self.device)
         if not constrained:
@@ -182,7 +187,7 @@ class InferenceContext:
 
     # -- lane surgery ------------------------------------------------------------------
     def _clone_registry(self) -> "InferenceContext":
-        new = InferenceContext.__new__(InferenceContext)
+        new = type(self).__new__(type(self))
         new.__dict__.update(self.__dict__)
         for name in ("_prior_dict", "_value_dict", "_shape_dict", "_unconstrained_shape_dict"):
             setattr(new, name, OrderedDict(getattr(self, name)))
@@ -223,6 +228,44 @@ class InferenceContext:
             self._verify_prior = True
 
 
-def make_context(generator: torch.Generator | None = None, device=None) -> InferenceContext:
-    """An inference context on ``device`` (the card unless ``device="cpu"``)."""
+class QuasiInferenceContext(InferenceContext):
+    """A context whose :meth:`initialize_parameters` re-draws every lane by
+    inverting scrambled Sobol points on the unconstrained space, one point per
+    lane, parameter by parameter in registration order. ``randomize`` adds
+    the engine's constant random shift; the engine's seed is drawn from
+    ``generator``. The engine lives on this context only: a clone
+    (``resample``, ``exchange``, ``unstack_parameters``) carries none, so a
+    proposal fitted on a clone samples pseudo-randomly."""
+
+    def __init__(self, generator: torch.Generator | None = None, device=None, randomize: bool = True):
+        super().__init__(generator=generator, device=device)
+        self.quasi_engine: EngineContainer | None = None
+        self._randomize = randomize
+
+    def initialize_parameters(self):
+        dims = [math.prod(self._unconstrained_shape_dict[n]) for n in self._prior_dict]
+        # one host read, once per fit
+        seed = int(torch.randint(2**31 - 1, (), generator=self.generator, device=self.device))
+        self.quasi_engine = EngineContainer(sum(dims), self._randomize, seed=seed, device=self.device)
+        probs = self.quasi_engine.sample(self.batch_shape)
+        index = 0
+        for (name, prior), numel in zip(self._prior_dict.items(), dims):
+            shape = self._unconstrained_shape_dict[name]
+            p = probs[..., index : index + numel].reshape(self.batch_shape + shape)
+            unconstrained = prior_ops.inverse_sample(prior, p, constrained=False)
+            self._value_dict[name] = prior_ops.get_constrained(prior, unconstrained)
+            index += numel
+
+    def _clone_registry(self) -> "QuasiInferenceContext":
+        new = super()._clone_registry()
+        new.quasi_engine = None
+        return new
+
+
+def make_context(use_quasi: bool = False, randomize: bool = True, generator: torch.Generator | None = None,
+                 device=None) -> InferenceContext:
+    """An inference context on ``device`` (the card unless ``device="cpu"``);
+    with ``use_quasi``, a :class:`QuasiInferenceContext`."""
+    if use_quasi:
+        return QuasiInferenceContext(generator=generator, device=device, randomize=randomize)
     return InferenceContext(generator=generator, device=device)

@@ -6,6 +6,8 @@ Counterpart of ``pyfilter_tpu/inference/prior.py``: free functions over any
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..distributions import Distribution, TransformedDistribution, biject_to
@@ -40,3 +42,16 @@ def eval_prior(prior: Distribution, constrained_value: torch.Tensor, constrained
 
 def unconstrained_event_shape(prior: Distribution) -> tuple:
     return tuple(unconstrained_prior(prior).event_shape)
+
+
+def get_numel(prior: Distribution, constrained: bool = True) -> int:
+    """Number of elements of one parameter draw."""
+    return math.prod(prior.event_shape if constrained else unconstrained_event_shape(prior))
+
+
+def inverse_sample(prior: Distribution, probs: torch.Tensor, constrained: bool = True) -> torch.Tensor:
+    """Inverse-CDF sample from uniform probabilities, on the constrained space
+    or the unconstrained one (the quasi-random start)."""
+    if constrained:
+        return prior.icdf(probs)
+    return unconstrained_prior(prior).icdf(probs)

@@ -6,12 +6,17 @@ the resample, run up to ``num_steps`` PMMH transitions over the whole
 observed history (each a full re-filter), and, when the running acceptance
 rate falls below the threshold, double the state-particle count and
 re-filter the history once more. The acceptance rate is read on the host
-once per transition.
+once per transition. With ``distance_threshold`` the transitions also stop
+early once the cloud's distance from where the rejuvenation started settles
+(the JAX package's adaptive stop, after nchopin/particles): one more host
+read per transition.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
+
+import torch
 
 from ....resampling import systematic
 from ...batch.mcmc.proposals import BaseProposal, SymmetricMH
@@ -34,23 +39,28 @@ class ParticleMetropolisHastings:
         self,
         num_steps: int = 1,
         proposal: BaseProposal = None,
+        distance_threshold: float = None,
         acceptance_threshold: float = 0.2,
         max_increases: int = 5,
         resampler=systematic,
     ):
         self._n_steps = int(num_steps)
         self._proposal = proposal or SymmetricMH()
+        self._dist_thresh = distance_threshold
         self._acceptance_threshold = acceptance_threshold
         self._max_increases = int(max_increases)
         self._increases = 0
         self._resampler = resampler
-        #: device-to-host reads of acceptance rates since the count was set to 0
+        #: device-to-host reads (acceptance rates, distances) since the count
+        #: was set to 0
         self.n_host_syncs = 0
-        #: rejuvenations, PMMH transitions and particle doublings run, since
-        #: the counts were set to 0
+        #: rejuvenations, PMMH transitions, particle doublings and
+        #: rejuvenations cut short by the distance stop, since the counts were
+        #: set to 0
         self.n_rejuvenations = 0
         self.n_transitions = 0
         self.n_doublings = 0
+        self.n_distance_stops = 0
 
     @property
     def proposal(self) -> BaseProposal:
@@ -65,8 +75,9 @@ class ParticleMetropolisHastings:
         context = context.resample(indices)
         state.filter_state = state.filter_state.resample(indices)
         size = () if tuple(dist.batch_shape) else (filter_.batch_shape[0],)
+        old_params = None if self._dist_thresh is None else context.stack_parameters(constrained=False)
 
-        acceptance_rate = 0.0
+        previous_distance = acceptance_rate = 0.0
         for i in range(self._n_steps):
             step = run_pmmh(generator, context, state, self._proposal, dist, filter_, y, size=size)
             context = step.context
@@ -78,6 +89,18 @@ class ParticleMetropolisHastings:
             # abort early rather than spend transitions at a low acceptance
             if acceptance_rate < self._acceptance_threshold:
                 return self._increase_states(generator, context, filter_, state)
+            if old_params is None:
+                continue
+
+            # mean over parameters of the largest lane move since the start
+            new_params = context.stack_parameters(constrained=False)
+            distance = float(torch.mean(torch.amax(torch.abs(new_params - old_params), dim=0)))
+            self.n_host_syncs += 1
+            if abs(distance - previous_distance) <= self._dist_thresh * previous_distance:
+                if i + 1 < self._n_steps:
+                    self.n_distance_stops += 1
+                break
+            previous_distance = distance
 
         state.w = state.w.new_zeros(state.w.shape)
         return MHUpdate(context, filter_.initialize_model(context), state)

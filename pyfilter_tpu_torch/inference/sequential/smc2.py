@@ -31,11 +31,13 @@ class SMC2(SequentialParticleAlgorithm):
         context=None,
         generator=None,
         num_steps: int = 1,
+        distance_threshold: float = None,
         **kwargs,
     ):
         super().__init__(filter_, particles, context=context, generator=generator, **kwargs)
         self._threshold = threshold if isinstance(threshold, Thresholder) else ConstantThreshold(threshold)
-        self._kernel = ParticleMetropolisHastings(proposal=kernel, max_increases=max_increases, num_steps=num_steps)
+        self._kernel = ParticleMetropolisHastings(proposal=kernel, max_increases=max_increases, num_steps=num_steps,
+                                                  distance_threshold=distance_threshold)
 
     @property
     def kernel(self) -> ParticleMetropolisHastings:

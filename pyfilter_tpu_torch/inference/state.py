@@ -88,6 +88,9 @@ class FilterAlgorithmState(AlgorithmState):
     def __init__(self, filter_state):
         self.filter_state = filter_state
 
+    def replicate(self, filter_state) -> "FilterAlgorithmState":
+        return FilterAlgorithmState(filter_state)
+
 
 def scrub_lane_increment(inc: torch.Tensor) -> torch.Tensor:
     """NaN and +inf per-lane log-likelihood increments become -inf: a lane

@@ -242,3 +242,57 @@ def test_entry_points_refuse_without_a_card(monkeypatch):
     filt = pt.SISR(cpu_model, 100, record_states=True, device="cpu")
     res = filt.batch_filter(torch.Generator().manual_seed(0), np.zeros(5, np.float32))
     assert filt.smooth(torch.Generator().manual_seed(1), res, method="ffbsi").device.type == "cpu"
+
+
+@pytest.mark.cuda
+def test_quasi_draws_copy_once_per_draw_on_card(cuda):
+    """A quasi context on the card: its Sobol start and each quasi-random
+    candidate draw are one host-to-device copy each, landing on the card."""
+    from pyfilter_tpu_torch import inference as inf
+
+    k = 100
+    ctx = inf.make_context(use_quasi=True, generator=torch.Generator(device=cuda).manual_seed(0))
+    ctx.set_batch_shape((k,))
+    pt.examples.stochastic_volatility_builder(ctx)
+    ctx.initialize_parameters()
+    engine = ctx.quasi_engine
+    assert engine.n_copies == 1 and engine.n_drawn == k
+    assert all(v.device.type == "cuda" for v in ctx.parameters.values())
+    state = inf.SequentialAlgorithmState(torch.zeros(k, device=cuda), None)
+    kernel = inf.SymmetricMH().build(ctx, state, None, None)
+    assert isinstance(kernel, inf.QuasiMultivariateNormal)
+    for draw in range(1, 4):
+        rvs = kernel.sample(None, (k,))
+        assert rvs.device.type == "cuda" and rvs.shape == (k, 6) and bool(torch.isfinite(rvs).all())
+        assert engine.n_copies == 1 + draw and engine.n_drawn == k * (1 + draw)
+
+
+@pytest.mark.cuda
+def test_sisr_past_the_fused_limit_on_card_skips_the_kernel(cuda):
+    """A single-lane SISR at N = 2^24 on the card resamples through its
+    resampler and a gather: the expand kernel does not launch."""
+    import numpy as np
+
+    filt = pt.SISR(_ar_model(), 1 << 24, ess_threshold=1.0 + 1e-6, record_moments=False)
+    before = expand.fused_expand.launches
+    res = filt.batch_filter(torch.Generator(device=cuda).manual_seed(0), np.asarray([0.1, -0.2], np.float32))
+    assert filt.n_resamples == 2 and expand.fused_expand.launches == before
+    assert math.isfinite(float(res.log_likelihood))
+
+
+def test_quasi_and_pmmh_entry_points_refuse_without_a_card(monkeypatch):
+    """Without a card, the quasi context, its engine and PMMH raise unless
+    given ``device="cpu"``."""
+    from pyfilter_tpu_torch import inference as inf
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cpu_filter = pt.SISR(_ar_model("cpu"), 10, device="cpu")
+    for make in (
+        lambda: inf.make_context(use_quasi=True),
+        lambda: inf.EngineContainer(3, True),
+        lambda: inf.PMMH(cpu_filter, 2, context=inf.make_context(device="cpu")),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    alg = inf.PMMH(cpu_filter, 2, context=inf.make_context(use_quasi=True, device="cpu"), device="cpu")
+    assert alg.device.type == "cpu"
