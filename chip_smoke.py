@@ -5,6 +5,7 @@
     python3 chip_smoke.py --profile   # also: one traced run of each main path
     python3 chip_smoke.py --ness-spread [CARD_FITS [CPU_FITS]]   # phase 9's seed sweep only
     python3 chip_smoke.py --apf-bias [SEEDS]   # phase 5's APF over more seeds only
+    python3 chip_smoke.py --oracle    # phases 1-3 and 12 only
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -14,7 +15,7 @@ Phases, in order; any failure exits non-zero before the result line:
    ``build/kernels/``, one ``nvcc`` per source, all started together.
 3. Kernels: each kernel (counts prep from probabilities and expansion)
    against its plain PyTorch version on the card, at the main paths' shapes
-   (the lane kernel with d = 1, 2 and 3 value planes) and at the edge cases
+   (each kernel with d = 1, 2 and 3 value planes) and at the edge cases
    (degenerate, zero-run, uniform and sub-2^-60 weights; uniforms 0, 2^-24,
    0.5, 1-2^-24, 1), bit for bit.
 4. Main path: bootstrap SISR on the stochastic-volatility model at
@@ -101,6 +102,24 @@ Phases, in order; any failure exits non-zero before the result line:
    limit it resamples through its resampler and a gather, and the kernel
    does not launch.
 
+12. The reference's linear-Gaussian oracle suite (BASELINE.md workload 5):
+   every filter of the JAX package's ``tests/test_filters.py`` table (SISR,
+   APF and GPF with the bootstrap, linear, linearized, damped-Newton,
+   nested and Gaussian-approximate proposals) at N = 1500 over T = 100
+   observations of ``"ar"`` (13 filters), ``"rw2d"`` and ``"joint2d"`` (9
+   each), and the bootstrap SISR and linear APF over 3 lanes with and
+   without 10 missing rows, each against a float64 Kalman filter under the
+   reference's gates (median relative deviation of the means and relative
+   log-likelihood error below 0.1); LocalLinearization (SISR and the APF,
+   with and without the derivative, 1000 particles) against a 20000-particle
+   bootstrap SISR on the nonlinear benchmark model. Four configurations'
+   card log-likelihoods against 8 CPU runs each (worker processes, while the
+   card runs) within 4 standard errors; the expand kernel as often as each
+   run resamples, the lane kernel likewise on the lanes, neither in a GPF
+   run; both kernels equal to their plain versions on the suite's clouds (a
+   2-D one among them); the host syncs a step of the damped-Newton filters
+   by source.
+
 ``--ness-spread`` runs only phase 9's seed sweep (card and CPU fits and the
 gaps between them). ``--apf-bias [SEEDS]`` runs only phase 5's APF over
 SEEDS seeds (16 by default) on the card and on the CPU.
@@ -108,7 +127,8 @@ SEEDS seeds (16 by default) on the card and on the CPU.
 With ``--profile``, also the device operations per observation (main path
 1 and phase 9), per APF step (main path 2, phases 7 and 10), per backward
 step of FFBS (phase 7) and FFBSi (phase 8), per NESS rejuvenation (phase 9)
-and per SISR lane step (phase 11), each from one traced run, and the host
+and per SISR lane step (phase 11) and filter step (phase 12's damped-Newton
+filters), each from one traced run, and the host
 time of one notebook rejuvenation with and without the distance stop.
 Prints a ``{"kernels": [...]}`` line, then, as the last line, ``{"ok":
 true, "device": {...}}``.
@@ -244,6 +264,35 @@ PMMH_TOL_SD = 1.75
 PMMH_BRACKET = 2e-3
 # the fused resample's size limit (repair of the single-lane route)
 FUSED_LIMIT = 1 << 24
+# phase 12: the reference's linear-Gaussian oracle suite (BASELINE.md
+# workload 5; the reference's tests/filters/test_particle.py and
+# tests/filters/models.py, the JAX package's tests/test_filters.py): every
+# filter and proposal at N = 1500 against an exact float64 Kalman filter over
+# T = 100 observations simulated from numpy seed 123, under the reference's
+# gates: the median relative deviation of the filter means and the relative
+# error of the log-likelihood below 0.1. The batched runs lose 10 rows.
+ORACLE_N, ORACLE_T, ORACLE_SEED, ORACLE_MISSING, ORACLE_TOL = 1500, 100, 123, 10, 0.1
+ORACLE_AR = {"alpha": 0.0, "beta": 0.99, "sigma": 0.05, "a": 1.0, "s": 0.15}
+ORACLE_SIGMA2, ORACLE_S2 = (0.05, 0.1), 0.15
+ORACLE_2D = ("sisr-bootstrap", "apf-linear", "sisr-linearized", "sisr-linearized2", "gpf", "gpf-glinear",
+             "gpf-glinearized", "gpf-glinearized2", "apf-nested")
+ORACLE_BATCHED, ORACLE_LANES = ("sisr-bootstrap", "apf-linear"), 3
+# the runs whose card log-likelihood is also held against the port's on the
+# CPU, phase 7's form: ORACLE_STAT_CARD card runs against ORACLE_STAT_CPU CPU
+# runs (in worker processes, while the card runs), within 4 standard errors.
+# This is what a card-only numeric shows in: TF32, the pinv cut, a
+# factorisation that raises instead of giving NaN.
+ORACLE_STAT = (("sisr-linearized2", "rw2d"), ("gpf-glinearized2", "rw2d"), ("apf-nested", "joint2d"), ("gpf", "ar"))
+ORACLE_STAT_CARD, ORACLE_STAT_CPU = 3, 8
+# the runs whose host syncs are counted by source, and (--profile) whose
+# device operations are traced, over ORACLE_SYNC_T steps
+ORACLE_SYNC = (("sisr-linearized2", "rw2d"), ("gpf-glinearized2", "rw2d"))
+ORACLE_SYNC_T = 20
+# LocalLinearization (SISR and the APF, with and without the derivative)
+# at LOCAL_N particles against a LOCAL_ORACLE_N-particle bootstrap SISR on
+# the nonlinear benchmark model (the JAX package's tests/test_filters.py
+# test_local_linearization), T = LOCAL_T, relative log-likelihood gap 0.1
+LOCAL_N, LOCAL_ORACLE_N, LOCAL_T, LOCAL_SIGMA, LOCAL_S, LOCAL_SEED = 1000, 20_000, 60, math.sqrt(10.0), 1.0, 33
 
 
 def simulate_obs(n_obs: int):
@@ -339,7 +388,7 @@ def check_expand(torch, expand) -> float:
         cases = [(name, torch.softmax(lw, dim=0), u) for name, lw in weights.items()
                  for u in (float(torch.rand((), generator=g, device=dev)), 1.0)]
         cases += [(name, edge_probs(torch, n, name, dev), u) for name in ("uniform", "tiny") for u in EDGE_US]
-        for d in (1, 3):
+        for d in (1, 2, 3):
             v2d = torch.randn(d, n, generator=g, device=dev)
             for name, probs, u in cases:
                 ut = torch.tensor(u, device=dev)
@@ -352,7 +401,7 @@ def check_expand(torch, expand) -> float:
                 n_cases += 1
     torch.cuda.synchronize()
     print(f"phase 3: expand kernel == plain version on {n_cases} cases (n in 1e6, 1e6+3, 1e5, 8193, 1000, 257, 2, 1; "
-          "d in 1, 3; random, degenerate, zero-run, uniform and sub-2^-60 probabilities; u random, "
+          "d in 1, 2, 3; random, degenerate, zero-run, uniform and sub-2^-60 probabilities; u random, "
           "0, 2^-24, 0.5, 1-2^-24, 1); tolerance: bit for bit (torch.equal), since indices are integers "
           "and the gather copies")
     return worst
@@ -396,6 +445,9 @@ def main(argv) -> int:
     # -- 3. kernels against their plain versions ----------------------------
     max_err = check_expand(torch, expand)
     lanes_err = check_expand_lanes(torch, expand)
+    if argv[:1] == ["--oracle"]:
+        oracle_suite(torch, pt, expand, card, profile="--profile" in argv)
+        return 0
 
     # -- 4. main path -------------------------------------------------------
     y = simulate_obs(N_OBS)
@@ -512,10 +564,14 @@ def main(argv) -> int:
     pmmh_launches, pmmh_err = batch_pmmh(torch, pt, expand, card, profile="--profile" in argv)
     fused_limit(torch, pt, expand, card)
 
-    k1_paths = {"phase 4": launches, "phase 7": flag_launches, "phase 8": ffbsi_launches}
+    # -- 12. the linear-Gaussian oracle suite ------------------------------------
+    oracle_k1, oracle_lanes, oracle_err, oracle_lane_err = oracle_suite(torch, pt, expand, card,
+                                                                        profile="--profile" in argv)
+
+    k1_paths = {"phase 4": launches, "phase 7": flag_launches, "phase 8": ffbsi_launches, "phase 12": oracle_k1}
     lane_paths = {"phase 5": lanes["launches"], "phase 6": smc2_launches, "phase 8": lane_launches,
                   "phase 9 NESS": ness_launches, "phase 9 hybrids": hybrid_launches, "phase 10": nb_launches,
-                  "phase 11": pmmh_launches}
+                  "phase 11": pmmh_launches, "phase 12": oracle_lanes}
 
     kernels = [{
         "name": "expand",
@@ -524,7 +580,7 @@ def main(argv) -> int:
         "replaces": "pyfilter_tpu/ops/expand.py:110",
         "launches": sum(k1_paths.values()),
         "launches_by_path": k1_paths,
-        "max_abs_err": max(max_err, err, flag_err, ffbsi_err),
+        "max_abs_err": max(max_err, err, flag_err, ffbsi_err, oracle_err),
         "ms": k_ms,
         "plain_ms": p_ms,
         "bound_ms": bound_ms,
@@ -537,7 +593,7 @@ def main(argv) -> int:
         "replaces": "pyfilter_tpu/ops/expand.py:438, pyfilter_tpu/ops/expand.py:489",
         "launches": sum(lane_paths.values()),
         "launches_by_path": lane_paths,
-        "max_abs_err": max(lanes_err, lanes["err"], lane_run_err, ness_err, nb_err, pmmh_err),
+        "max_abs_err": max(lanes_err, lanes["err"], lane_run_err, ness_err, nb_err, pmmh_err, oracle_lane_err),
         "ms": lanes["ms"],
         "plain_ms": lanes["plain_ms"],
         "bound_ms": lanes["bound_ms"],
@@ -1511,6 +1567,361 @@ def fused_limit(torch, pt, expand, card) -> None:
           f"{expand.fused_expand.launches - before}; card {card}")
     if not (math.isfinite(ll) and filt.n_resamples == 1 and expand.fused_expand.launches == before):
         raise AssertionError("the N = 2^24 SISR did not take the resampler route")
+
+
+def oracle_filters(pt) -> dict:
+    """Phase 12's filters, by the JAX package's names (tests/test_filters.py
+    ``FILTERS``): factories ``(model, particles, **kwargs)`` of the port."""
+    props = pt.filters.particle.proposals
+    return {
+        "gpf": lambda m, n, **kw: pt.GPF(m, n, **kw),
+        "gpf-glinearized": lambda m, n, **kw: pt.GPF(m, n, proposal=props.GaussianLinearized(n_steps=5), **kw),
+        "gpf-glinearized2": lambda m, n, **kw: pt.GPF(
+            m, n, proposal=props.GaussianLinearized(n_steps=5, use_second_order=True), **kw),
+        "gpf-glinear": lambda m, n, **kw: pt.GPF(m, n, proposal=props.GaussianLinear(), **kw),
+        "sisr-bootstrap": lambda m, n, **kw: pt.SISR(m, n, proposal=props.Bootstrap(), **kw),
+        "apf-bootstrap": lambda m, n, **kw: pt.APF(m, n, proposal=props.Bootstrap(), **kw),
+        "sisr-nested": lambda m, n, **kw: pt.SISR(m, n, proposal=props.NestedProposal(50), **kw),
+        "apf-nested": lambda m, n, **kw: pt.APF(m, n, proposal=props.NestedProposal(50), **kw),
+        "sisr-linearized": lambda m, n, **kw: pt.SISR(m, n, proposal=props.Linearized(n_steps=5), **kw),
+        "sisr-linearized2": lambda m, n, **kw: pt.SISR(
+            m, n, proposal=props.Linearized(n_steps=5, use_second_order=True), **kw),
+        "apf-linearized": lambda m, n, **kw: pt.APF(m, n, proposal=props.Linearized(n_steps=5), **kw),
+        "sisr-linear": lambda m, n, **kw: pt.SISR(m, n, proposal=props.LinearGaussianObservations(), **kw),
+        "apf-linear": lambda m, n, **kw: pt.APF(m, n, proposal=props.LinearGaussianObservations(), **kw),
+    }
+
+
+def oracle_model(pt, name: str, device):
+    """Phase 12's models on ``device``: ``"ar"`` (AR(1) observed with noise),
+    ``"rw2d"`` (a 2-D linear random walk) and ``"joint2d"`` (the same walk as
+    a joint process of two scalar random walks)."""
+    import numpy as np
+
+    f32 = np.float32
+    if name == "ar":
+        p = ORACLE_AR
+        hidden = pt.convert.ar_from_numpy(f32(p["alpha"]), f32(p["beta"]), f32(p["sigma"]), device=device)
+        return pt.convert.linear_ssm_from_numpy(hidden, f32(p["a"]), f32(0.0), f32(p["s"]))
+    sigma, s, eye = np.asarray(ORACLE_SIGMA2, f32), np.full(2, ORACLE_S2, f32), np.eye(2, dtype=f32)
+    if name == "rw2d":
+        return pt.convert.rw2d_from_numpy(eye, sigma, s, device=device)
+    return pt.convert.joint_random_walks_from_numpy(sigma, eye, s, device=device)
+
+
+def oracle_system(name: str) -> tuple:
+    """The float64 linear-Gaussian system ``x' = F x + b + w, w ~ N(0, Q)``,
+    ``y = H x + v, v ~ N(0, R)``, ``x_0 ~ N(m0, P0)`` of a phase-12 model."""
+    import numpy as np
+
+    if name == "ar":
+        p = ORACLE_AR
+        return (np.array([[p["beta"]]]), np.array([p["alpha"]]), np.array([[p["sigma"] ** 2]]),
+                np.array([[p["a"]]]), np.array([[p["s"] ** 2]]), np.array([p["alpha"]]), np.array([[p["sigma"] ** 2]]))
+    q = np.diag(np.square(ORACLE_SIGMA2))
+    return np.eye(2), np.zeros(2), q, np.eye(2), ORACLE_S2**2 * np.eye(2), np.zeros(2), q
+
+
+def oracle_data(name: str, missing: int = 0, seed: int = ORACLE_SEED):
+    """A phase-12 model's path ``(x, y)``, each ``(T, d)``, simulated in
+    float64 from numpy ``seed`` (the draws of the JAX package's
+    ``tests/kalman.py``), with ``missing`` rows of ``y`` set to NaN."""
+    import numpy as np
+
+    f, b, q, h, r, m0, p0 = oracle_system(name)
+    rng = np.random.default_rng(seed)
+    x, y = np.zeros((ORACLE_T, len(b))), np.zeros((ORACLE_T, h.shape[0]))
+    xc = rng.multivariate_normal(m0, p0)
+    for t in range(ORACLE_T):
+        xc = f @ xc + b + rng.multivariate_normal(np.zeros(len(b)), q)
+        x[t] = xc
+        y[t] = h @ xc + rng.multivariate_normal(np.zeros(h.shape[0]), r)
+    if missing:
+        y[rng.integers(1, ORACLE_T, size=missing)] = np.nan
+    return x, y
+
+
+def kalman_linear(y, system) -> tuple:
+    """The float64 Kalman filter of ``system`` (:func:`oracle_system`) over
+    ``y`` ``(T, d)``, an all-NaN row predicting only: the filter means
+    ``(T, d)`` and the log-likelihood."""
+    import numpy as np
+
+    f, b, q, h, r, m, p = system
+    means, ll = np.zeros((len(y), len(b))), 0.0
+    for t, yt in enumerate(np.asarray(y, np.float64)):
+        m, p = f @ m + b, f @ p @ f.T + q
+        if not np.isnan(yt).all():
+            s = h @ p @ h.T + r
+            s_inv, innov = np.linalg.inv(s), yt - h @ m
+            gain = p @ h.T @ s_inv
+            m, p = m + gain @ innov, p - gain @ h @ p
+            ll += -0.5 * (innov @ s_inv @ innov + np.linalg.slogdet(s)[1] + len(yt) * math.log(2 * math.pi))
+        means[t] = m
+    return means, ll
+
+
+def oracle_gate(means, ll, kalman_means, kalman_ll) -> tuple:
+    """The reference's two readings of a run: the median relative deviation
+    of the filter means ``(T, [*batch], [d])`` from the Kalman means ``(T,
+    d)``, and the largest relative error of the log-likelihood(s)."""
+    import numpy as np
+
+    means = np.asarray(means, np.float64)
+    # a scalar state's means are (T,) on one lane, (T, L) on lanes
+    km = kalman_means if means.ndim == kalman_means.ndim else kalman_means[:, 0]
+    dev = float(np.median(np.abs((km - means) / km)))
+    return dev, float(np.max(np.abs((np.asarray(ll, np.float64) - kalman_ll) / kalman_ll)))
+
+
+def oracle_obs(name: str, y):
+    """A model's observations as its filter takes them (a scalar per step for ``"ar"``)."""
+    return y[:, 0] if name == "ar" else y
+
+
+def oracle_cpu_ll(filter_name: str, model_name: str, seed: int) -> float:
+    """One phase-12 run on the CPU (a worker process): its log-likelihood."""
+    import torch
+
+    torch.set_num_threads(1)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import pyfilter_tpu_torch as pt
+
+    _, y = oracle_data(model_name)
+    filt = oracle_filters(pt)[filter_name](oracle_model(pt, model_name, "cpu"), ORACLE_N, device="cpu")
+    return float(filt.batch_filter(torch.Generator().manual_seed(seed), oracle_obs(model_name, y)).log_likelihood)
+
+
+def count_syncs(torch, fn) -> dict:
+    """The host syncs ``fn()`` makes on the card, by the line of the port
+    (or of torch) that asked for each: ``torch.cuda.set_sync_debug_mode``
+    warns on every synchronizing call."""
+    import collections
+    import warnings
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode(1)
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    def where(w):
+        path = w.filename
+        path = os.path.relpath(path, root) if path.startswith(root) else path.split("site-packages/")[-1]
+        return f"{path}:{w.lineno}"
+
+    return dict(collections.Counter(where(w) for w in seen if "synchroniz" in str(w.message)).most_common())
+
+
+def oracle_suite(torch, pt, expand, card, profile: bool = False) -> tuple:
+    """Phase 12: the linear-Gaussian oracle suite on the card (module
+    docstring). Returns the expand kernel's and the lane kernel's launches
+    over its runs and their largest differences from the plain versions on
+    the suite's clouds."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    filters = oracle_filters(pt)
+    data = {name: oracle_data(name) for name in ("ar", "rw2d", "joint2d")}
+    kalman = {name: kalman_linear(y, oracle_system(name)) for name, (_, y) in data.items()}
+    counts = {"k1": 0, "lanes": 0}
+    card_lls = {key: [] for key in ORACLE_STAT}
+    last = {}
+    workers = max(1, min(7, (os.cpu_count() or 2) - 1))
+
+    def run(filter_name, model_name, seed, batch=(), missing=0):
+        filt = filters[filter_name](oracle_model(pt, model_name, "cuda"), ORACLE_N, batch_shape=batch)
+        y = oracle_data(model_name, missing)[1] if missing else data[model_name][1]
+        km, kll = kalman_linear(y, oracle_system(model_name)) if missing else kalman[model_name]
+        before = (expand.fused_expand.launches, expand.fused_expand_lanes.launches)
+        pt.APF.corrections = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = filt.batch_filter(torch.Generator(device="cuda").manual_seed(seed), oracle_obs(model_name, y))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1 = expand.fused_expand.launches - before[0]
+        lanes = expand.fused_expand_lanes.launches - before[1]
+        fires = pt.APF.corrections if filter_name.startswith("apf") else filt.n_resamples
+        expected = (0, 0) if filter_name.startswith("gpf") else ((0, fires) if batch else (fires, 0))
+        if (k1, lanes) != expected:
+            raise AssertionError(f"phase 12 {filter_name}/{model_name}: expand launches {k1}, lane launches {lanes}, "
+                                 f"resample fires {fires}")
+        counts["k1"] += k1
+        counts["lanes"] += lanes
+        dev, ll_err = oracle_gate(res.filter_means.cpu().numpy(), res.log_likelihood.cpu().numpy(), km, kll)
+        label = f"{filter_name}/{model_name}" + (f" lanes={batch[0]} missing={missing}" if batch else "")
+        print(f"  {label}: {wall:.4f} s ({wall / ORACLE_T * 1e3:.3f} ms a step), log-likelihood "
+              f"{res.log_likelihood.cpu().numpy().round(4).tolist()} (Kalman {kll:.4f}); mean deviation {dev:.5f}, "
+              f"log-likelihood error {ll_err:.5f}; expand launches {k1}, lane launches {lanes}")
+        if not (dev < ORACLE_TOL and ll_err < ORACLE_TOL):
+            raise AssertionError(f"phase 12 {label} fails the oracle gate: deviation {dev}, log-likelihood error "
+                                 f"{ll_err} (limit {ORACLE_TOL})")
+        return filt, res, wall
+
+    print(f"phase 12: the linear-Gaussian oracle suite, N={ORACLE_N}, T={ORACLE_T}, data seed {ORACLE_SEED}, against "
+          f"float64 Kalman filters (gates {ORACLE_TOL}); {ORACLE_STAT_CPU} CPU runs of each of {len(ORACLE_STAT)} "
+          f"configurations in {workers} worker processes meanwhile; card {card}")
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_jobs = {key: [pool.submit(oracle_cpu_ll, *key, seed) for seed in range(100, 100 + ORACLE_STAT_CPU)]
+                    for key in ORACLE_STAT}
+        # warm-up: every filter on a scalar and a 2-D model for 3 steps (the
+        # first torch.func and linear-algebra calls set themselves up)
+        for name in ("ar", "rw2d"):
+            y = oracle_obs(name, data[name][1][:3])
+            for make in filters.values():
+                make(oracle_model(pt, name, "cuda"), ORACLE_N).batch_filter(torch.Generator(device="cuda"), y)
+        runs = ([(f, "ar") for f in sorted(filters)] + [(f, m) for m in ("rw2d", "joint2d") for f in ORACLE_2D])
+        host = {}
+        for filter_name, model_name in runs:
+            reps = ORACLE_STAT_CARD if (filter_name, model_name) in ORACLE_STAT else 1
+            for rep in range(reps):
+                filt, res, wall = run(filter_name, model_name, rep)
+                if (filter_name, model_name) in card_lls:
+                    card_lls[filter_name, model_name].append(float(res.log_likelihood))
+                if "linearized" in filter_name or filter_name.startswith("gpf"):
+                    host.setdefault(f"{filter_name}/{model_name}", []).append(wall / ORACLE_T * 1e3)
+            last[filter_name, model_name] = (filt, res)
+        for filter_name in ORACLE_BATCHED:
+            for missing in (0, ORACLE_MISSING):
+                last[filter_name, "lanes", missing] = run(filter_name, "ar", 0, (ORACLE_LANES,), missing)[:2]
+
+        # GPF and the linearized filters: wall per step (host-bound), best of their runs
+        print("  ms a step (best run) of the linearized and GPF filters: "
+              + ", ".join(f"{k} {min(v):.3f}" for k, v in host.items()))
+        for filter_name, model_name in ORACLE_SYNC:
+            filt = filters[filter_name](oracle_model(pt, model_name, "cuda"), ORACLE_N)
+            y = oracle_obs(model_name, data[model_name][1])[:ORACLE_SYNC_T]
+            syncs = count_syncs(torch, lambda: filt.batch_filter(torch.Generator(device="cuda").manual_seed(7), y))
+            per_step = {k: v / ORACLE_SYNC_T for k, v in syncs.items()}
+            print(f"  host syncs a step, {filter_name}/{model_name} ({ORACLE_SYNC_T} steps): "
+                  f"{sum(per_step.values()):.2f}, by source {per_step}")
+
+        hessian_cost(torch, pt, card)
+
+        errs = []
+        filt, res = last["sisr-linearized2", "rw2d"]
+        state = res.latest_state
+        errs.append(check_on_cloud(torch, expand, pt.normalize(state.log_weights), state.x.value.T,
+                                   f"phase 12's sisr-linearized2/rw2d cloud (n={ORACLE_N}, d=2)"))
+        filt, res = last["apf-nested", "ar"]
+        state = res.latest_state
+        errs.append(check_on_cloud(torch, expand, pt.normalize(state.log_weights), state.x.value.reshape(1, -1),
+                                   f"phase 12's apf-nested/ar cloud (n={ORACLE_N}, d=1)"))
+        filt, res = last["sisr-bootstrap", "lanes", 0]
+        state = res.latest_state
+        lane_err = check_on_cloud(torch, expand, pt.normalize(state.log_weights), state.x.value[None],
+                                  f"phase 12's batched sisr-bootstrap/ar cloud (n={ORACLE_N}, L={ORACLE_LANES})")
+
+        local_launches = local_linearization(torch, pt, expand, card)
+        counts["k1"] += local_launches
+
+        for key, jobs in cpu_jobs.items():
+            cpu_ll, card_ll = np.asarray([j.result() for j in jobs]), np.asarray(card_lls[key])
+            gap = abs(card_ll.mean() - cpu_ll.mean())
+            limit = 4 * math.sqrt(card_ll.var(ddof=1) / len(card_ll) + cpu_ll.var(ddof=1) / len(cpu_ll))
+            print(f"  {key[0]}/{key[1]}: card mean log-likelihood {card_ll.mean():.5f} (sd {card_ll.std(ddof=1):.5f}, "
+                  f"{len(card_ll)} runs), CPU {cpu_ll.mean():.5f} (sd {cpu_ll.std(ddof=1):.5f}, {len(cpu_ll)} runs); "
+                  f"gap {gap:.5f} (limit {limit:.5f})")
+            if not gap < limit:
+                raise AssertionError(f"phase 12 {key}: card and CPU log-likelihoods differ by {gap} (> {limit})")
+
+    if profile:
+        for filter_name, model_name in ORACLE_SYNC:
+            filt = filters[filter_name](oracle_model(pt, model_name, "cuda"), ORACLE_N)
+            y = oracle_obs(model_name, data[model_name][1])[:ORACLE_SYNC_T]
+            ops = profile_run(torch, f"phase 12, {filter_name}/{model_name} over {ORACLE_SYNC_T} steps",
+                              lambda: filt.batch_filter(torch.Generator(device="cuda").manual_seed(8), y))
+            print(f"  device operations per step {ops / ORACLE_SYNC_T:.2f}")
+    if counts["k1"] == 0 or counts["lanes"] == 0:
+        raise AssertionError(f"phase 12 launched the expand kernel {counts['k1']} times, the lane kernel "
+                             f"{counts['lanes']} times")
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s; expand launches {counts['k1']}, lane launches "
+          f"{counts['lanes']}; GPF runs launched neither; card {card}")
+    return counts["k1"], counts["lanes"], max(errs), lane_err
+
+
+def hessian_cost(torch, pt, card, reps: int = 20) -> None:
+    """Host milliseconds of one damped-Newton Hessian at phase 12's size on
+    the 2-D walk: the port's columns (``torch.func.jvp`` of the gradient,
+    forward over reverse) against rows from ``torch.func.vjp`` (reverse over
+    reverse), which give the same symmetric matrix; and of one gradient."""
+    from pyfilter_tpu_torch.filters.particle.proposals import utils as putils
+
+    model = oracle_model(pt, "rw2d", "cuda")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = pt.timeseries.TimeseriesState(3.0, torch.randn(ORACLE_N, 2, generator=g, device="cuda") * 0.1, 1)
+    grad_fn = torch.func.grad(putils._joint_log_prob_fn(model, model.hidden.build_density(x),
+                                                       x, torch.tensor([0.1, -0.2], device="cuda")))
+
+    def rows():
+        pull = torch.func.vjp(grad_fn, x.value)[1]
+        return torch.stack([pull(t)[0] for t in putils._unit_tangents(x.value, 1)], dim=-2)
+
+    def host_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    def cols():
+        return putils._per_particle_hessian(grad_fn, x.value, 1)
+
+    gap = float((cols() - rows()).abs().max() / cols().abs().max())
+    print(f"  one Hessian (N={ORACLE_N}, d=2): jvp columns {host_ms(cols):.3f} ms, vjp rows {host_ms(rows):.3f} ms, "
+          f"gradient {host_ms(lambda: grad_fn(x.value)):.3f} ms (host, {reps} reps); relative gap {gap:.2e}; "
+          f"card {card}")
+
+
+def local_linearization(torch, pt, expand, card) -> int:
+    """Phase 12's LocalLinearization runs: SISR and the APF at LOCAL_N
+    particles, with the derivative given and from ``torch.func.jvp``, each
+    within 0.1 (relative) of a LOCAL_ORACLE_N-particle bootstrap SISR's
+    log-likelihood on the nonlinear benchmark model. Returns the expand
+    kernel's launches."""
+    import numpy as np
+
+    f32 = np.float32
+    props = pt.filters.particle.proposals
+    cpu_model = pt.convert.ukf_benchmark_from_numpy(f32(LOCAL_SIGMA), f32(LOCAL_S), device="cpu")
+    _, y = cpu_model.sample_states(torch.Generator().manual_seed(LOCAL_SEED), LOCAL_T).get_paths()
+    y = y.numpy()
+    model = pt.convert.ukf_benchmark_from_numpy(f32(LOCAL_SIGMA), f32(LOCAL_S))
+    t0 = time.perf_counter()
+    oracle = float(pt.SISR(model, LOCAL_ORACLE_N).batch_filter(torch.Generator(device="cuda").manual_seed(0), y)
+                   .log_likelihood)
+    print(f"  LocalLinearization on the nonlinear benchmark model, T={LOCAL_T}: bootstrap SISR N={LOCAL_ORACLE_N} "
+          f"log-likelihood {oracle:.4f} ({time.perf_counter() - t0:.4f} s)")
+    launches = 0
+    for derivative in (pt.convert.ukf_benchmark_mean_derivative, None):
+        proposal = props.LocalLinearization(f=pt.convert.ukf_benchmark_mean, linearized_f=derivative)
+        for cls in (pt.SISR, pt.APF):
+            filt = cls(model, LOCAL_N, proposal=proposal)
+            before = expand.fused_expand.launches
+            pt.APF.corrections = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ll = float(filt.batch_filter(torch.Generator(device="cuda").manual_seed(1), y).log_likelihood)
+            wall = time.perf_counter() - t0
+            k1 = expand.fused_expand.launches - before
+            fires = pt.APF.corrections if cls is pt.APF else filt.n_resamples
+            err = abs(ll - oracle) / abs(oracle)
+            print(f"  {cls.__name__}(N={LOCAL_N}, LocalLinearization, derivative "
+                  f"{'given' if derivative else 'by jvp'}): {wall:.4f} s, log-likelihood {ll:.4f}, relative gap "
+                  f"{err:.5f} (limit {ORACLE_TOL}); expand launches {k1} for {fires} resample fires")
+            if not (err < ORACLE_TOL and k1 == fires):
+                raise AssertionError(f"phase 12 LocalLinearization {cls.__name__}: gap {err}, launches {k1}/{fires}")
+            launches += k1
+    return launches
 
 
 def apf_bias(torch, pt, seeds: int) -> int:

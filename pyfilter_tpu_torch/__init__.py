@@ -8,10 +8,13 @@ resample + gather runs in hand-written CUDA kernels for Hopper
 (``ops/csrc/expand.cu`` for one lane, ``ops/csrc/expand_lanes.cu`` for lane
 batches), built with ``nvcc`` at first use.
 
-Ported so far: SISR and the APF (single lane and lane batches) with the
-bootstrap proposal and the optimal proposal for linear-Gaussian
-observations; recorded histories with exact FFBS, rejection FFBSi and
-fixed-lag smoothing; SMC² over a lane-batched APF, with a quasi-random
+Ported so far: SISR, the APF (single lane and lane batches) and the GPF
+with the bootstrap proposal, the optimal proposal for linear-Gaussian
+observations, the linearized (gradient and damped-Newton mode finding),
+nested and Gaussian-approximate proposals and the local linearization;
+joint processes and the imputation of missing observation components;
+recorded histories with exact FFBS, rejection FFBSi and fixed-lag
+smoothing; SMC² over a lane-batched APF, with a quasi-random
 (Sobol) start and the adaptive distance stop; batch PMMH with random-walk
 and adaptive random-walk proposals; NESS, FixedWidthNESS and their SMC²
 hybrids with the KDE jitter kernels; the AR, random-walk,
@@ -21,7 +24,16 @@ linear, Verhulst, sine-diffusion and Lorenz-63 models.
 __version__ = "0.1.0"
 
 from . import convert, distributions, examples, filters, inference, ops, resampling, timeseries, utils
-from .filters import APF, SISR, FilterHistory, FilterResult, ParticleFilter
+from .filters import APF, GPF, SISR, FilterHistory, FilterResult, ParticleFilter
+from .filters.particle.proposals import (
+    GaussianLinear,
+    GaussianLinearized,
+    GaussianProposal,
+    Linearized,
+    LocalLinearization,
+    NestedProposal,
+)
+from .timeseries import joint_process
 from .utils import get_ess, log_likelihood, normalize
 
 __all__ = [
@@ -36,6 +48,14 @@ __all__ = [
     "utils",
     "SISR",
     "APF",
+    "GPF",
+    "Linearized",
+    "NestedProposal",
+    "GaussianProposal",
+    "GaussianLinearized",
+    "GaussianLinear",
+    "LocalLinearization",
+    "joint_process",
     "ParticleFilter",
     "FilterResult",
     "FilterHistory",

@@ -6,18 +6,31 @@ the port's objects from them — so both packages can start from one
 particle cloud (one lane or a lane batch), one set of model parameters
 (scalars or one per lane), one context's parameter values, and one recorded
 filter history (which the port's smoothers then run on). Only numpy arrays,
-numpy scalars and Python numbers are accepted.
+numpy scalars and Python numbers are accepted. It also builds the
+linear-Gaussian suite's 2-D models and the nonlinear benchmark model from
+their numpy parameters, so that both packages filter the same model.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from . import examples
+from .distributions import Normal
 from .filters.result import FilterHistory
 from .filters.state import ParticleFilterCorrection
-from .timeseries import LinearStateSpaceModel, TimeseriesState, models
+from .timeseries import (
+    AffineProcess,
+    LinearModel,
+    LinearStateSpaceModel,
+    StateSpaceModel,
+    TimeseriesState,
+    joint_process,
+    models,
+)
 from .utils import resolve_device
 
 _NUMERIC = (np.ndarray, np.generic, int, float)
@@ -112,6 +125,63 @@ def linear_ssm_from_numpy(hidden, a, b, s, event_shape=(), observe_every_step: i
     process's device."""
     params = tuple(_tensor(n, v, torch.float32, hidden.device) for n, v in (("a", a), ("b", b), ("s", s)))
     return LinearStateSpaceModel(hidden, params, event_shape=event_shape, observe_every_step=observe_every_step)
+
+
+def rw2d_from_numpy(a, sigma, s, device=None) -> LinearStateSpaceModel:
+    """The 2-D linear random walk of the linear-Gaussian suite: ``x' = a x +
+    sigma * eps`` with an ``Independent`` standard-normal increment, initial
+    ``N(0, sigma)`` per component, observed as ``y = a x + s v``; ``a`` is
+    ``(d, d)``, ``sigma`` and ``s`` are ``(d,)``."""
+    device = resolve_device(device)
+    a = _tensor("a", a, torch.float32, device)
+    sigma = _tensor("sigma", sigma, torch.float32, device)
+    d = sigma.shape[-1]
+    zero, one = torch.zeros((), device=device), torch.ones((), device=device)
+    rw = LinearModel(
+        (a, sigma),
+        Normal(zero, one).expand((d,)).to_event(1),
+        lambda a_, b_, s_: Normal(torch.zeros_like(s_), s_).expand((d,)).to_event(1),
+        event_ndim=1,
+    )
+    return LinearStateSpaceModel(rw, (a, _tensor("s", s, torch.float32, device)), event_shape=(d,))
+
+
+def joint_random_walks_from_numpy(sigmas, a, s, device=None) -> LinearStateSpaceModel:
+    """The suite's joint process: one scalar random walk per entry of
+    ``sigmas``, stacked by ``joint_process``, observed as ``y = a x + s v``."""
+    device = resolve_device(device)
+    walks = {f"proc_{i + 1}": models.RandomWalk(_tensor("sigma", v, torch.float32, device), device=device)
+             for i, v in enumerate(_check("sigmas", sigmas))}
+    params = (_tensor("a", a, torch.float32, device), _tensor("s", s, torch.float32, device))
+    return LinearStateSpaceModel(joint_process(**walks), params, event_shape=(len(walks),))
+
+
+def ukf_benchmark_mean(x, s):
+    """The observation mean ``x^2 / 20`` of the nonlinear benchmark model."""
+    return x.value**2.0 / 20.0
+
+
+def ukf_benchmark_mean_derivative(x, s):
+    """Its derivative ``x / 10``."""
+    return x.value / 10.0
+
+
+def _ukf_mean_scale(x, sigma):
+    v = x.value
+    return v / 2.0 + 25.0 * v / (1.0 + v**2.0) + 8.0 * math.cos(1.2 * x.time_index), sigma
+
+
+def ukf_benchmark_from_numpy(sigma, s, device=None) -> StateSpaceModel:
+    """The nonlinear benchmark model of the unscented-filter literature:
+    ``x' = x/2 + 25 x / (1 + x^2) + 8 cos(1.2 t) + sigma eps``, initial
+    ``N(0, sqrt 5)``, observed as ``y = x^2 / 20 + s v``
+    (:func:`ukf_benchmark_mean`); the time index is the host's float."""
+    device = resolve_device(device)
+    zero, one = torch.zeros((), device=device), torch.ones((), device=device)
+    hidden = AffineProcess(_ukf_mean_scale, (_tensor("sigma", sigma, torch.float32, device),), Normal(zero, one),
+                           lambda sigma_: Normal(torch.zeros_like(sigma_), math.sqrt(5.0) * torch.ones_like(sigma_)))
+    return StateSpaceModel(hidden, lambda x, s_: Normal(ukf_benchmark_mean(x, s_), s_),
+                           (_tensor("s", s, torch.float32, device),))
 
 
 def set_context_values(context, values: dict):

@@ -32,6 +32,12 @@ class Independent(Distribution):
     def support(self):
         return self.base_dist.support
 
+    def expand(self, batch_shape) -> "Independent":
+        """The base distribution broadcast over ``batch_shape`` followed by
+        the reinterpreted axes."""
+        lead = tuple(self.event_shape)[: self.reinterpreted_batch_ndims]
+        return Independent(self.base_dist.expand(tuple(batch_shape) + lead), self.reinterpreted_batch_ndims)
+
     def sample(self, generator, sample_shape=()):
         return self.base_dist.sample(generator, sample_shape)
 

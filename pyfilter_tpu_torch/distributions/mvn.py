@@ -1,7 +1,11 @@
 """Multivariate normal distribution and the Cholesky with a fallback.
 
 Counterpart of ``pyfilter_tpu/distributions/mvn.py``, parameterised by
-``(loc, scale_tril)`` (the form the SMC² proposal builds).
+``(loc, scale_tril)`` (the form the SMC² proposal builds), or built from a
+covariance or a precision matrix, each factored once at construction. As in
+the JAX package, a factor that fails is NaN rather than an error: the
+factorisations report failure in ``info`` (``cholesky_ex``), which is read on
+the device, never on the host.
 """
 
 from __future__ import annotations
@@ -28,10 +32,26 @@ def robust_cholesky(cov: torch.Tensor, jitter: float = 1e-9) -> torch.Tensor:
     return torch.where(bad[..., None, None], diag_fallback, chol)
 
 
+def _cholesky_or_nan(a: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of ``a``, NaN where ``a`` is not positive
+    definite (``jnp.linalg.cholesky``'s result there), with no host sync."""
+    chol, info = torch.linalg.cholesky_ex(a)
+    return torch.where((info != 0)[..., None, None], math.nan, chol)
+
+
 class MultivariateNormal(Distribution):
     arg_names = ("loc", "scale_tril")
 
-    def __init__(self, loc: torch.Tensor, scale_tril: torch.Tensor):
+    def __init__(self, loc: torch.Tensor, scale_tril: torch.Tensor | None = None,
+                 covariance_matrix: torch.Tensor | None = None, precision_matrix: torch.Tensor | None = None):
+        if sum(a is not None for a in (scale_tril, covariance_matrix, precision_matrix)) != 1:
+            raise ValueError("exactly one of scale_tril / covariance_matrix / precision_matrix")
+        if covariance_matrix is not None:
+            scale_tril = _cholesky_or_nan(covariance_matrix)
+        elif precision_matrix is not None:
+            prec_chol = _cholesky_or_nan(precision_matrix)
+            eye = torch.eye(prec_chol.shape[-1], dtype=prec_chol.dtype, device=prec_chol.device)
+            scale_tril = _cholesky_or_nan(torch.cholesky_solve(eye.expand(prec_chol.shape), prec_chol))
         self.loc = loc
         self.scale_tril = scale_tril
 
@@ -60,3 +80,12 @@ class MultivariateNormal(Distribution):
         maha = torch.sum(torch.square(z), dim=-1)
         log_det = torch.sum(torch.log(torch.diagonal(self.scale_tril, dim1=-2, dim2=-1)), dim=-1)
         return -0.5 * (maha + d * _LOG_2PI) - log_det
+
+    @property
+    def mean(self):
+        return self.loc.expand(self.batch_shape + self.event_shape)
+
+    @property
+    def variance(self):
+        var = torch.sum(torch.square(self.scale_tril), dim=-1)
+        return var.expand(self.batch_shape + self.event_shape)

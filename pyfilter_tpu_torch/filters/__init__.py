@@ -2,7 +2,7 @@
 
 from . import particle
 from .base import BaseFilter
-from .particle import APF, SISR, ParticleFilter
+from .particle import APF, GPF, SISR, ParticleFilter
 from .result import FilterHistory, FilterResult
 from .state import ParticleFilterCorrection, ParticleFilterPrediction
 
@@ -11,6 +11,7 @@ __all__ = [
     "ParticleFilter",
     "SISR",
     "APF",
+    "GPF",
     "FilterResult",
     "FilterHistory",
     "ParticleFilterCorrection",

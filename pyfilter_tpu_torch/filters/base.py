@@ -32,7 +32,9 @@ class BaseFilter:
     """Abstract filter over a :class:`~pyfilter_tpu_torch.timeseries.StateSpaceModel`
     (or a builder of one) on ``device`` (the card unless ``device="cpu"``).
     ``nan_strategy="skip"`` propagates without correcting on an all-NaN
-    observation. ``batch_shape`` lanes are independent filters whose model
+    observation; ``nan_strategy="impute"`` first fills the NaN components of
+    a partly or wholly missing observation with the weighted predicted
+    observation mean, then corrects. ``batch_shape`` lanes are independent filters whose model
     parameters carry the lane axes. ``record_states`` (``True`` or a bound
     ``k``) and ``record_intermediary`` record the history (module docstring)."""
 
@@ -45,8 +47,8 @@ class BaseFilter:
         batch_shape=(),
         device=None,
     ):
-        if nan_strategy != "skip":
-            raise NotImplementedError("only nan_strategy='skip' is ported")
+        if nan_strategy not in ("skip", "impute"):
+            raise ValueError(f"unknown nan_strategy '{nan_strategy}'")
         self.device = resolve_device(device)
         if callable(model) and not hasattr(model, "hidden"):
             self.model, self.model_builder = None, model
@@ -107,11 +109,29 @@ class BaseFilter:
         ``y`` is a host value (a float or a numpy array)."""
         y_host = np.asarray(y, dtype=np.float32)
         y_dev = torch.as_tensor(y_host, device=self.device)
-        return self._filter(generator, y_dev, bool(np.isnan(y_host).all()), state, first_step)
+        return self._filter(generator, y_dev, self._nan_row(np.isnan(y_host)), state, first_step)
 
-    def _filter(self, generator, y, all_nan: bool, state, first_step: bool, on_substep=None):
-        """:meth:`filter` on a device ``y``; ``on_substep(prediction)``, when
-        given, sees every sub-step's prediction (one propagation at a time)."""
+    def _nan_row(self, nan_mask: np.ndarray) -> str | None:
+        """What a row's NaN components ask of the step, decided on the host:
+        ``"skip"`` (all NaN, skipping), ``"impute"`` (some NaN, imputing) or
+        None (correct as it stands)."""
+        if self.nan_strategy == "impute":
+            return "impute" if nan_mask.any() else None
+        return "skip" if nan_mask.all() else None
+
+    def _impute(self, generator, y, prediction) -> torch.Tensor:
+        """``y`` with its NaN components filled by the weighted mean of the
+        observation density over the cloud propagated once."""
+        x_new = self.model.hidden.propagate(generator, prediction.get_timeseries_state())
+        obs_mean = self.model.build_density(x_new).mean  # (N, *batch, *event_y)
+        w = prediction.normalized_weights
+        w = w.reshape(tuple(w.shape) + (1,) * (obs_mean.dim() - w.dim()))
+        return torch.where(torch.isnan(y), torch.sum(w * obs_mean, dim=0), y)
+
+    def _filter(self, generator, y, nan_row: str | None, state, first_step: bool, on_substep=None):
+        """:meth:`filter` on a device ``y`` whose NaN handling ``nan_row``
+        (:meth:`_nan_row`) gives; ``on_substep(prediction)``, when given,
+        sees every sub-step's prediction (one propagation at a time)."""
         n_sub = 0 if first_step else self.model.observe_every_step - 1
         prediction = self.predict(generator, state)
         if n_sub and on_substep is None:
@@ -121,10 +141,12 @@ class BaseFilter:
             for _ in range(n_sub):
                 prediction = prediction._replace(x=self.model.hidden.propagate(generator, prediction.x))
                 on_substep(prediction)
-        if all_nan:
+        if nan_row == "skip":
             return prediction.create_state_from_prediction(
                 generator, self.model, compute_moments=getattr(self, "record_moments", True)
             )
+        if nan_row == "impute":
+            y = self._impute(generator, y, prediction)
         return self.correct(generator, y, prediction)
 
     # -- full pass ------------------------------------------------------------
@@ -132,14 +154,15 @@ class BaseFilter:
         """Filter a whole observation sequence ``y`` (time axis leading).
 
         ``generator``: a ``torch.Generator`` on the filter's device. ``y`` is
-        copied to the device once; its host copy decides the all-NaN skips."""
+        copied to the device once; its host copy decides the NaN handling of
+        each step."""
         if isinstance(y, torch.Tensor):
             y = y.detach().cpu().numpy()
         y_host = np.asarray(y, dtype=np.float32)
         n_steps = y_host.shape[0]
         if n_steps == 0:
             raise ValueError("empty observation sequence")
-        all_nan = np.isnan(y_host.reshape(n_steps, -1)).all(axis=1)
+        nan_mask = np.isnan(y_host.reshape(n_steps, -1))
         y_dev = torch.as_tensor(y_host, device=self.device)
 
         state = self.initialize(generator) if initial_state is None else initial_state
@@ -147,7 +170,7 @@ class BaseFilter:
         on_substep = recorder.record_substep if recorder is not None and recorder.intermediary else None
         lls, means, variances = [], [], []
         for t in range(n_steps):
-            state = self._filter(generator, y_dev[t], bool(all_nan[t]), state, first_step=t == 0,
+            state = self._filter(generator, y_dev[t], self._nan_row(nan_mask[t]), state, first_step=t == 0,
                                  on_substep=None if t == 0 else on_substep)
             if recorder is not None:
                 recorder.record(state)

@@ -1,9 +1,10 @@
-"""Particle filters (SISR and the APF), their proposals and smoothers."""
+"""Particle filters (SISR, the APF and the GPF), their proposals and smoothers."""
 
 from . import proposals, smoothing
 from .apf import APF
 from .base import ParticleFilter
+from .gpf import GPF
 from .sisr import SISR
 from .smoothing import ffbsi_smooth, transition_log_sup
 
-__all__ = ["ParticleFilter", "SISR", "APF", "proposals", "smoothing", "ffbsi_smooth", "transition_log_sup"]
+__all__ = ["ParticleFilter", "SISR", "APF", "GPF", "proposals", "smoothing", "ffbsi_smooth", "transition_log_sup"]

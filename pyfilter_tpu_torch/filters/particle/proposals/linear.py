@@ -7,6 +7,7 @@ process.
 
 from __future__ import annotations
 
+from ....timeseries import LinearStateSpaceModel
 from .base import Proposal
 from .utils import find_optimal_density, linear_marginal_density
 
@@ -14,7 +15,7 @@ from .utils import find_optimal_density, linear_marginal_density
 def _check_linear_model(model):
     if not hasattr(model.hidden, "mean_scale"):
         raise ValueError("LinearGaussianObservations requires an affine hidden process")
-    if len(model.parameters) != 3 or not hasattr(model, "event_shape"):
+    if len(model.parameters) != 3 or not isinstance(model, LinearStateSpaceModel):
         raise ValueError("LinearGaussianObservations requires a LinearStateSpaceModel with (a, b, s) parameters")
 
 

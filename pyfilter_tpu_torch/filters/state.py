@@ -11,6 +11,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..distributions import Distribution, MultivariateNormal, Normal
 from ..timeseries import TimeseriesState
 from ..utils import get_mean_and_variance, normalize
 
@@ -36,6 +37,22 @@ class ParticleFilterPrediction(NamedTuple):
         return ParticleFilterCorrection.from_weighted_particles(
             x_new, self.log_weights, ll, self.indices, compute_moments=compute_moments
         )
+
+    def get_predictive_density(self, model, generator=None, approximate: bool = False) -> Distribution:
+        """The hidden process's density one step ahead: exactly, the
+        transition density of every particle; approximately, a Gaussian fitted
+        to the weighted cloud propagated once from ``generator`` (``Normal``
+        for a scalar state, ``MultivariateNormal`` from the weighted
+        covariance for a vector state), with no particle axis."""
+        if not approximate:
+            return model.hidden.build_density(self.x)
+        x_new = model.hidden.propagate(generator, self.x)
+        event_ndim = model.hidden.event_ndim
+        mean, cov = get_mean_and_variance(x_new.value, self.normalized_weights, event_ndim=event_ndim,
+                                          covariance=True)
+        if event_ndim == 0:
+            return Normal(mean, torch.sqrt(cov))
+        return MultivariateNormal(mean, covariance_matrix=cov)
 
 
 class ParticleFilterCorrection(NamedTuple):
@@ -75,6 +92,18 @@ class ParticleFilterCorrection(NamedTuple):
 
     def normalized_weights(self) -> torch.Tensor:
         return normalize(self.log_weights)
+
+    def get_covariance(self) -> torch.Tensor:
+        """Weighted variance of a scalar cloud, covariance ``(*batch, d, d)``
+        of a vector one."""
+        ev = self.x.event_ndim
+        _, cov = get_mean_and_variance(self.x.value, self.normalized_weights(), event_ndim=ev, covariance=ev == 1)
+        return cov
+
+    def predict_path(self, generator, model, num_steps: int):
+        """``num_steps`` transitions and observations simulated onward from
+        the corrected cloud."""
+        return model.sample_states(generator, num_steps, x_0=self.x)
 
     # -- lane surgery (JAX filters/state.py:139-178) ---------------------------
     def resample(self, indices: torch.Tensor) -> "ParticleFilterCorrection":

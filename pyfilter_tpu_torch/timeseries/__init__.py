@@ -2,6 +2,7 @@
 
 from . import models
 from .affine import affine_transform
+from .joint import JointDistribution, JointProcess, joint_process
 from .process import AffineEulerMaruyama, AffineProcess, LinearModel, StructuralStochasticProcess
 from .ssm import LinearStateSpaceModel, StateSpaceModel
 from .state import StateSpacePath, TimeseriesState
@@ -16,5 +17,8 @@ __all__ = [
     "StateSpaceModel",
     "LinearStateSpaceModel",
     "affine_transform",
+    "JointDistribution",
+    "JointProcess",
+    "joint_process",
     "models",
 ]

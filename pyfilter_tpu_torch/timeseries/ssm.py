@@ -43,6 +43,17 @@ class StateSpaceModel:
         """Observation density p(y_t | x_t)."""
         return self.observation_builder(x, *self.parameters)
 
+    @property
+    def event_shape(self) -> tuple:
+        """The observation's event shape, read once from the density at a
+        zero hidden state."""
+        if getattr(self, "_event_shape", None) is None:
+            init = self.hidden.initial_distribution()
+            zero = torch.zeros(tuple(init.event_shape), device=self.device)
+            x = TimeseriesState(0.0, zero, self.hidden.event_ndim)
+            self._event_shape = tuple(self.build_density(x).event_shape)
+        return self._event_shape
+
     def initial_sample(self, generator, shape=()) -> TimeseriesState:
         return self.hidden.initial_sample(generator, shape)
 
@@ -85,5 +96,5 @@ class LinearStateSpaceModel(StateSpaceModel):
             parameters = (a, torch.zeros_like(s), s)
         elif len(parameters) != 3:
             raise ValueError("LinearStateSpaceModel takes (a, s) or (a, b, s)")
-        self.event_shape = tuple(event_shape)
-        super().__init__(hidden, _linear_observation(len(self.event_shape)), parameters, observe_every_step)
+        self._event_shape = tuple(event_shape)
+        super().__init__(hidden, _linear_observation(len(self._event_shape)), parameters, observe_every_step)

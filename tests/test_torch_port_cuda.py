@@ -44,7 +44,7 @@ def _edge_probs(n, name, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 2, 257, 8192, 8193, 1_000_003])
-@pytest.mark.parametrize("d", [1, 3])
+@pytest.mark.parametrize("d", [1, 2, 3])
 def test_expand_kernel_matches_plain_on_card(cuda, n, d):
     """Bit for bit against the plain version (counts prep included), on
     random, degenerate and zero-run weights with a random u and u == 1.0, and
@@ -296,3 +296,49 @@ def test_quasi_and_pmmh_entry_points_refuse_without_a_card(monkeypatch):
             make()
     alg = inf.PMMH(cpu_filter, 2, context=inf.make_context(use_quasi=True, device="cpu"), device="cpu")
     assert alg.device.type == "cpu"
+
+
+def _rw2d_model(device):
+    import numpy as np
+
+    return pt.convert.rw2d_from_numpy(np.eye(2, dtype=np.float32), np.array([0.05, 0.1], np.float32),
+                                      np.full(2, 0.15, np.float32), device=device)
+
+
+@pytest.mark.cuda
+def test_oracle_filters_on_card_launch_as_they_resample(cuda):
+    """The damped-Newton SISR on the 2-D walk resamples through the expand
+    kernel at d = 2, once per fire; the GPF (damped-Newton
+    GaussianLinearized) launches no kernel; both finite, on the card."""
+    props = pt.filters.particle.proposals
+    model = _rw2d_model("cuda")
+    y = torch.cumsum(torch.randn(20, 2, generator=torch.Generator().manual_seed(0)), 0) * 0.1
+    before = (expand.fused_expand.launches, expand.fused_expand_lanes.launches)
+    sisr = pt.SISR(model, 1500, proposal=props.Linearized(n_steps=5, use_second_order=True))
+    res = sisr.batch_filter(torch.Generator(device=cuda).manual_seed(0), y)
+    assert math.isfinite(float(res.log_likelihood))
+    assert expand.fused_expand.launches - before[0] == sisr.n_resamples > 0
+    before = (expand.fused_expand.launches, expand.fused_expand_lanes.launches)
+    gpf = pt.GPF(model, 1500, proposal=props.GaussianLinearized(n_steps=5, use_second_order=True))
+    res = gpf.batch_filter(torch.Generator(device=cuda).manual_seed(1), y)
+    assert math.isfinite(float(res.log_likelihood))
+    assert (expand.fused_expand.launches, expand.fused_expand_lanes.launches) == before
+
+
+def test_oracle_entry_points_refuse_without_a_card(monkeypatch):
+    """Without a card, the suite's models and the GPF raise unless given
+    ``device="cpu"``."""
+    import numpy as np
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    f32 = np.float32
+    for make in (
+        lambda: _rw2d_model(None),
+        lambda: pt.convert.joint_random_walks_from_numpy(np.array([0.05, 0.1], f32), np.eye(2, dtype=f32),
+                                                         np.full(2, 0.15, f32)),
+        lambda: pt.convert.ukf_benchmark_from_numpy(f32(3.0), f32(1.0)),
+        lambda: pt.GPF(_rw2d_model("cpu"), 10),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert pt.GPF(_rw2d_model("cpu"), 10, device="cpu").device.type == "cpu"

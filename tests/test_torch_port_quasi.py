@@ -2,8 +2,9 @@
 distributions' ``cdf``, ``icdf``, ``mean`` and ``variance``, the inverse
 sampling of the stochastic-volatility priors, the Sobol engine's
 post-processing and ``rewind``, the quasi context's start and its clones,
-the quasi-random MVN, one SMC² rejuvenation with the distance stop, and the
-posterior plot.
+the quasi-random MVN, one SMC² rejuvenation with the distance stop, one
+whole notebook-style SMC² fit replayed draw for draw, and the posterior
+plot.
 
 The engines scramble differently (scipy's Sobol in the JAX package, torch's
 ``SobolEngine`` in the port), so the port's engine is fed the JAX engine's
@@ -11,7 +12,10 @@ raw points and shift through its seam (``EngineContainer._engine``, whose
 ``draw``/``reset``/``fast_forward`` the port calls, and ``_rotation``). The
 rejuvenation replays every other draw of the JAX run, recomputed from its
 keys: the lane resample's uniform, each re-filter's normals and uniforms,
-the acceptance uniforms (through ``batch.mcmc.utils._uniform``).
+the acceptance uniforms (through ``batch.mcmc.utils._uniform``). The
+whole fit instead runs the JAX package eagerly (``jax.disable_jit()``) with
+``jax.random.normal`` / ``uniform`` drawing from a host tape, whose draws
+the port then takes in the same order.
 
 Tolerances: the engines' points bit for bit (the same float64 operations,
 one rounding to float32); rel 1e-5 with abs 1e-6 on the distributions, the
@@ -375,6 +379,141 @@ def test_smc2_rejuvenation_with_distance_stop_replays_jax(monkeypatch):
         _close(tupd.context.stack_parameters(constrained), jupd.context.stack_parameters(constrained))
     _close(tupd.state.filter_state.log_likelihood, jupd.state.filter_state.log_likelihood)
     assert not tupd.state.w.any() and not np.asarray(jupd.state.w).any()
+
+
+# -- 4. a whole notebook fit, every draw fed from the host ------------------------------------------
+FIT_K, FIT_N, FIT_T, FIT_STEPS, FIT_DISTANCE = 64, 32, 32, 2, 0.025
+
+
+class _Tape:
+    """Standard normals and uniforms drawn on the host with numpy, recorded
+    in the order the JAX fit asks for them (its ``jax.random.normal`` /
+    ``uniform``, patched), then handed to the port's seams in that order:
+    one stream each, every draw checked by shape."""
+
+    def __init__(self, seed):
+        self.rng = np.random.default_rng(seed)
+        self.normals, self.uniforms = [], []
+
+    def jax_normal(self, key, shape=(), dtype=jnp.float32):
+        self.normals.append(self.rng.standard_normal(tuple(shape)).astype(np.float32))
+        return jnp.asarray(self.normals[-1], dtype)
+
+    def jax_uniform(self, key, shape=(), dtype=jnp.float32, minval=0.0, maxval=1.0):
+        self.uniforms.append(self.rng.uniform(size=tuple(shape)).astype(np.float32))
+        return jnp.asarray(self.uniforms[-1], dtype)
+
+    def replay(self, monkeypatch, n_skip_normals: int):
+        """Patch the port's draw seams to take the recorded draws, the
+        normals from the initial cloud on (the prior draws before it are
+        overwritten by the Sobol start in both packages)."""
+        normals, uniforms = iter(self.normals[n_skip_normals:]), iter(self.uniforms)
+        plain_sample, plain_init = tdist.Normal.sample, pt.APF.initialize
+        live = []
+
+        def sample(self, generator, sample_shape=()):
+            if not live:
+                return plain_sample(self, generator, sample_shape)
+            z = next(normals)
+            assert z.shape == tuple(sample_shape) + tuple(self.batch_shape)
+            return self.loc + self.scale * _t(z)
+
+        def uniform(shape):
+            u = next(uniforms)
+            assert u.shape == tuple(shape)
+            return _t(u)
+
+        def initialize(self, generator):
+            live.append(True)
+            return plain_init(self, generator)
+
+        monkeypatch.setattr(tdist.Normal, "sample", sample)
+        monkeypatch.setattr(pt.APF, "initialize", initialize)
+        monkeypatch.setattr(pt.APF, "resample_uniform", lambda self, generator: uniform(self.batch_shape))
+        monkeypatch.setattr(tmcmc_utils, "_uniform", lambda generator, like: uniform(like.shape))
+        lane_resampler = lambda generator, w, normalized=False: tresampling.systematic(  # noqa: E731
+            None, w, normalized=normalized, u=uniform(()))
+        return normals, uniforms, lane_resampler
+
+
+def _recording_step(alg, record, read):
+    """Wrap ``alg.step`` to append ``read(state)`` after every observation."""
+    step = alg.step
+
+    def recorded(y, state):
+        state = step(y, state)
+        record.append(read(state))
+        return state
+
+    alg.step = recorded
+
+
+def test_whole_notebook_fit_replays_jax(monkeypatch):
+    """One whole notebook-style SMC² fit (Sobol start, SymmetricMH on the
+    quasi context, ``num_steps=2``, the distance stop) of SMC2(APF(32), 64)
+    over 32 observations of the stochastic-volatility model, in both
+    packages: the JAX package on its per-step path (``chunk_size=1``, eager
+    under ``jax.disable_jit()``) drawing every normal and uniform from a host
+    tape, the port fed the same draws and the same Sobol points. After every
+    observation: the same number of rejuvenations, lane log-weights within
+    rel 1e-5 / abs 5e-5 and parameters within rel 1e-5 / abs 5e-6 (a
+    parameter near 0); the fit ends with the same transitions and distance
+    stops, every draw taken."""
+    import chip_smoke
+
+    seed = 21
+    y = chip_smoke.simulate_obs(FIT_T)
+    tape = _Tape(seed)
+    jctx = JQuasiContext(key=jax.random.PRNGKey(seed), seed=seed)
+    jalg = jinf.SMC2(pf.APF(jexamples.stochastic_volatility_builder, FIT_N), FIT_K, num_steps=FIT_STEPS,
+                     distance_threshold=FIT_DISTANCE, context=jctx, key=jax.random.PRNGKey(seed + 1))
+    counts = {"rejuvenations": 0, "transitions": 0}
+    update, run_pmmh = jalg.kernel.update, jmh.run_pmmh
+
+    def counting_update(*args, **kwargs):
+        counts["rejuvenations"] += 1
+        return update(*args, **kwargs)
+
+    monkeypatch.setattr(jalg.kernel, "update", counting_update)
+    monkeypatch.setattr(jmh, "run_pmmh", lambda *a, **kw: counts.__setitem__(
+        "transitions", counts["transitions"] + 1) or run_pmmh(*a, **kw))
+    jrec = []
+    _recording_step(jalg, jrec, lambda s: (np.asarray(s.w), np.asarray(jctx.stack_parameters(True)),
+                                           counts["rejuvenations"]))
+    n_prior_draws = []
+    initialize = jalg._filter.__class__.initialize
+
+    def marked_initialize(self, key):
+        n_prior_draws.append(len(tape.normals))
+        return initialize(self, key)
+
+    with monkeypatch.context() as m:
+        m.setattr(jax.random, "normal", tape.jax_normal)
+        m.setattr(jax.random, "uniform", tape.jax_uniform)
+        m.setattr(pf.APF, "initialize", marked_initialize)
+        with jax.disable_jit():
+            jalg.fit(jnp.asarray(y), logging=jinf.logging.DefaultLogger(), chunk_size=1)
+    assert counts["rejuvenations"] >= 2, "the fit must rejuvenate more than once"
+
+    _feed_context_engines(monkeypatch, seed)
+    normals, uniforms, lane_resampler = tape.replay(monkeypatch, n_prior_draws[0])
+    tctx = tinf.make_context(use_quasi=True, generator=torch.Generator().manual_seed(seed), device="cpu")
+    talg = tinf.SMC2(pt.APF(pt.examples.stochastic_volatility_builder, FIT_N, device="cpu"), FIT_K,
+                     num_steps=FIT_STEPS, distance_threshold=FIT_DISTANCE, context=tctx,
+                     generator=torch.Generator().manual_seed(seed + 1), device="cpu")
+    talg.kernel._resampler = lane_resampler
+    trec = []
+    _recording_step(talg, trec, lambda s: (s.w.numpy().copy(), tctx.stack_parameters(True).numpy().copy(),
+                                           talg.kernel.n_rejuvenations))
+    talg.fit(y)
+
+    assert next(normals, None) is None and next(uniforms, None) is None, "the port must take every draw"
+    assert len(trec) == len(jrec) == FIT_T
+    for (jw, jp, jn), (tw, tp, tn) in zip(jrec, trec):
+        assert tn == jn
+        _close(tw, jw, atol=5e-5)
+        _close(tp, jp, atol=5e-6)
+    assert talg.kernel.n_transitions == counts["transitions"]
 
 
 def test_posterior_plot_matches_jax():
