@@ -6,6 +6,7 @@
     python3 chip_smoke.py --ness-spread [CARD_FITS [CPU_FITS]]   # phase 9's seed sweep only
     python3 chip_smoke.py --apf-bias [SEEDS]   # phase 5's APF over more seeds only
     python3 chip_smoke.py --oracle    # phases 1-3 and 12 only
+    python3 chip_smoke.py --gradients # phases 1-3 and 13 only
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -119,6 +120,33 @@ Phases, in order; any failure exits non-zero before the result line:
    run; both kernels equal to their plain versions on the suite's clouds (a
    2-D one among them); the host syncs a step of the damped-Newton filters
    by source.
+
+13. Gradients through the filter (float64 host oracles, TF32 off):
+   (a) both backward kernels (the scatter-add transposes of the two gathers)
+   at phase 3's shapes, the main paths' and this phase's, degenerate clouds
+   among them: the same bits at two launches, each source within 1e-6 of its
+   run's sum of |g| of a float64 index_add_, the forward kernels still bit
+   for bit their plain versions; each timed at the main paths' shapes
+   against its bound and index_add_ (scatter_add_ for lanes).
+   (b) ``tests/test_differentiable.py``'s score gate at its own size
+   (AR(1), T = 40, N = 512, beta0 = 0.6): the mean gradient of the
+   differentiable SISR (a resample every step) and APF over 64 seeds of one
+   lane and over one run of 64 lanes within 4 SEM + 5% of the float64 Kalman
+   score, the backward kernels launched once per resample whose gathered
+   values carry a gradient, the uncorrected SISR gradient further off. (c) ``fit_mle`` at
+   ``test_fit_mle_recovers_beta``'s size within 0.08 of the float64 Kalman
+   MLE. (d) The reference's nutria notebook (``fit_svi``, APF(300), T = 100,
+   500 Adam steps, 4 ELBO samples) from the priors' means: a lower loss, a
+   finite guide, each posterior median within NUTRIA_TOL sds between seeds
+   of the JAX package's fits (NUTRIA_JAX), one guide sd at least. (e) PMMH on the OU model with the gradient
+   proposal of both orders and the random walk: finite moving chains, one
+   more MALA transition of each order deciding as the host's float64
+   log-ratio (the Hastings term from both kernels) says, MSJD, R-hat, ESS.
+
+``--host-probe TREE`` times, with TREE's package and TREE's own phase-11
+fit (``pmmh_fit``), the host time of a lane resample-and-gather call at
+phase 11's shape and one phase-11 fit, and prints them as one JSON line; run
+it over two trees in alternating order to compare them on one card.
 
 ``--ness-spread`` runs only phase 9's seed sweep (card and CPU fits and the
 gaps between them). ``--apf-bias [SEEDS]`` runs only phase 5's APF over
@@ -293,6 +321,65 @@ ORACLE_SYNC_T = 20
 # the nonlinear benchmark model (the JAX package's tests/test_filters.py
 # test_local_linearization), T = LOCAL_T, relative log-likelihood gap 0.1
 LOCAL_N, LOCAL_ORACLE_N, LOCAL_T, LOCAL_SIGMA, LOCAL_S, LOCAL_SEED = 1000, 20_000, 60, math.sqrt(10.0), 1.0, 33
+# phase 13d: examples/nutria_svi.py at full size (the reference's
+# nutria-pyro.ipynb): fit_svi(nutria_builder, y, APF(., 300), 500 Adam steps,
+# 4 ELBO samples, lr 1e-2) over T = 100 observations of the true model
+NUTRIA_TRUE = {"a": 0.1, "b": -0.05, "c": 0.0, "sigma_e": 0.3, "sigma_n": 0.2}
+NUTRIA_T, NUTRIA_N, NUTRIA_STEPS, NUTRIA_SAMPLES, NUTRIA_LR = 100, 300, 500, 4, 1e-2
+NUTRIA_INIT_SCALE = 0.01
+# From the example's own start (the mean of 4 prior draws, guide scale 0.1)
+# the fit goes NaN: a lane drawing the drift's c above about 0.1 sends
+# particles to infinity. So both packages start every lane at the priors'
+# means (nutria_start) with guide scale NUTRIA_INIT_SCALE. The JAX package's
+# fits from that start on the CPU (seeds 1-6, all finite; ``JAX_PLATFORMS=cpu
+# PYTHONPATH=. python tests/test_torch_port_variational.py --workers 6 1 2 3
+# 4 5 6``; PERF.md), per parameter: the mean over fits of the posterior
+# median, its sd between seeds, and the mean guide sd on the constrained
+# space ((q95 - q05) / 3.29). The card's median must lie within NUTRIA_TOL
+# sds between seeds of that mean, or within one guide sd where that is wider.
+NUTRIA_JAX = {"a": (0.23875166475772858, 0.005168400021244624, 0.0422303006452616),
+              "b": (-0.1176888073484103, 0.005204719634823962, 0.015496775617172444),
+              "c": (0.003992344233362625, 0.0037542110385636856, 0.0035062423929612),
+              "sigma_e": (0.15849245339632034, 0.0018318036513677036, 0.017773286058250258),
+              "sigma_n": (0.1469505081574122, 0.0019140956646430715, 0.016697190214140272)}
+NUTRIA_TOL = 4.0
+# phase 13b: tests/test_differentiable.py's score gate at its own size, an
+# AR(1) observed with noise SCORE_OBS_S, T = SCORE_T, N = SCORE_N, the score
+# at beta SCORE_BETA0 over SCORE_SEEDS runs (or lanes)
+SCORE_ALPHA, SCORE_BETA, SCORE_SIGMA, SCORE_OBS_S = 0.0, 0.8, 0.5, 0.3
+SCORE_T, SCORE_N, SCORE_SEEDS, SCORE_BETA0 = 40, 512, 64, 0.6
+# phase 13c: test_fit_mle_recovers_beta's size: SISR(256), T = 150, 250 Adam
+# steps at lr 3e-2, within 0.08 of the float64 Kalman MLE (its tolerance)
+MLE_N, MLE_T, MLE_STEPS, MLE_LR, MLE_TOL = 256, 150, 250, 3e-2, 0.08
+# phase 13e: the JAX package's gradient-PMMH tests' model (tests/test_inference.py)
+# at T = 200 with APF(300) and 4 chains; samples cut from 40 to 20 to keep
+# the whole run near 900 s (the 40-sample fits took 19-30 s a proposal)
+OU_TRUE, OU_OBS, OU_T, OU_N, OU_SAMPLES, OU_CHAINS = (0.5, 1.0, 0.1), 0.05, 200, 300, 20, 4
+
+
+def nutria_start(lanes: int) -> dict:
+    """The fit's starting context, every lane at the priors' means: the drift
+    coefficients 0, both variances 0.2 (``InverseGamma(T / 2, (T - 2) / 10)``
+    for any T)."""
+    import numpy as np
+
+    return {name: np.full(lanes, 0.2 if name.startswith("sigma") else 0.0, np.float32) for name in NUTRIA_TRUE}
+
+
+def nutria_data(n_obs: int = NUTRIA_T, seed: int = 0):
+    """Observations of the nutria model at NUTRIA_TRUE, simulated on the host
+    with numpy: ``x_0 ~ N(0, 1)``, ``x_t = x_{t-1} + a + b e^x + c e^{2x} +
+    sigma_e eps_t``, ``y_t = x_t + sigma_n v_t``, t = 1..n_obs."""
+    import numpy as np
+
+    p = NUTRIA_TRUE
+    rng = np.random.default_rng(seed)
+    x, ys = rng.normal(), []
+    for _ in range(n_obs):
+        e = math.exp(x)
+        x = x + p["a"] + p["b"] * e + p["c"] * e * e + p["sigma_e"] * rng.normal()
+        ys.append(x + p["sigma_n"] * rng.normal())
+    return np.asarray(ys, np.float32)
 
 
 def simulate_obs(n_obs: int):
@@ -407,6 +494,47 @@ def check_expand(torch, expand) -> float:
     return worst
 
 
+def host_probe(torch, tree: str) -> int:
+    """``--host-probe TREE`` (module docstring): TREE's ``pyfilter_tpu_torch``
+    and TREE's ``chip_smoke.pmmh_fit``. The lane call is
+    ``systematic_expand_lanes`` on PMMH_N x PMMH_CHAINS log-weights and one
+    value plane that needs no gradient, as each SISR step of phase 11 makes
+    it: 5 batches of 2000 calls after 200 warm-up calls, the card synced at
+    each batch's end; the median batch's host microseconds a call."""
+    import importlib.util
+
+    import numpy as np
+
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    spec = importlib.util.spec_from_file_location("tree_chip_smoke", os.path.join(tree, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    import pyfilter_tpu_torch as pt
+    from pyfilter_tpu_torch.ops.expand import systematic_expand_lanes
+
+    if not os.path.dirname(pt.__file__).startswith(tree):
+        raise AssertionError(f"imported {pt.__file__}, not the package of {tree}")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    lw = torch.randn(smoke.PMMH_N, smoke.PMMH_CHAINS, generator=g, device="cuda")
+    x = torch.randn(smoke.PMMH_N, smoke.PMMH_CHAINS, generator=g, device="cuda")
+    for _ in range(200):
+        systematic_expand_lanes(g, lw, x)
+    torch.cuda.synchronize()
+    batches = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            systematic_expand_lanes(g, lw, x)
+        torch.cuda.synchronize()
+        batches.append((time.perf_counter() - t0) / 2000 * 1e6)
+    y = smoke.pmmh_data(torch, pt)
+    fit_wall = smoke.pmmh_fit(torch, pt, y, "cuda", 30)[4]
+    print(json.dumps({"tree": tree, "lane_call_us": float(np.median(batches)), "lane_call_us_batches": batches,
+                      "pmmh_fit_s": fit_wall}))
+    return 0
+
+
 def main(argv) -> int:
     import torch
 
@@ -415,6 +543,8 @@ def main(argv) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if argv[:1] == ["--host-probe"]:
+        return host_probe(torch, argv[1])
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
@@ -447,6 +577,10 @@ def main(argv) -> int:
     lanes_err = check_expand_lanes(torch, expand)
     if argv[:1] == ["--oracle"]:
         oracle_suite(torch, pt, expand, card, profile="--profile" in argv)
+        return 0
+    if argv[:1] == ["--gradients"]:
+        grads = gradients(torch, pt, expand, card)
+        print(json.dumps({"kernels": backward_kernel_lines(grads)}))
         return 0
 
     # -- 4. main path -------------------------------------------------------
@@ -568,10 +702,15 @@ def main(argv) -> int:
     oracle_k1, oracle_lanes, oracle_err, oracle_lane_err = oracle_suite(torch, pt, expand, card,
                                                                         profile="--profile" in argv)
 
-    k1_paths = {"phase 4": launches, "phase 7": flag_launches, "phase 8": ffbsi_launches, "phase 12": oracle_k1}
+    # -- 13. gradients through the filter ----------------------------------------------
+    grads = gradients(torch, pt, expand, card)
+
+    k1_paths = {"phase 4": launches, "phase 7": flag_launches, "phase 8": ffbsi_launches, "phase 12": oracle_k1,
+                **{path: c["k1"] for path, c in grads["paths"].items() if c["k1"]}}
     lane_paths = {"phase 5": lanes["launches"], "phase 6": smc2_launches, "phase 8": lane_launches,
                   "phase 9 NESS": ness_launches, "phase 9 hybrids": hybrid_launches, "phase 10": nb_launches,
-                  "phase 11": pmmh_launches, "phase 12": oracle_lanes}
+                  "phase 11": pmmh_launches, "phase 12": oracle_lanes,
+                  **{path: c["lanes"] for path, c in grads["paths"].items() if c["lanes"]}}
 
     kernels = [{
         "name": "expand",
@@ -599,7 +738,7 @@ def main(argv) -> int:
         "bound_ms": lanes["bound_ms"],
         "bound_by": "bytes",
         "library_ms": lanes["library_ms"],
-    }]
+    }] + backward_kernel_lines(grads)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
@@ -1482,18 +1621,20 @@ def pmmh_transition_gate(torch, alg, state, y, device: str) -> None:
 
     gen = torch.Generator(device=device).manual_seed(7)
     ctx, proposal = alg.context, alg._proposal
-    kernel = proposal.build(ctx, state, alg.filter, y)
+    kernel = proposal.build(ctx, state, alg.filter, y, gen)
     z = ctx.stack_parameters(constrained=False)
     rvs = kernel.sample(gen, ())
     proposal_ctx = ctx.unstack_parameters(rvs, constrained=False)
-    new_res = alg.filter.initialize_model(proposal_ctx).batch_filter(gen, y)
+    proposal_filter = alg.filter.initialize_model(proposal_ctx)
+    new_res = proposal_filter.batch_filter(gen, y)
     z64, rvs64 = z.double().cpu().numpy(), rvs.double().cpu().numpy()
     ratio = (new_res.log_likelihood.double().cpu().numpy() - state.filter_state.log_likelihood.double().cpu().numpy()
              + log_prior(rvs64) - log_prior(z64))
     moved = proposal_ctx.stack_parameters(constrained=False)  # the candidate, through the bijections and back
     for sign, want, at in ((-1.0, True, moved), (1.0, False, z)):
         log_u = torch.tensor(ratio + sign * PMMH_BRACKET, dtype=z.dtype, device=z.device)
-        step = pmmh_accept(ctx, state, proposal, kernel, rvs, proposal_ctx, new_res, log_u, mutate_kernel=True)
+        step = pmmh_accept(ctx, state, proposal, kernel, rvs, proposal_ctx, proposal_filter, new_res, log_u, y, gen,
+                           mutate_kernel=True)
         accepted = step.accepted.cpu().numpy()
         if not (accepted == want).all():
             raise AssertionError(f"PMMH acceptance {accepted.tolist()} with log u {PMMH_BRACKET} nats "
@@ -1922,6 +2063,530 @@ def local_linearization(torch, pt, expand, card) -> int:
                 raise AssertionError(f"phase 12 LocalLinearization {cls.__name__}: gap {err}, launches {k1}/{fires}")
             launches += k1
     return launches
+
+
+# -- phase 13: gradients through the filter ------------------------------------------------------------------
+def kalman_ar_ll(beta: float, y, alpha: float = SCORE_ALPHA, sigma: float = SCORE_SIGMA,
+                 obs_s: float = SCORE_OBS_S) -> float:
+    """The float64 Kalman log-likelihood of phase 13's AR(1) (``x_0 ~
+    N(alpha, sigma^2)`` unobserved, the first observation on the first
+    propagated state), the exact reference of the score and MLE gates."""
+    q, r = sigma**2, obs_s**2
+    m, p, ll = alpha, q, 0.0
+    for y_t in y.astype("float64").tolist():
+        m, p = alpha + beta * m, beta * beta * p + q
+        s = p + r
+        ll -= 0.5 * (math.log(2.0 * math.pi * s) + (y_t - m) ** 2 / s)
+        k = p / s
+        m, p = m + k * (y_t - m), (1.0 - k) * p
+    return ll
+
+
+def score_model(pt, beta, device):
+    return pt.timeseries.LinearStateSpaceModel(
+        pt.timeseries.models.AR(SCORE_ALPHA, beta, SCORE_SIGMA, device=device), (1.0, SCORE_OBS_S))
+
+
+def score_data(torch, pt, n_obs: int, seed: int):
+    """Observations of phase 13's AR(1) at SCORE_BETA, simulated by the port
+    on the CPU."""
+    model = score_model(pt, SCORE_BETA, "cpu")
+    return model.sample_states(torch.Generator().manual_seed(seed), n_obs).get_paths()[1].numpy()
+
+
+def mle_builder(pt, ctx):
+    beta = ctx.named_parameter("beta", pt.distributions.Uniform(
+        pt.timeseries.models.parameter(0.0, ctx.device), pt.timeseries.models.parameter(1.0, ctx.device)))
+    return score_model(pt, beta, ctx.device)
+
+
+def ou_builder(pt, ctx):
+    """Phase 13e's model: the JAX package's inference test model (an OU
+    process with kappa ~ Exp(1), gamma ~ N(0, 1), sigma ~ LogNormal(-2, 1),
+    observed with noise OU_OBS)."""
+    def const(v):
+        return pt.timeseries.models.parameter(v, ctx.device)
+
+    dist = pt.distributions
+    k = ctx.named_parameter("kappa", dist.Exponential(const(1.0)))
+    g = ctx.named_parameter("gamma", dist.Normal(const(0.0), const(1.0)))
+    s = ctx.named_parameter("sigma", dist.LogNormal(const(-2.0), const(1.0)))
+    return pt.timeseries.LinearStateSpaceModel(pt.timeseries.models.OrnsteinUhlenbeck(k, g, s, device=ctx.device),
+                                               (1.0, OU_OBS))
+
+
+def ou_log_prior(z):
+    """The OU builder's log-prior on the unconstrained values ``(K, 3)``
+    (``log kappa``, ``gamma``, ``log sigma``), Jacobians included, in float64."""
+    import numpy as np
+
+    return (z[:, 0] - np.exp(z[:, 0]) - 0.5 * z[:, 1] ** 2 - 0.5 * (z[:, 2] + 2.0) ** 2 - math.log(2.0 * math.pi))
+
+
+def _lane_weights(torch, n, lanes, name, g):
+    """Log-weights ``(n, lanes)``: random with lane 0 degenerate (all mass on
+    its last particle), zero-weight runs, or every lane degenerate."""
+    lw = torch.randn(n, lanes, generator=g, device="cuda") * 2.0
+    if name == "zero-runs":
+        lw[torch.arange(n, device="cuda") % 3 != 0] = -math.inf
+    if name == "degenerate":
+        lw[:] = -math.inf
+        lw[n // 2] = 0.0
+    lw[:, 0] = -math.inf
+    lw[n - 1, 0] = 0.0
+    return lw
+
+
+def check_backward(torch, expand, card) -> dict:
+    """Phase 13a: both backward kernels against their float64 references on
+    the card. Per case: the forward kernel bit-equal to its plain version,
+    the backward kernel bit-identical across two launches, and each source's
+    gradient within 1e-6 of the sum of |g| over its run of a float64
+    ``index_add_`` (scatter-add for lanes). Then each timed at the main
+    paths' shapes. Returns each kernel's largest error and times."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    out = {}
+
+    def gate(label, grad, ref64, mass):
+        err = (grad.double() - ref64).abs()
+        bad = err > 1e-6 * mass
+        if bool(bad.any()):
+            raise AssertionError(f"backward kernel off its float64 reference at {label}: {int(bad.sum())} sources, "
+                                 f"worst {float(err.max())}")
+        return float(err.max())
+
+    worst, n_cases = 0.0, 0
+    for n in (1_000_000, 1_000_003, 100_000, 8193, 1000, 512, 257, 2, 1):
+        for name in ("random", "degenerate", "zero-runs"):
+            lw = torch.randn(n, generator=g, device="cuda") * 2.0
+            if name == "degenerate":
+                lw = torch.full((n,), -math.inf, device="cuda")
+                lw[n // 2] = 0.0
+            elif name == "zero-runs":
+                lw[torch.arange(n, device="cuda") % 3 != 0] = -math.inf
+            probs = torch.softmax(lw, dim=0)
+            for d in (1, 2, 3):
+                u = torch.rand((), generator=g, device="cuda")
+                v2d = torch.randn(d, n, generator=g, device="cuda")
+                fwd, idx = expand.fused_expand(probs, u, v2d)
+                ref_fwd, ref_idx = expand._expand_probs_plain(probs, u, v2d)
+                if not (torch.equal(idx, ref_idx) and torch.equal(fwd, ref_fwd)):
+                    raise AssertionError(f"expand kernel != plain version at n={n} d={d} {name}")
+                gr = torch.randn(d, n, generator=g, device="cuda")
+                a, b = expand.fused_expand_backward(gr, idx), expand.fused_expand_backward(gr, idx)
+                if not torch.equal(a, b):
+                    raise AssertionError(f"expand backward kernel not deterministic at n={n} d={d} {name}")
+                il = idx.long()
+                ref64 = torch.zeros(d, n, dtype=torch.float64, device="cuda").index_add_(1, il, gr.double())
+                mass = torch.zeros(d, n, dtype=torch.float64, device="cuda").index_add_(1, il, gr.double().abs())
+                worst = max(worst, gate(f"n={n} d={d} {name}", a, ref64, mass))
+                n_cases += 1
+    torch.cuda.synchronize()
+    print(f"phase 13a: expand backward kernel on {n_cases} cases (n in 1e6, 1e6+3, 1e5, 8193, 1000, 512, 257, 2, 1; "
+          f"d in 1, 2, 3; random, degenerate and zero-run weights): the same bits at two launches, within 1e-6 of "
+          f"each source's run's sum of |g| of a float64 index_add_ (largest error {worst}); the forward kernel bit "
+          "for bit its plain version")
+    out["k1_err"] = worst
+
+    worst, n_cases = 0.0, 0
+    shapes = ((400, 1000), (400, 8), (257, 5), (40, 16), (72, 16), (800, 1000), (3200, 1000), (7104, 40), (7105, 40),
+              (2, 9), (512, 64), (300, 4))
+    for n, lanes in shapes:
+        for name in ("random", "degenerate", "zero-runs"):
+            probs = torch.softmax(_lane_weights(torch, n, lanes, name, g), dim=0)
+            for d in (1, 2, 3):
+                u = torch.rand(lanes, generator=g, device="cuda")
+                planes = torch.randn(d, n, lanes, generator=g, device="cuda")
+                fwd, idx = expand.fused_expand_lanes(probs, u, planes)
+                ref_fwd, ref_idx = expand._expand_lanes_probs_plain(probs, u, planes)
+                if not (torch.equal(idx, ref_idx) and torch.equal(fwd, ref_fwd)):
+                    raise AssertionError(f"lane kernel != plain version at n={n} L={lanes} d={d} {name}")
+                gr = torch.randn(d, n, lanes, generator=g, device="cuda")
+                a, b = expand.fused_expand_lanes_backward(gr, idx), expand.fused_expand_lanes_backward(gr, idx)
+                if not torch.equal(a, b):
+                    raise AssertionError(f"lane backward kernel not deterministic at n={n} L={lanes} d={d} {name}")
+                il = idx.long().unsqueeze(0).expand(d, n, lanes)
+                ref64 = torch.zeros(d, n, lanes, dtype=torch.float64, device="cuda").scatter_add_(1, il, gr.double())
+                mass = torch.zeros(d, n, lanes, dtype=torch.float64, device="cuda").scatter_add_(
+                    1, il, gr.double().abs())
+                worst = max(worst, gate(f"n={n} L={lanes} d={d} {name}", a, ref64, mass))
+                n_cases += 1
+    torch.cuda.synchronize()
+    print(f"phase 13a: lane backward kernel on {n_cases} cases ((n, L) in {', '.join(map(str, shapes))}; d in 1, 2, "
+          f"3; random weights with a degenerate lane, every lane degenerate, zero-run weights): the same bits at two "
+          f"launches, within 1e-6 of each source's run's sum of |g| of a float64 scatter-add (largest error "
+          f"{worst}); the forward kernel bit for bit its plain version")
+    out["lane_err"] = worst
+
+    # times at the main paths' shapes: K1 n = 1e6, d = 1; the lane kernel n = 400, L = 1000, d = 2
+    n = N_PARTICLES
+    probs = torch.softmax(torch.randn(n, generator=g, device="cuda"), dim=0)
+    gr = torch.randn(1, n, generator=g, device="cuda")
+    _, idx = expand.fused_expand(probs, torch.rand((), generator=g, device="cuda"), gr)
+    il, buf = idx.long(), torch.zeros_like(gr)
+    out["k1_ms"] = time_cold(torch, lambda: expand.fused_expand_backward(gr, idx))
+    out["k1_plain_ms"] = time_cold(torch, lambda: expand._expand_backward_plain(gr, idx))
+    out["k1_library_ms"] = time_cold(torch, lambda: buf.index_add_(1, il, gr))
+    out["k1_bound_ms"] = (4 * n + 4 * n + 4 * n) / HBM_BYTES_PER_S * 1e3  # g, idx read; gradient written
+    deg = torch.zeros(n, device="cuda")
+    deg[n // 2] = 1.0
+    _, deg_idx = expand.fused_expand(deg, torch.rand((), generator=g, device="cuda"), gr)
+    out["k1_degenerate_ms"] = time_cold(torch, lambda: expand.fused_expand_backward(gr, deg_idx))
+    print(f"phase 13a: expand backward at n={n}, d=1 (L2 flushed, median of 20): kernel {out['k1_ms']} ms, plain "
+          f"(zeros + index_add_) {out['k1_plain_ms']} ms, library (index_add_) {out['k1_library_ms']} ms, bound "
+          f"{out['k1_bound_ms']} ms (bytes), {out['k1_bound_ms'] / out['k1_ms']:.4f} of the bound; one run of n "
+          f"(every output from one source, summed by one thread) {out['k1_degenerate_ms']} ms; card {card}")
+
+    n, lanes, d = SMC2_N, SMC2_K, 2
+    probs = torch.softmax(torch.randn(n, lanes, generator=g, device="cuda"), dim=0)
+    gr = torch.randn(d, n, lanes, generator=g, device="cuda")
+    _, idx = expand.fused_expand_lanes(probs, torch.rand(lanes, generator=g, device="cuda"), gr)
+    il, buf = idx.long().unsqueeze(0).expand(d, n, lanes), torch.zeros_like(gr)
+    out["lane_ms"] = time_cold(torch, lambda: expand.fused_expand_lanes_backward(gr, idx))
+    out["lane_plain_ms"] = time_cold(torch, lambda: expand._expand_lanes_backward_plain(gr, idx))
+    out["lane_library_ms"] = time_cold(torch, lambda: buf.scatter_add_(1, il, gr))
+    out["lane_bound_ms"] = (4 * d * n * lanes + 4 * n * lanes + 4 * d * n * lanes) / HBM_BYTES_PER_S * 1e3
+    print(f"phase 13a: lane backward at n={n}, L={lanes}, d={d} (L2 flushed, median of 20): kernel {out['lane_ms']} "
+          f"ms, plain (zeros + scatter_add_) {out['lane_plain_ms']} ms, library (scatter_add_) "
+          f"{out['lane_library_ms']} ms, bound {out['lane_bound_ms']} ms (bytes), "
+          f"{out['lane_bound_ms'] / out['lane_ms']:.4f} of the bound; card {card}")
+    return out
+
+
+def _launch_counts(expand) -> tuple:
+    return (expand.fused_expand.launches, expand.fused_expand_lanes.launches, expand.fused_expand_backward.launches,
+            expand.fused_expand_lanes_backward.launches)
+
+
+def _zero_counts(expand) -> None:
+    for fn in (expand.fused_expand, expand.fused_expand_lanes, expand.fused_expand_backward,
+               expand.fused_expand_lanes_backward):
+        fn.launches = 0
+
+
+def score_gate(torch, pt, expand, card) -> dict:
+    """Phase 13b: ``tests/test_differentiable.py``'s score gate at its own
+    size on the card: the mean gradient in beta of SISR (ESS threshold 2, a
+    resample on every step) and APF log-likelihoods over SCORE_SEEDS runs of
+    one lane (K1) and over one run of SCORE_SEEDS lanes (the lane kernel),
+    each within 4 SEM + 5% of the float64 Kalman score; the backward kernels
+    launched once per resample whose gathered values carry a gradient (all
+    but SISR's first); the uncorrected SISR gradient
+    further from the score. Returns the launches by kernel."""
+    import numpy as np
+
+    y = score_data(torch, pt, SCORE_T, 0)
+    h = 1e-6
+    exact = (kalman_ar_ll(SCORE_BETA0 + h, y) - kalman_ar_ll(SCORE_BETA0 - h, y)) / (2 * h)
+    launches = [0, 0, 0, 0]
+    mean_err = {}
+    for cls in (pt.SISR, pt.APF):
+        kw = {"ess_threshold": 2.0} if cls is pt.SISR else {}
+        for flag in ((True, False) if cls is pt.SISR else (True,)):
+            for lanes in (0, SCORE_SEEDS):
+                _zero_counts(expand)
+                t0 = time.perf_counter()
+                if lanes:
+                    beta = torch.full((lanes,), SCORE_BETA0, device="cuda", requires_grad=True)
+                    filt = cls(score_model(pt, beta, "cuda"), SCORE_N, batch_shape=(lanes,), differentiable=flag,
+                               **kw)
+                    res = filt.batch_filter(torch.Generator(device="cuda").manual_seed(1000), y)
+                    res.log_likelihood.sum().backward()
+                    grads = beta.grad.cpu().numpy().astype(np.float64)
+                else:
+                    grads = []
+                    for seed in range(SCORE_SEEDS):
+                        beta = torch.tensor(SCORE_BETA0, device="cuda", requires_grad=True)
+                        filt = cls(score_model(pt, beta, "cuda"), SCORE_N, differentiable=flag, **kw)
+                        res = filt.batch_filter(torch.Generator(device="cuda").manual_seed(seed), y)
+                        res.log_likelihood.backward()
+                        grads.append(float(beta.grad))
+                    grads = np.asarray(grads)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = _launch_counts(expand)
+                fwd, bwd = (counts[1], counts[3]) if lanes else (counts[0], counts[2])
+                mean, sem = float(grads.mean()), float(grads.std(ddof=1) / math.sqrt(len(grads)))
+                limit = 4 * sem + 0.05 * abs(exact)
+                label = f"{cls.__name__}{'' if flag else ' uncorrected'}, {f'{lanes} lanes' if lanes else f'{SCORE_SEEDS} runs of one lane'}"
+                print(f"phase 13b: {label} (N={SCORE_N}, T={SCORE_T}): mean gradient {mean:.6f}, SEM {sem:.6f}, "
+                      f"float64 Kalman score {exact:.6f}, gap {mean - exact:+.6f} (limit {limit:.6f}); {wall:.3f} s; "
+                      f"forward launches {fwd}, backward launches {bwd}; card {card}")
+                if not np.isfinite(grads).all():
+                    raise AssertionError(f"phase 13b {label}: non-finite gradients")
+                if flag:
+                    if not abs(mean - exact) < limit:
+                        raise AssertionError(f"phase 13b {label}: mean gradient {mean} is {abs(mean - exact)} from the "
+                                             f"score {exact} (> {limit})")
+                    # every step resamples; the first step's SISR resample gathers the
+                    # initial draws, which do not depend on beta, so no gradient flows
+                    # back through it (the APF's gathers its pre-weights too, which do)
+                    expected = SCORE_T * (1 if lanes else SCORE_SEEDS)
+                    expected_bwd = expected - (1 if lanes else SCORE_SEEDS) * (cls is pt.SISR)
+                    if not (fwd == expected and bwd == expected_bwd):
+                        raise AssertionError(f"phase 13b {label}: {fwd} forward and {bwd} backward launches for "
+                                             f"{expected} resamples ({expected_bwd} carrying a gradient)")
+                launches = [a + b for a, b in zip(launches, counts)]
+                mean_err[(cls.__name__, flag, lanes)] = abs(mean - exact)
+    for lanes in (0, SCORE_SEEDS):
+        if not mean_err[("SISR", True, lanes)] < mean_err[("SISR", False, lanes)]:
+            raise AssertionError(f"phase 13b: the uncorrected SISR gradient ({'lanes' if lanes else 'one lane'}) is "
+                                 "no further from the score than the corrected one")
+    return dict(zip(("k1", "lanes", "k1_backward", "lanes_backward"), launches))
+
+
+def mle_gate(torch, pt, expand, card) -> dict:
+    """Phase 13c: ``fit_mle`` at ``test_fit_mle_recovers_beta``'s size on the
+    card, within MLE_TOL of the float64 Kalman MLE on a 60-point grid, its
+    loss lower at the end. Returns the launches by kernel."""
+    import numpy as np
+
+    y = score_data(torch, pt, MLE_T, 5)
+    betas = np.linspace(0.4, 0.99, 60)
+    mle = float(betas[int(np.argmax([kalman_ar_ll(b, y) for b in betas]))])
+    _zero_counts(expand)
+    t0 = time.perf_counter()
+    res = pt.inference.fit_mle(lambda ctx: mle_builder(pt, ctx), y, lambda b: pt.SISR(b, MLE_N),
+                               torch.Generator(device="cuda").manual_seed(11), num_steps=MLE_STEPS,
+                               learning_rate=MLE_LR)
+    losses = res.losses.cpu().numpy()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts(expand)
+    fitted = float(res.parameters()["beta"])
+    print(f"phase 13c: fit_mle(SISR({MLE_N}), T={MLE_T}, {MLE_STEPS} Adam steps, lr {MLE_LR}): beta {fitted:.6f}, "
+          f"float64 Kalman MLE {mle:.6f} (gap {fitted - mle:+.6f}, limit {MLE_TOL}); loss first 10 "
+          f"{losses[:10].mean():.4f}, last 10 {losses[-10:].mean():.4f}; {wall:.3f} s, {wall / MLE_STEPS * 1e3:.3f} ms "
+          f"a step; expand launches {counts[0]}, backward {counts[2]}; card {card}")
+    if not (np.isfinite(losses).all() and abs(fitted - mle) < MLE_TOL):
+        raise AssertionError(f"phase 13c: fit_mle gave beta {fitted}, the Kalman MLE is {mle}")
+    if not losses[-10:].mean() < losses[:10].mean():
+        raise AssertionError("phase 13c: fit_mle's loss did not fall")
+    if not (counts[0] == counts[2] > 0):
+        raise AssertionError(f"phase 13c: {counts[0]} forward and {counts[2]} backward expand launches")
+    return dict(zip(("k1", "lanes", "k1_backward", "lanes_backward"), counts))
+
+
+def nutria_svi(torch, pt, expand, card) -> dict:
+    """Phase 13d: the reference's nutria notebook at ``examples/nutria_svi.py``'s
+    full size on the card, from ``nutria_start`` (every lane at the priors'
+    means) with the guide's initial scale NUTRIA_INIT_SCALE: the loss lower
+    over the last 50 steps than the first 50, a finite guide, each
+    posterior median within NUTRIA_TOL sds between seeds of the JAX
+    package's fits (NUTRIA_JAX), with one mean guide sd as the floor of that
+    limit. Returns the launches by kernel."""
+    import numpy as np
+
+    y = nutria_data()
+    ctx = pt.inference.make_context(generator=torch.Generator(device="cuda").manual_seed(20))
+    ctx.set_batch_shape((NUTRIA_SAMPLES,))
+    build = lambda c: pt.examples.nutria_builder(c, num_obs=NUTRIA_T)  # noqa: E731
+    build(ctx)
+    for name, value in nutria_start(NUTRIA_SAMPLES).items():
+        ctx.update_parameter(name, value)
+    _zero_counts(expand)
+    t0 = time.perf_counter()
+    res = pt.inference.fit_svi(build, y, lambda b: pt.APF(b, NUTRIA_N),
+                               torch.Generator(device="cuda").manual_seed(21),
+                               num_steps=NUTRIA_STEPS, num_elbo_samples=NUTRIA_SAMPLES, learning_rate=NUTRIA_LR,
+                               context=ctx, init_scale=NUTRIA_INIT_SCALE)
+    losses = res.losses.cpu().numpy()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts(expand)
+    quantiles = res.posterior_quantiles()
+    print(f"phase 13d: fit_svi(nutria_builder, APF({NUTRIA_N}), T={NUTRIA_T}, {NUTRIA_STEPS} Adam steps, "
+          f"{NUTRIA_SAMPLES} ELBO samples, lr {NUTRIA_LR}, init scale {NUTRIA_INIT_SCALE}): {wall:.3f} s, "
+          f"{wall / NUTRIA_STEPS * 1e3:.3f} ms a step; loss first 50 {losses[:50].mean():.4f}, last 50 "
+          f"{losses[-50:].mean():.4f}; lane kernel launches {counts[1]} (backward {counts[3]}); card {card}")
+    if not (np.isfinite(losses).all() and bool(torch.isfinite(res.guide.loc).all())
+            and bool(torch.isfinite(res.guide.log_scale).all())):
+        raise AssertionError("phase 13d: the guide or the loss is not finite")
+    if not losses[-50:].mean() < losses[:50].mean():
+        raise AssertionError("phase 13d: the ELBO did not improve")
+    expected = NUTRIA_STEPS * NUTRIA_T
+    if not (counts[1] == expected and counts[3] == 0 and counts[0] == 0):
+        raise AssertionError(f"phase 13d: lane kernel launches {counts[1]} for {expected} APF steps, backward "
+                             f"{counts[3]} (the filter runs outside the graph)")
+    for name, qs in quantiles.items():
+        lo, med, hi = (float(np.asarray(qs[q])) for q in (0.05, 0.5, 0.95))
+        j_mean, j_sd, j_guide_sd = NUTRIA_JAX[name]
+        limit = max(NUTRIA_TOL * j_sd, j_guide_sd)
+        truth = NUTRIA_TRUE[name] ** 2 if name.startswith("sigma") else NUTRIA_TRUE[name]
+        gap = med - j_mean
+        print(f"  {name:>7s}: median {med: .5f} [5% {lo: .5f}, 95% {hi: .5f}] (truth {truth: .5f}); JAX fits' median "
+              f"{j_mean: .5f}, sd between seeds {j_sd:.5f}; gap {gap:+.5f} = {gap / j_sd:+.3f} sds (limit {limit:.5f}"
+              f" = max({NUTRIA_TOL} sds, guide sd {j_guide_sd:.5f}))")
+        if not abs(gap) < limit:
+            raise AssertionError(f"phase 13d: {name}'s posterior median {med} is {gap} from the JAX fits' "
+                                 f"(limit {limit})")
+    return dict(zip(("k1", "lanes", "k1_backward", "lanes_backward"), counts))
+
+
+def ou_data(torch, pt):
+    """Phase 13e's observations: OU_T steps of the true OU model, simulated by
+    the port on the CPU (seed 5)."""
+    model = pt.timeseries.LinearStateSpaceModel(pt.timeseries.models.OrnsteinUhlenbeck(*OU_TRUE, device="cpu"),
+                                                (1.0, OU_OBS))
+    return model.sample_states(torch.Generator().manual_seed(5), OU_T).get_paths()[1].numpy()
+
+
+def ou_pmmh(torch, pt, y, proposal, seed: int):
+    """One phase-13e PMMH fit: the algorithm, its result and seconds."""
+    from pyfilter_tpu_torch.filters.particle.proposals import LinearGaussianObservations
+
+    ctx = pt.inference.make_context(generator=torch.Generator(device="cuda").manual_seed(seed))
+    filt = pt.APF(lambda c: ou_builder(pt, c), OU_N, proposal=LinearGaussianObservations(), record_states=True)
+    alg = pt.inference.PMMH(filt, OU_SAMPLES, num_chains=OU_CHAINS, proposal=proposal, context=ctx,
+                            generator=torch.Generator(device="cuda").manual_seed(seed + 1))
+    t0 = time.perf_counter()
+    state = alg.fit(y, logging=pt.inference.logging.DefaultLogger())
+    torch.cuda.synchronize()
+    return alg, state, time.perf_counter() - t0
+
+
+def _host_log_density(kernel, x):
+    """``kernel``'s log-density at ``x`` ``(K, D)``, on the host in float64:
+    a diagonal Normal's or a MultivariateNormal's (from its loc and scale)."""
+    import numpy as np
+
+    x = x.double().cpu().numpy()
+    if hasattr(kernel, "scale_tril"):
+        loc, tril = kernel.loc.double().cpu().numpy(), kernel.scale_tril.double().cpu().numpy()
+        z = np.stack([np.linalg.solve(tril[k], x[k] - loc[k]) for k in range(len(x))])
+        return (-0.5 * (z**2).sum(-1) - np.log(np.diagonal(tril, axis1=-2, axis2=-1)).sum(-1)
+                - 0.5 * x.shape[-1] * math.log(2 * math.pi))
+    loc, scale = kernel.base_dist.loc.double().cpu().numpy(), kernel.base_dist.scale.double().cpu().numpy()
+    return (-0.5 * ((x - loc) / scale) ** 2 - np.log(scale) - 0.5 * math.log(2 * math.pi)).sum(-1)
+
+
+def gradient_transition_gate(torch, alg, state, y) -> None:
+    """Phase 13e's gate on the MALA transition: one more update from the
+    fit's last state, decided twice by ``pmmh_accept`` with log-uniforms
+    PMMH_BRACKET nats below and above the acceptance log-ratio computed on
+    the host in float64: the log-likelihoods read back, the priors and their
+    Jacobians by formula, and the forward and reverse proposal densities from
+    the two kernels' loc and scale (the reverse kernel built on the
+    candidate's re-filter with the generator state ``pmmh_accept`` then
+    starts from). Every chain must accept below and reject above; the next
+    kernel must be the candidate's where it accepted and the current one's
+    where it rejected. A dropped or reversed Hastings term moves the card's
+    ratio by the term itself."""
+    import numpy as np
+
+    from pyfilter_tpu_torch.inference.batch.mcmc.utils import pmmh_accept
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    ctx, proposal = alg.context, alg._proposal
+    kernel = proposal.build(ctx, state, alg.filter, y, gen)
+    z = ctx.stack_parameters(constrained=False)
+    rvs = kernel.sample(gen, ())
+    proposal_ctx = ctx.unstack_parameters(rvs, constrained=False)
+    proposal_filter = alg.filter.initialize_model(proposal_ctx)
+    new_res = proposal_filter.batch_filter(gen, y)
+    build_state = gen.get_state()
+    reverse = proposal.build(proposal_ctx, state.replicate(new_res), proposal_filter, y, gen)
+    z64, rvs64 = z.double().cpu().numpy(), rvs.double().cpu().numpy()
+    hastings = _host_log_density(reverse, z) - _host_log_density(kernel, rvs)
+    ratio = (new_res.log_likelihood.double().cpu().numpy() - state.filter_state.log_likelihood.double().cpu().numpy()
+             + ou_log_prior(rvs64) - ou_log_prior(z64) + hastings)
+    second = hasattr(kernel, "scale_tril")
+    for sign, want in ((-1.0, True), (1.0, False)):
+        gen.set_state(build_state)
+        log_u = torch.tensor(ratio + sign * PMMH_BRACKET, dtype=z.dtype, device=z.device)
+        step = pmmh_accept(ctx, state, proposal, kernel, rvs, proposal_ctx, proposal_filter, new_res, log_u, y, gen,
+                           mutate_kernel=True)
+        accepted = step.accepted.cpu().numpy()
+        if not (accepted == want).all():
+            raise AssertionError(f"gradient PMMH acceptance {accepted.tolist()} with log u {PMMH_BRACKET} nats "
+                                 f"{'below' if want else 'above'} the host's log-ratio {ratio.tolist()}")
+        at = (reverse if want else kernel)
+        got, ref = (step.proposal_kernel.loc, at.loc) if second else (step.proposal_kernel.base_dist.loc,
+                                                                       at.base_dist.loc)
+        # the candidate's kernel was built again inside pmmh_accept from the same generator state
+        if not torch.allclose(got, ref, rtol=1e-6, atol=0.0):
+            raise AssertionError(f"after {'accepting' if want else 'rejecting'} the next kernel is not the "
+                                 f"{'candidate' if want else 'current'} one's")
+    print(f"  transition gate ({'second' if second else 'first'} order): each of {len(ratio)} chains accepts "
+          f"{PMMH_BRACKET} nats below the host's float64 log-ratio {np.round(ratio, 6).tolist()} (Hastings terms "
+          f"{np.round(hastings, 6).tolist()}) and rejects above it; the next kernel follows the chain")
+
+
+def gradient_pmmh(torch, pt, expand, card) -> dict:
+    """Phase 13e: PMMH with the gradient proposals of both orders and the
+    random walk at the same budget on the OU model; finite chains that
+    move, the transition gate of both gradient orders, each proposal's mean
+    squared jump distance and the chains' split R-hat and ESS. Returns the
+    launches by kernel."""
+    import numpy as np
+
+    y = ou_data(torch, pt)
+    proposals = (("GradientBasedProposal(2e-2)", pt.inference.GradientBasedProposal(2e-2)),
+                 ("GradientBasedProposal(5e-2, second order)",
+                  pt.inference.GradientBasedProposal(5e-2, use_second_order=True)),
+                 ("RandomWalk(2e-2)", pt.inference.RandomWalk(2e-2)))
+    launches = [0, 0, 0, 0]
+    msjd = {}
+    for name, proposal in proposals:
+        _zero_counts(expand)
+        alg, state, wall = ou_pmmh(torch, pt, y, proposal, 40)
+        counts = _launch_counts(expand)
+        launches = [a + b for a, b in zip(launches, counts)]
+        arr = state.as_arrays()
+        if not all(np.isfinite(v).all() for v in arr.values()):
+            raise AssertionError(f"phase 13e {name}: non-finite chains")
+        msjd[name] = sum(float(np.mean((v[1:] - v[:-1]) ** 2)) for v in arr.values())
+        summary = pt.inference.summarize_chains(state)
+        steps = (OU_SAMPLES + 1) * OU_T
+        print(f"phase 13e: PMMH(APF({OU_N}, LinearGaussianObservations, record_states), {OU_SAMPLES} samples, "
+              f"{OU_CHAINS} chains, {name}), T={OU_T}: {wall:.3f} s; MSJD {msjd[name]:.6g}; lane kernel launches "
+              f"{counts[1]} for {steps} APF lane steps; card {card}")
+        for p, s in summary.items():
+            print(f"  {p:>5s}: mean {float(s['mean']):.5f} sd {float(s['std']):.5f} split R-hat "
+                  f"{float(s['rhat']):.4f} ESS {float(s['ess']):.2f}")
+        if not msjd[name] > 0:
+            raise AssertionError(f"phase 13e {name}: the chains did not move")
+        if counts[1] != steps:
+            raise AssertionError(f"phase 13e {name}: {counts[1]} lane kernel launches for {steps} APF lane steps")
+        if "Gradient" in name:
+            gradient_transition_gate(torch, alg, state, y)
+    rw = msjd["RandomWalk(2e-2)"]
+    print("  MSJD over the random walk's: " + ", ".join(f"{k} {v / rw:.4f}" for k, v in msjd.items() if k != "RandomWalk(2e-2)")
+          + " (reported, not gated)")
+    return dict(zip(("k1", "lanes", "k1_backward", "lanes_backward"), launches))
+
+
+def backward_kernel_lines(grads: dict) -> list:
+    """The two backward kernels' entries of the ``kernels`` line."""
+    lines = []
+    for name, key, source in (("expand_backward", "k1", "expand.cu"), ("expand_lanes_backward", "lane",
+                                                                         "expand_lanes.cu")):
+        paths = {path: c[f"{'k1' if key == 'k1' else 'lanes'}_backward"] for path, c in grads["paths"].items()}
+        lines.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"pyfilter_tpu_torch/ops/csrc/{source}",
+            "replaces": "pyfilter_tpu/ops/expand.py:297 (port-only: the scatter-add JAX derives for the gather's "
+                        "transpose)",
+            "launches": sum(paths.values()),
+            "launches_by_path": {p: n for p, n in paths.items() if n},
+            "max_abs_err": grads[f"{key}_err"],
+            "ms": grads[f"{key}_ms"],
+            "plain_ms": grads[f"{key}_plain_ms"],
+            "bound_ms": grads[f"{key}_bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": grads[f"{key}_library_ms"],
+        })
+    return lines
+
+
+def gradients(torch, pt, expand, card) -> dict:
+    """Phase 13 (module docstring): returns the backward kernels' errors and
+    times, and each path's launches by kernel."""
+    t_phase = time.perf_counter()
+    out = check_backward(torch, expand, card)
+    out["paths"] = {"phase 13b": score_gate(torch, pt, expand, card), "phase 13c": mle_gate(torch, pt, expand, card),
+                    "phase 13d": nutria_svi(torch, pt, expand, card), "phase 13e": gradient_pmmh(torch, pt, expand, card)}
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s; launches by path {out['paths']}")
+    return out
 
 
 def apf_bias(torch, pt, seeds: int) -> int:

@@ -17,8 +17,12 @@ recorded histories with exact FFBS, rejection FFBSi and fixed-lag
 smoothing; SMC² over a lane-batched APF, with a quasi-random
 (Sobol) start and the adaptive distance stop; batch PMMH with random-walk
 and adaptive random-walk proposals; NESS, FixedWidthNESS and their SMC²
-hybrids with the KDE jitter kernels; the AR, random-walk,
-linear, Verhulst, sine-diffusion and Lorenz-63 models.
+hybrids with the KDE jitter kernels; gradients through the filter (the
+differentiable SISR and APF, whose resample kernels have hand-written
+backward kernels too, ``fit_mle``, the VI bridge and ``fit_svi``,
+gradient-based PMMH, chain diagnostics); the AR, random-walk,
+Ornstein-Uhlenbeck, linear, Verhulst, sine-diffusion, Lorenz-63 and nutria
+models.
 """
 
 __version__ = "0.1.0"

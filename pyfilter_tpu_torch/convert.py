@@ -5,7 +5,8 @@ leaves into numpy arrays (``np.asarray``) and hands them here, which builds
 the port's objects from them — so both packages can start from one
 particle cloud (one lane or a lane batch), one set of model parameters
 (scalars or one per lane), one context's parameter values, and one recorded
-filter history (which the port's smoothers then run on). Only numpy arrays,
+filter history (which the port's smoothers then run on), one fitted guide
+or maximum-likelihood point. Only numpy arrays,
 numpy scalars and Python numbers are accepted. It also builds the
 linear-Gaussian suite's 2-D models and the nonlinear benchmark model from
 their numpy parameters, so that both packages filter the same model.
@@ -193,3 +194,23 @@ def set_context_values(context, values: dict):
     for name, value in values.items():
         context.update_parameter(name, _tensor(name, value, torch.float32, context.device))
     return context
+
+
+def svi_result_from_numpy(loc, log_scale, losses, context):
+    """The port's ``SVIResult`` from a JAX ``SVIResult``'s guide
+    (``guide.loc``, ``guide.log_scale``) and ``losses``, on ``context`` (the
+    port's context over the same parameters) and its device."""
+    from .inference.variational import GuideState, SVIResult
+
+    dev = context.device
+    guide = GuideState(_tensor("loc", loc, torch.float32, dev), _tensor("log_scale", log_scale, torch.float32, dev))
+    return SVIResult(guide, _tensor("losses", losses, torch.float32, dev), context)
+
+
+def mle_result_from_numpy(theta, losses, context):
+    """The port's ``MLEResult`` from a JAX ``MLEResult``'s ``theta`` ``(1, D)``
+    and ``losses``, on ``context`` and its device."""
+    from .inference.variational import MLEResult
+
+    dev = context.device
+    return MLEResult(_tensor("theta", theta, torch.float32, dev), _tensor("losses", losses, torch.float32, dev), context)

@@ -4,7 +4,7 @@ SMC² and NESS use)."""
 from . import constraints
 from .base import Distribution
 from .bijectors import Affine, Bijector, Chain, Exp, Identity, Sigmoid, SinhArcsinh, biject_to
-from .core import Exponential, LogNormal, Normal, Uniform
+from .core import Exponential, Gamma, InverseGamma, LogNormal, Normal, Uniform
 from .independent import Independent
 from .mvn import MultivariateNormal, robust_cholesky
 from .transformed import TransformedDistribution
@@ -23,6 +23,8 @@ __all__ = [
     "Normal",
     "LogNormal",
     "Exponential",
+    "Gamma",
+    "InverseGamma",
     "Uniform",
     "Independent",
     "MultivariateNormal",

@@ -1,7 +1,8 @@
 """Concrete distributions: ``Normal`` (the SISR main path), ``LogNormal``
 and ``Exponential`` (the SMC² path's priors) and ``Uniform`` (the Lorenz
 model's priors), each with ``cdf``, ``icdf`` (the quasi-random start inverts
-them), ``mean`` and ``variance``.
+them), ``mean`` and ``variance``; ``Gamma`` and ``InverseGamma`` (the nutria
+model's variance priors), with ``cdf`` but no ``icdf``.
 
 Counterpart of ``pyfilter_tpu/distributions/core.py``.
 """
@@ -167,3 +168,81 @@ class Uniform(Distribution):
     @property
     def variance(self):
         return (torch.square(self.high - self.low) / 12.0).expand(self.batch_shape)
+
+
+def _gamma_draw(generator, concentration: torch.Tensor, shape) -> torch.Tensor:
+    """Standard Gamma(``concentration``, 1) draws of ``shape``."""
+    return torch._standard_gamma(concentration.expand(shape).contiguous(), generator=generator)
+
+
+class Gamma(Distribution):
+    arg_names = ("concentration", "rate")
+
+    def __init__(self, concentration: torch.Tensor, rate: torch.Tensor):
+        self.concentration = concentration
+        self.rate = rate
+
+    @property
+    def batch_shape(self):
+        return tuple(torch.broadcast_shapes(self.concentration.shape, self.rate.shape))
+
+    @property
+    def support(self):
+        return constraints.positive
+
+    def sample(self, generator, sample_shape=()):
+        return _gamma_draw(generator, self.concentration, tuple(sample_shape) + self.batch_shape) / self.rate
+
+    def log_prob(self, value):
+        a, b = self.concentration, self.rate
+        return a * torch.log(b) + (a - 1.0) * torch.log(value) - b * value - torch.lgamma(a)
+
+    def cdf(self, value):
+        return torch.special.gammainc(self.concentration, self.rate * value)
+
+    @property
+    def mean(self):
+        return (self.concentration / self.rate).expand(self.batch_shape)
+
+    @property
+    def variance(self):
+        return (self.concentration / torch.square(self.rate)).expand(self.batch_shape)
+
+
+class InverseGamma(Distribution):
+    """``1 / G`` for ``G ~ Gamma(concentration, rate)``."""
+
+    arg_names = ("concentration", "rate")
+
+    def __init__(self, concentration: torch.Tensor, rate: torch.Tensor):
+        self.concentration = concentration
+        self.rate = rate
+
+    @property
+    def batch_shape(self):
+        return tuple(torch.broadcast_shapes(self.concentration.shape, self.rate.shape))
+
+    @property
+    def support(self):
+        return constraints.positive
+
+    def sample(self, generator, sample_shape=()):
+        return self.rate / _gamma_draw(generator, self.concentration, tuple(sample_shape) + self.batch_shape)
+
+    def log_prob(self, value):
+        a, b = self.concentration, self.rate
+        return a * torch.log(b) - (a + 1.0) * torch.log(value) - b / value - torch.lgamma(a)
+
+    def cdf(self, value):
+        return 1.0 - torch.special.gammainc(self.concentration, self.rate / value)
+
+    @property
+    def mean(self):
+        a = self.concentration
+        return torch.where(a > 1.0, self.rate / (a - 1.0), math.nan).expand(self.batch_shape)
+
+    @property
+    def variance(self):
+        a = self.concentration
+        v = torch.square(self.rate) / (torch.square(a - 1.0) * (a - 2.0))
+        return torch.where(a > 2.0, v, math.nan).expand(self.batch_shape)

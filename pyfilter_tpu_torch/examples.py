@@ -1,10 +1,11 @@
 """Example models: the sine-diffusion model of the reference README, the
-stochastic-volatility model and the Lorenz-63 model, the last two with their
-prior-registering builders.
+stochastic-volatility, Lorenz-63 and nutria models, the last three with
+their prior-registering builders.
 
 Counterpart of ``pyfilter_tpu/examples.py`` (``sine_diffusion_model``,
 ``stochastic_volatility_model``, ``stochastic_volatility_builder``,
-``lorenz63_model`` and ``lorenz63_builder`` only).
+``lorenz63_model``, ``lorenz63_builder``, ``nutria_model`` and
+``nutria_builder`` only).
 """
 
 from __future__ import annotations
@@ -131,3 +132,44 @@ def lorenz63_builder(context, observe_every_step: int = 10):
     r = context.named_parameter("r", uniform(10.0, 50.0))
     b = context.named_parameter("b", uniform(1.0, 20.0))
     return lorenz63_model(s, r, b, observe_every_step=observe_every_step, device=context.device)
+
+
+def _nutria_drift(x, a, b, c, sigma_e):
+    exped = torch.exp(x.value)
+    return x.value + a + b * exped + c * exped**2.0, sigma_e
+
+
+def _nutria_initial(a, b, c, sigma_e):
+    return dist.Normal(torch.zeros_like(a), torch.ones_like(a))
+
+
+def nutria_model(a=0.1, b=-0.05, c=0.0, sigma_e=0.3, sigma_n=0.2, device=None):
+    """The nutria log-population growth model observed linearly (the
+    reference's ``nutria.ipynb``), with its parameters on ``device`` (the
+    card unless ``device="cpu"``)."""
+    device = resolve_device(device)
+    params = tuple(models.parameter(p, device) for p in (a, b, c, sigma_e))
+    increment = dist.Normal(models.parameter(0.0, device), models.parameter(1.0, device))
+    hidden = ts.AffineProcess(_nutria_drift, params, increment, _nutria_initial)
+    return ts.LinearStateSpaceModel(hidden, (1.0, sigma_n))
+
+
+def nutria_builder(context, num_obs: int = 100):
+    """The nutria model with Normal(0, 1) priors on the drift coefficients and
+    ``InverseGamma(num_obs / 2, (num_obs - 2) / 10)`` priors on the two
+    variances registered on ``context`` (the reference notebook's
+    ``build_model``), built on the context's device."""
+
+    def const(v):
+        return models.parameter(v, context.device)
+
+    a = context.named_parameter("a", dist.Normal(const(0.0), const(1.0)))
+    b = context.named_parameter("b", dist.Normal(const(0.0), const(1.0)))
+    c = context.named_parameter("c", dist.Normal(const(0.0), const(1.0)))
+
+    alpha = num_obs / 2.0
+    beta = 2.0 * (alpha - 1.0) / 10.0
+    sigma_e = torch.sqrt(context.named_parameter("sigma_e", dist.InverseGamma(const(alpha), const(beta))))
+    hidden = ts.AffineProcess(_nutria_drift, (a, b, c, sigma_e), dist.Normal(const(0.0), const(1.0)), _nutria_initial)
+    sigma_n = torch.sqrt(context.named_parameter("sigma_n", dist.InverseGamma(const(alpha), const(beta))))
+    return ts.LinearStateSpaceModel(hidden, (torch.ones_like(sigma_n), sigma_n))

@@ -2,9 +2,10 @@
 
 from . import proposals, smoothing
 from .apf import APF
-from .base import ParticleFilter
+from .base import ParticleFilter, smoothed_joint_log_likelihood
 from .gpf import GPF
 from .sisr import SISR
 from .smoothing import ffbsi_smooth, transition_log_sup
 
-__all__ = ["ParticleFilter", "SISR", "APF", "GPF", "proposals", "smoothing", "ffbsi_smooth", "transition_log_sup"]
+__all__ = ["ParticleFilter", "SISR", "APF", "GPF", "proposals", "smoothing", "ffbsi_smooth", "transition_log_sup",
+           "smoothed_joint_log_likelihood"]

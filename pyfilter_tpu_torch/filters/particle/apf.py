@@ -1,9 +1,10 @@
 """APF — the auxiliary particle filter of Pitt & Shephard.
 
-Counterpart of ``pyfilter_tpu/filters/particle/apf.py`` (without the
-differentiable correction). The APF resamples on every correction: a lane
-batch (SMC²'s parameter lanes) goes through ``ops.systematic_expand_lanes``,
-which pulls the state values AND the pre-weights through one expansion.
+Counterpart of ``pyfilter_tpu/filters/particle/apf.py``. The APF resamples
+on every correction: a lane batch (SMC²'s parameter lanes) goes through
+``ops.systematic_expand_lanes``, which pulls the state values AND the
+pre-weights through one expansion; with ``differentiable`` both carry a
+gradient back through it.
 """
 
 from __future__ import annotations
@@ -42,13 +43,21 @@ class APF(ParticleFilter):
             indices = self.resampler(generator, resample_weights)
             res_vals = batched_gather(ts_state.value, indices, ts_state.event_ndim)
             res_prew = batched_gather(pre_weights, indices, 0)
-        zeros = torch.zeros_like(resample_weights)
-        resampled = ParticleFilterPrediction(
-            ts_state.copy(values=res_vals), zeros, zeros + 1.0 / self.n_particles, indices
-        )
+        if self.differentiable:
+            corr = self._ancestor_correction(resample_weights, indices)
+            resampled = ParticleFilterPrediction(ts_state.copy(values=res_vals), corr, torch.softmax(corr, dim=0),
+                                                 indices)
+        else:
+            corr = None
+            zeros = torch.zeros_like(resample_weights)
+            resampled = ParticleFilterPrediction(
+                ts_state.copy(values=res_vals), zeros, zeros + 1.0 / self.n_particles, indices
+            )
 
         x, inc_weights = self.proposal.sample_and_weight(generator, self.model, y, resampled)
         weights = inc_weights - res_prew
+        if corr is not None:
+            weights = weights + corr
         # log(sum w * exp(pre)) as the JAX package writes it (no max shift),
         # so the two packages round alike
         aux_norm = torch.log(torch.sum(prediction.normalized_weights * torch.exp(pre_weights), dim=0))

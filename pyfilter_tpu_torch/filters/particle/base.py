@@ -16,7 +16,7 @@ import torch
 from ...ops import systematic_counts, systematic_expand, systematic_expand_lanes
 from ...resampling import systematic_m
 from ...timeseries import TimeseriesState
-from ...utils import batched_gather, same_device
+from ...utils import batched_gather, normalize_log, same_device
 from ..base import BaseFilter
 from ..result import FilterHistory, FilterResult
 from ..state import ParticleFilterCorrection
@@ -56,6 +56,34 @@ def ffbs_logits(model, vals_t, lw_t, time_index: float, traj_next) -> torch.Tens
     return torch.movedim(lw_t.unsqueeze(0) + w_state, 1, -1)
 
 
+def smoothed_joint_log_likelihood(model, times, smoothed: torch.Tensor, y, oes: int = 1) -> torch.Tensor:
+    """The joint log-density of smoothed trajectories under ``model``'s
+    (differentiable) parameters, averaged over the trajectory axis: the
+    transitions from every recorded step, the observations at every
+    ``oes``-th recorded state, the initial density at the first.
+
+    ``smoothed``: ``(T+1, M, *lanes, *event)``; ``times``: ``(T+1,)``, shaped
+    here to broadcast against the trajectory and lane axes (a time per step,
+    not per trajectory, for a model whose density reads the time); ``y``:
+    ``(T, *event_y)``, host or device. Returns ``(*lanes)``."""
+    ev = model.hidden.event_ndim
+    extra = smoothed.dim() - 1 - ev  # trajectory and lane axes
+    times = torch.as_tensor(times, dtype=smoothed.dtype, device=smoothed.device)
+    t_shaped = times.reshape(times.shape[:1] + (1,) * extra)
+    hidden_density = model.hidden.build_density(TimeseriesState(t_shaped[:-1], smoothed[:-1], ev))
+    obs_density = model.build_density(TimeseriesState(t_shaped[1::oes], smoothed[1::oes], ev))
+
+    y = torch.as_tensor(y, dtype=smoothed.dtype, device=smoothed.device)
+    y_event_ndim = len(model.event_shape)
+    y_shaped = y.reshape(y.shape[:1] + (1,) * extra + y.shape[1 : 1 + y_event_ndim])
+    ll = (
+        torch.sum(hidden_density.log_prob(smoothed[1:]), dim=0)
+        + torch.sum(obs_density.log_prob(y_shaped), dim=0)
+        + model.hidden.initial_distribution().log_prob(smoothed[0])
+    )
+    return torch.mean(ll, dim=0)
+
+
 class ParticleFilter(BaseFilter):
     """Particle filter with ``particles`` particles on particle axis 0 and
     ``batch_shape`` lanes after it. ``ess_threshold`` is the relative ESS
@@ -66,7 +94,13 @@ class ParticleFilter(BaseFilter):
     (:meth:`_fused_resample`: ``ops.systematic_expand`` for one lane,
     ``ops.systematic_expand_lanes`` for a lane batch, each a hand-written
     CUDA kernel on the card); a larger cloud, or any other resampler, runs
-    the resampler followed by a gather, as the JAX package does."""
+    the resampler followed by a gather, as the JAX package does.
+
+    ``differentiable=True`` carries the Ścibior–Wood correction
+    (:meth:`_ancestor_correction`) through every resample, so that the
+    log-likelihood estimate is differentiable in the model's parameters with
+    the right expected gradient; its forward values are those of the default
+    path."""
 
     def __init__(
         self,
@@ -80,6 +114,7 @@ class ParticleFilter(BaseFilter):
         record_moments: bool = True,
         nan_strategy: str = "skip",
         batch_shape=(),
+        differentiable: bool = False,
         device=None,
     ):
         super().__init__(
@@ -95,6 +130,7 @@ class ParticleFilter(BaseFilter):
         self.proposal = proposal if proposal is not None else Bootstrap()
         self.ess_threshold = float(ess_threshold)
         self.record_moments = record_moments
+        self.differentiable = bool(differentiable)
         #: resample fires since construction (host counter; reset freely)
         self.n_resamples = 0
         self._identity_cache = None
@@ -122,6 +158,18 @@ class ParticleFilter(BaseFilter):
         u = self.resample_uniform(generator)
         expand = systematic_expand_lanes if self.batch_shape else systematic_expand
         return expand(None, weights, values, normalized=normalized, u=u)
+
+    def _ancestor_correction(self, log_weights: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+        """Per-slot log-weight terms that are exactly 0 in value but carry the
+        gradient of each slot's ancestor's normalised log-weight, ``log w̄^{a_i}
+        - stop_gradient(log w̄^{a_i})`` (arXiv:2106.10314). The filters add it
+        to the post-resample weights and take ``softmax`` of it as the
+        normalised weights (the value 1/N, with a live gradient)."""
+        gathered = batched_gather(normalize_log(log_weights), indices, 0)
+        # a zero-mass ancestor is chosen only through a tie at a copy-count
+        # boundary; its -inf would give -inf - (-inf) = NaN
+        gathered = torch.where(torch.isfinite(gathered), gathered, 0.0)
+        return gathered - gathered.detach()
 
     @property
     def particles(self) -> tuple:
@@ -202,3 +250,22 @@ class ParticleFilter(BaseFilter):
             inds = batched_gather(prev_inds[t + 1], inds, 0)
             out[t] = batched_gather(values[t], inds, ev)
         return out
+
+    # -- VI bridge -------------------------------------------------------------
+    def smoothed_log_likelihood(self, generator, y, model=None, smoothing: str = "ffbs",
+                                **smooth_kwargs) -> torch.Tensor:
+        """The reference's pyro VI factor without pyro: filter ``y`` and smooth
+        (``smoothing``, :meth:`smooth`'s methods and arguments) outside the
+        graph, then evaluate :func:`smoothed_joint_log_likelihood` of the
+        smoothed trajectories under ``model`` (this filter's by default), whose
+        parameters carry the gradient. The filter and the smoother run under
+        ``torch.no_grad()`` and what they return is detached: the FFBS pass
+        writes into one preallocated tensor in place, outside any graph.
+        Returns ``(*batch)``."""
+        model = self.model if model is None else model
+        filt = self.replace(model=model, record_states=True, record_intermediary=model.observe_every_step > 1)
+        with torch.no_grad():
+            result = filt.batch_filter(generator, y)
+            smoothed = filt.smooth(generator, result, method=smoothing, **smooth_kwargs)
+        return smoothed_joint_log_likelihood(model, result.states.time_indexes, smoothed.detach(), y,
+                                             oes=model.observe_every_step)

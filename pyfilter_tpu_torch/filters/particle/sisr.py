@@ -22,7 +22,8 @@ from .base import ParticleFilter
 class SISR(ParticleFilter):
     def predict(self, generator, state) -> ParticleFilterPrediction:
         """ESS-gated resampling: below ``ess_threshold * N`` a lane resamples
-        and its weights reset; otherwise it passes through with identity
+        and its weights reset (to the zero-valued ancestor correction when
+        ``differentiable``); otherwise it passes through with identity
         ancestor indices (never the previous step's, which the fixed-lag
         smoother would trace)."""
         normalized = state.normalized_weights()
@@ -35,6 +36,9 @@ class SISR(ParticleFilter):
 
         self.n_resamples += 1
         new_vals, indices = self._resample(generator, normalized, ts_state)
+        if self.differentiable:
+            corr = self._ancestor_correction(state.log_weights, indices)
+            return ParticleFilterPrediction(ts_state.copy(values=new_vals), corr, torch.softmax(corr, dim=0), indices)
         return ParticleFilterPrediction(
             ts_state.copy(values=new_vals),
             torch.zeros_like(state.log_weights),
@@ -58,10 +62,15 @@ class SISR(ParticleFilter):
         resampled, fresh_idx = self._resample(generator, normalized, ts_state)
         mask = ess < self.resample_threshold  # (*batch), broadcast over the particle axis
         vals_mask = mask.reshape(mask.shape + (1,) * ts_state.event_ndim)
+        if self.differentiable:
+            corr = self._ancestor_correction(state.log_weights, fresh_idx)
+            reset_w, reset_norm = corr, torch.softmax(corr, dim=0)
+        else:
+            reset_w, reset_norm = 0.0, 1.0 / self.n_particles
         return ParticleFilterPrediction(
             ts_state.copy(values=torch.where(vals_mask, resampled, ts_state.value)),
-            torch.where(mask, 0.0, state.log_weights),
-            torch.where(mask, 1.0 / self.n_particles, normalized),
+            torch.where(mask, reset_w, state.log_weights),
+            torch.where(mask, reset_norm, normalized),
             torch.where(mask, fresh_idx, self._identity),
         )
 

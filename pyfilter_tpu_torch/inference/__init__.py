@@ -1,10 +1,12 @@
 """Parameter inference: the context (plain and quasi-random), priors, batch
-PMMH and its proposals, SMC², NESS and their hybrids (counterpart of
-``pyfilter_tpu/inference``, the subset those paths run)."""
+PMMH and its proposals, SMC², NESS and their hybrids, variational inference
+and maximum likelihood through the filter, and chain diagnostics
+(counterpart of ``pyfilter_tpu/inference``, the subset those paths run)."""
 
-from . import batch, logging, plot, prior, qmc, sequential
+from . import batch, diagnostics, logging, plot, prior, qmc, sequential, variational
 from .base import BaseAlgorithm
-from .batch.mcmc import PMMH, AdaptiveRandomWalk, PMMHResult, RandomWalk, SymmetricMH
+from .batch.mcmc import PMMH, AdaptiveRandomWalk, GradientBasedProposal, PMMHResult, RandomWalk, SymmetricMH
+from .diagnostics import effective_sample_size, potential_scale_reduction, summarize_chains
 from .context import InferenceContext, QuasiInferenceContext, make_context
 from .parameter import PriorBoundParameter
 from .sequential import (
@@ -22,6 +24,7 @@ from .sequential import (
 from .state import RunningFilterResult, SequentialAlgorithmState, SMC2State, scrub_lane_increment
 from .qmc import EngineContainer
 from .utils import QuasiMultivariateNormal, calc_mean_chol, construct_mvn
+from .variational import GuideState, MLEResult, SVIResult, fit_mle, fit_svi
 
 __all__ = [
     "batch",
@@ -30,12 +33,15 @@ __all__ = [
     "prior",
     "qmc",
     "sequential",
+    "variational",
+    "diagnostics",
     "BaseAlgorithm",
     "PMMH",
     "PMMHResult",
     "RandomWalk",
     "AdaptiveRandomWalk",
     "SymmetricMH",
+    "GradientBasedProposal",
     "InferenceContext",
     "QuasiInferenceContext",
     "make_context",
@@ -58,4 +64,12 @@ __all__ = [
     "scrub_lane_increment",
     "calc_mean_chol",
     "construct_mvn",
+    "fit_svi",
+    "fit_mle",
+    "GuideState",
+    "SVIResult",
+    "MLEResult",
+    "potential_scale_reduction",
+    "effective_sample_size",
+    "summarize_chains",
 ]

@@ -1,7 +1,7 @@
 """Particle MCMC: batch PMMH, its proposals and the transition SMC² shares."""
 
 from .pmmh import PMMH
-from .proposals import AdaptiveRandomWalk, BaseProposal, RandomWalk, SymmetricMH
+from .proposals import AdaptiveRandomWalk, BaseProposal, GradientBasedProposal, RandomWalk, SymmetricMH
 from .state import PMMHResult
 from .utils import PMMHStep, pmmh_accept, run_pmmh
 
@@ -12,6 +12,7 @@ __all__ = [
     "RandomWalk",
     "AdaptiveRandomWalk",
     "SymmetricMH",
+    "GradientBasedProposal",
     "PMMHStep",
     "pmmh_accept",
     "run_pmmh",

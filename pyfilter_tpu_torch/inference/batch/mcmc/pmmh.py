@@ -101,7 +101,7 @@ class PMMH(BaseAlgorithm):
         state = self.initialize(y)
         logging = logging or TQDMWrapper()
         with logging.initialize(self, self.num_samples):
-            kernel = self._proposal.build(self.context, state, self._filter, y)
+            kernel = self._proposal.build(self.context, state, self._filter, y, self.generator)
             for i in range(self.num_samples):
                 step = run_pmmh(self.generator, self.context, state, self._proposal, kernel, self._filter, y,
                                 mutate_kernel=True)

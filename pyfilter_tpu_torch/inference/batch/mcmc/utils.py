@@ -27,8 +27,8 @@ def _uniform(generator, like: torch.Tensor) -> torch.Tensor:
     return torch.rand(like.shape, generator=generator, dtype=like.dtype, device=like.device)
 
 
-def pmmh_accept(context, state, proposal, proposal_kernel, rvs, proposal_context, new_res, log_u,
-                mutate_kernel: bool = False) -> PMMHStep:
+def pmmh_accept(context, state, proposal, proposal_kernel, rvs, proposal_context, proposal_filter, new_res, log_u,
+                y, generator, mutate_kernel: bool = False) -> PMMHStep:
     """Accept lane ``k`` when ``log_u[k] < diff_proposal + diff_prior +
     diff_loglik``, all on the unconstrained space; accepting lanes take the
     candidate's filter state and parameters. With ``mutate_kernel`` the
@@ -36,10 +36,14 @@ def pmmh_accept(context, state, proposal, proposal_kernel, rvs, proposal_context
     accepted)``, else the kernel given.
 
     ``rvs``: the candidate ``(K, D)``; ``proposal_context``: the context
-    holding it; ``new_res``: the re-filter under it; ``log_u``: ``(K,)``."""
+    holding it; ``proposal_filter``: the filter built on it; ``new_res``: its
+    re-filter of the host observations ``y``; ``log_u``: ``(K,)``. The
+    candidate's kernel, whose density at the current parameters is the
+    reverse move's, is built from all of these, its draws (the gradient
+    proposal's smoothing) from ``generator``."""
     diff_logl = new_res.log_likelihood - state.filter_state.log_likelihood
     diff_prior = proposal_context.eval_priors(constrained=False) - context.eval_priors(constrained=False)
-    new_prop_kernel = proposal.build(proposal_context, state.replicate(new_res), None, None)
+    new_prop_kernel = proposal.build(proposal_context, state.replicate(new_res), proposal_filter, y, generator)
     params = context.stack_parameters(constrained=False)
     diff_prop = new_prop_kernel.log_prob(params) - proposal_kernel.log_prob(rvs)
 
@@ -57,10 +61,12 @@ def run_pmmh(generator, context, state, proposal, proposal_kernel, filter_, y: n
              mutate_kernel: bool = False) -> PMMHStep:
     """One PMMH update over all lanes: draw the candidate, re-filter ``y``
     (host observations) under it, draw the log-uniforms, then
-    :func:`pmmh_accept`. Every draw comes from ``generator``, in that order."""
+    :func:`pmmh_accept`, whose build of the candidate's kernel draws last.
+    Every draw comes from ``generator``, in that order."""
     rvs = proposal_kernel.sample(generator, tuple(size))
     proposal_context = context.unstack_parameters(rvs, constrained=False)
-    new_res = filter_.initialize_model(proposal_context).batch_filter(generator, y)
+    proposal_filter = filter_.initialize_model(proposal_context)
+    new_res = proposal_filter.batch_filter(generator, y)
     log_u = torch.log(_uniform(generator, new_res.log_likelihood))
-    return pmmh_accept(context, state, proposal, proposal_kernel, rvs, proposal_context, new_res, log_u,
-                       mutate_kernel=mutate_kernel)
+    return pmmh_accept(context, state, proposal, proposal_kernel, rvs, proposal_context, proposal_filter, new_res,
+                       log_u, y, generator, mutate_kernel=mutate_kernel)

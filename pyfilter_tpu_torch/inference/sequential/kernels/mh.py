@@ -71,7 +71,7 @@ class ParticleMetropolisHastings:
         y = state.parsed_data_host
         indices = self._resampler(generator, state.normalized_weights(), normalized=True)
         # the proposal is fitted on the cloud BEFORE the lane resample
-        dist = self._proposal.build(context, state, filter_, y)
+        dist = self._proposal.build(context, state, filter_, y, generator)
         context = context.resample(indices)
         state.filter_state = state.filter_state.resample(indices)
         size = () if tuple(dist.batch_shape) else (filter_.batch_shape[0],)

@@ -21,6 +21,17 @@ kernel's plain version: ``copy_counts``, then counts inversion plus a gather.
 The plain versions from counts (``_expand_plain``, ``_expand_lanes_plain``)
 stay beside the ones from probabilities: the CPU tests feed them the JAX
 package's own counts.
+
+Both fused functions are differentiable in the values (a
+``torch.autograd.Function`` each): the gradient of the gathered planes flows
+back through the transpose of the gather, a scatter-add by the saved
+indices, which on the card is a hand-written kernel too
+(:func:`fused_expand_backward`, :func:`fused_expand_lanes_backward`, in the
+same sources) and on the CPU its plain version, ``index_add_``
+(``scatter_add_`` over lanes). The probabilities and the uniform get no
+gradient: the copy counts are piecewise constant in them (a filter's
+gradient through the weights takes the ancestor correction,
+``filters/particle/base.py``).
 """
 
 from __future__ import annotations
@@ -38,8 +49,10 @@ from .resample import copy_counts, invert_counts
 __all__ = [
     "systematic_expand",
     "fused_expand",
+    "fused_expand_backward",
     "systematic_expand_lanes",
     "fused_expand_lanes",
+    "fused_expand_lanes_backward",
 ]
 
 
@@ -67,11 +80,11 @@ def _cfunc(name: str, fn: str, argtypes: tuple, restype):
     return f
 
 
-def _kernel(name: str, n_ptrs: int, n_ints: int):
-    """The C entry point ``pf_<name>`` of ``csrc/<name>.cu``: ``n_ptrs`` device
-    pointers, ``n_ints`` ints, then the stream."""
+def _kernel(name: str, n_ptrs: int, n_ints: int, entry: str | None = None):
+    """The C entry point ``entry`` (default ``pf_<name>``) of ``csrc/<name>.cu``:
+    ``n_ptrs`` device pointers, ``n_ints`` ints, then the stream."""
     argtypes = (ctypes.c_void_p,) * n_ptrs + (ctypes.c_int,) * n_ints + (ctypes.c_void_p,)
-    return _cfunc(name, f"pf_{name}", argtypes, ctypes.c_int)
+    return _cfunc(name, entry or f"pf_{name}", argtypes, ctypes.c_int)
 
 
 def _query(name: str, fn: str, *ints: int) -> int:
@@ -95,13 +108,70 @@ def _check_cuda(*tensors: torch.Tensor) -> bool:
 _lookback_states: dict = {}
 
 
+def _expand_backward_plain(g: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The single-lane backward kernel's plain version: ``g`` ``(d, n)``
+    scattered back onto the sources by ``idx`` ``(n,)``."""
+    return torch.zeros_like(g).index_add_(1, idx.long(), g)
+
+
+def fused_expand_backward(g: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The gradient of :func:`fused_expand`'s values: the gathered planes'
+    gradient ``g`` ``(d, n)`` summed onto each source by the monotone indices
+    ``idx`` ``(n,)``. Returns ``(d, n)``.
+
+    CUDA tensors launch the kernel (and count the launch in
+    ``fused_expand_backward.launches``); CPU tensors take the plain version."""
+    if _check_cuda(g, idx):
+        return _expand_backward_plain(g, idx)
+    d, n = g.shape
+    g = g.contiguous()
+    if g.dtype != torch.float32 or idx.dtype != torch.int32 or idx.shape != (n,) or not idx.is_contiguous():
+        raise ValueError(f"the backward takes a (d, {n}) float32 gradient and ({n},) int32 indices")
+    out = torch.empty_like(g)
+    with torch.cuda.device(g.device):
+        rc = _kernel("expand", 3, 2, "pf_expand_backward")(g.data_ptr(), idx.data_ptr(), out.data_ptr(), n, d,
+                                                           torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"expand backward kernel launch failed with CUDA error {rc}")
+    fused_expand_backward.launches += 1
+    return out
+
+
+fused_expand_backward.launches = 0
+
+
+class _Expand(torch.autograd.Function):
+    """:func:`fused_expand` with its backward (saved indices, scatter-add)."""
+
+    @staticmethod
+    def forward(ctx, probs, u, v2d):
+        out, idx = _expand_forward(probs, u, v2d)
+        ctx.save_for_backward(idx)
+        ctx.mark_non_differentiable(idx)
+        return out, idx
+
+    @staticmethod
+    def backward(ctx, g_out, g_idx):
+        (idx,) = ctx.saved_tensors
+        return None, None, fused_expand_backward(g_out, idx)
+
+
 def fused_expand(probs: torch.Tensor, u: torch.Tensor, v2d: torch.Tensor):
     """Resample the plane-major values ``v2d`` ``(d, n)`` systematically by the
     probabilities ``probs`` ``(n,)`` and the uniform ``u`` (a 0-d tensor).
-    Returns ``(out (d, n), idx (n,) int32)``.
+    Returns ``(out (d, n), idx (n,) int32)``; ``out`` carries ``v2d``'s
+    gradient back through :func:`fused_expand_backward`.
 
     CUDA tensors launch the kernel (and count the launch in
-    ``fused_expand.launches``); CPU tensors take the plain version."""
+    ``fused_expand.launches``); CPU tensors take the plain version. The
+    autograd wrapper is entered only when ``v2d`` needs a gradient."""
+    if torch.is_grad_enabled() and v2d.requires_grad:
+        return _Expand.apply(probs, u, v2d)
+    return _expand_forward(probs, u, v2d)
+
+
+def _expand_forward(probs: torch.Tensor, u: torch.Tensor, v2d: torch.Tensor):
+    """:func:`fused_expand`'s forward: the kernel, or the plain version on the CPU."""
     if _check_cuda(probs, u, v2d):
         return _expand_probs_plain(probs, u, v2d)
     if probs.dtype != torch.float32 or probs.dim() != 1 or not probs.is_contiguous():
@@ -197,13 +267,72 @@ def _expand_lanes_probs_plain(probs_nl: torch.Tensor, u: torch.Tensor, planes: t
     return _expand_lanes_plain(copy_counts(probs_nl.T, u), planes)
 
 
+def _expand_lanes_backward_plain(g: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The lane backward kernel's plain version: ``g`` ``(d, n, L)`` scattered
+    back onto each lane's sources by ``idx`` ``(n, L)``."""
+    return torch.zeros_like(g).scatter_add_(1, idx.long().unsqueeze(0).expand_as(g), g)
+
+
+def fused_expand_lanes_backward(g: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The gradient of :func:`fused_expand_lanes`'s values: the gathered
+    planes' gradient ``g`` ``(d, n, L)`` summed onto each lane's sources by its
+    monotone indices ``idx`` ``(n, L)``. Returns ``(d, n, L)``.
+
+    CUDA tensors launch the kernel (and count the launch in
+    ``fused_expand_lanes_backward.launches``); CPU tensors take the plain
+    version."""
+    if _check_cuda(g, idx):
+        return _expand_lanes_backward_plain(g, idx)
+    d, n, n_lanes = g.shape
+    g = g.contiguous()
+    if g.dtype != torch.float32 or idx.dtype != torch.int32 or idx.shape != (n, n_lanes) or not idx.is_contiguous():
+        raise ValueError(f"the backward takes a (d, {n}, {n_lanes}) float32 gradient and ({n}, {n_lanes}) int32 "
+                         "indices")
+    out = torch.empty_like(g)
+    with torch.cuda.device(g.device):
+        rc = _kernel("expand_lanes", 3, 3, "pf_expand_lanes_backward")(
+            g.data_ptr(), idx.data_ptr(), out.data_ptr(), n, n_lanes, d, torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"lane expand backward kernel launch failed with CUDA error {rc}")
+    fused_expand_lanes_backward.launches += 1
+    return out
+
+
+fused_expand_lanes_backward.launches = 0
+
+
+class _ExpandLanes(torch.autograd.Function):
+    """:func:`fused_expand_lanes` with its backward (saved indices, scatter-add)."""
+
+    @staticmethod
+    def forward(ctx, probs_nl, u, planes):
+        out, idx = _expand_lanes_forward(probs_nl, u, planes)
+        ctx.save_for_backward(idx)
+        ctx.mark_non_differentiable(idx)
+        return out, idx
+
+    @staticmethod
+    def backward(ctx, g_out, g_idx):
+        (idx,) = ctx.saved_tensors
+        return None, None, fused_expand_lanes_backward(g_out, idx)
+
+
 def fused_expand_lanes(probs_nl: torch.Tensor, u: torch.Tensor, planes: torch.Tensor):
     """Resample the value planes ``planes`` ``(d, n, L)`` systematically, each
     lane by its probabilities ``probs_nl[:, l]`` ``(n, L)`` and its uniform
-    ``u[l]`` ``(L,)``. Returns ``(out (d, n, L), idx (n, L) int32)``.
+    ``u[l]`` ``(L,)``. Returns ``(out (d, n, L), idx (n, L) int32)``; ``out``
+    carries ``planes``' gradient back through :func:`fused_expand_lanes_backward`.
 
     CUDA tensors launch the kernel (and count the launch in
-    ``fused_expand_lanes.launches``); CPU tensors take the plain version."""
+    ``fused_expand_lanes.launches``); CPU tensors take the plain version. The
+    autograd wrapper is entered only when ``planes`` needs a gradient."""
+    if torch.is_grad_enabled() and planes.requires_grad:
+        return _ExpandLanes.apply(probs_nl, u, planes)
+    return _expand_lanes_forward(probs_nl, u, planes)
+
+
+def _expand_lanes_forward(probs_nl: torch.Tensor, u: torch.Tensor, planes: torch.Tensor):
+    """:func:`fused_expand_lanes`'s forward: the kernel, or the plain version on the CPU."""
     if _check_cuda(probs_nl, u, planes):
         return _expand_lanes_probs_plain(probs_nl, u, planes)
     if probs_nl.dtype != torch.float32 or probs_nl.dim() != 2 or not probs_nl.is_contiguous():

@@ -1,5 +1,5 @@
-"""Pre-built processes: ``AR``, ``RandomWalk`` and ``Verhulst`` (the
-volatility of the stochastic-volatility model).
+"""Pre-built processes: ``AR``, ``RandomWalk``, ``OrnsteinUhlenbeck`` and
+``Verhulst`` (the volatility of the stochastic-volatility model).
 
 Counterpart of ``pyfilter_tpu/timeseries/models.py``. Like the JAX package,
 and unlike ``bench.py``'s torch loop, the volatility is not clamped.
@@ -75,3 +75,28 @@ class RandomWalk(AffineProcess):
     def __init__(self, sigma, device=None):
         device = resolve_device(device)
         super().__init__(_rw_mean_scale, (parameter(sigma, device),), _standard_normal(device), _rw_initial)
+
+
+def _ou_factory(dt: float):
+    def mean_scale(x, kappa, gamma, sigma):
+        decay = torch.exp(-kappa * dt)
+        return gamma + (x.value - gamma) * decay, sigma * torch.sqrt((1.0 - torch.square(decay)) / (2.0 * kappa))
+
+    return mean_scale
+
+
+def _ou_initial(kappa, gamma, sigma):
+    return Normal(gamma, sigma / torch.sqrt(2.0 * kappa))
+
+
+class OrnsteinUhlenbeck(AffineProcess):
+    r"""The Ornstein-Uhlenbeck process, discretised exactly over ``dt``:
+    ``x' = gamma + (x - gamma) e^{-kappa dt} + sigma sqrt((1 - e^{-2 kappa dt})
+    / (2 kappa)) eps``; initial law the stationary ``N(gamma, sigma /
+    sqrt(2 kappa))``."""
+
+    def __init__(self, kappa, gamma, sigma, dt: float = 1.0, device=None):
+        device = resolve_device(device)
+        params = tuple(parameter(p, device) for p in (kappa, gamma, sigma))
+        super().__init__(_ou_factory(dt), params, _standard_normal(device), _ou_initial)
+        self.dt = dt

@@ -2,7 +2,9 @@
 
 Counterpart of ``pyfilter_tpu/timeseries/state.py``. ``time_index`` is a
 host-side Python float here: the process time advances on the host, so a
-sub-step costs no device work for it.
+sub-step costs no device work for it. A state holding whole trajectories
+(the VI bridge's) takes a tensor of times instead, shaped to broadcast
+against the value's batch axes.
 """
 
 from __future__ import annotations
@@ -16,8 +18,8 @@ class TimeseriesState:
     """A point-in-time state of a stochastic process: ``value`` has shape
     ``(*shape, *event)`` with ``event_ndim`` trailing event axes."""
 
-    def __init__(self, time_index: float, value: torch.Tensor, event_ndim: int = 0):
-        self.time_index = float(time_index)
+    def __init__(self, time_index: float | torch.Tensor, value: torch.Tensor, event_ndim: int = 0):
+        self.time_index = time_index if isinstance(time_index, torch.Tensor) else float(time_index)
         self.value = value
         self.event_ndim = event_ndim
 

@@ -342,3 +342,101 @@ def test_oracle_entry_points_refuse_without_a_card(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert pt.GPF(_rw2d_model("cpu"), 10, device="cpu").device.type == "cpu"
+
+
+def _float64_scatter(g, idx):
+    """The float64 transpose of the gather and each source's sum of |g| (its
+    run's mass), ``g`` ``(d, n[, L])``, ``idx`` ``(n[, L])``."""
+    il = idx.long().unsqueeze(0).expand(g.shape)
+    ref = torch.zeros(g.shape, dtype=torch.float64, device=g.device).scatter_add_(1, il, g.double())
+    mass = torch.zeros(g.shape, dtype=torch.float64, device=g.device).scatter_add_(1, il, g.double().abs())
+    return ref, mass
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 257, 8193, 1_000_003])
+@pytest.mark.parametrize("d", [1, 3])
+@pytest.mark.parametrize("name", ["random", "degenerate"])
+def test_expand_backward_kernel_on_card(cuda, n, d, name):
+    """``loss.backward()`` through ``fused_expand`` reaches the values through
+    the backward kernel (one launch), the same bits at a second launch, each
+    source within 1e-6 of its run's sum of |g| of a float64 scatter-add, and
+    the plain backward's value within the same bound."""
+    g = torch.Generator(device=cuda).manual_seed(n + d)
+    lw = torch.randn(n, generator=g, device=cuda) * 2.0
+    if name == "degenerate":
+        lw = torch.full((n,), -math.inf, device=cuda)
+        lw[n // 2] = 0.0
+    v2d = torch.randn(d, n, generator=g, device=cuda).requires_grad_(True)
+    out, idx = expand.fused_expand(torch.softmax(lw, 0), torch.tensor(0.37, device=cuda), v2d)
+    cot = torch.randn(d, n, generator=g, device=cuda)
+    before = expand.fused_expand_backward.launches
+    (out * cot).sum().backward()
+    assert expand.fused_expand_backward.launches == before + 1
+    ref, mass = _float64_scatter(cot, idx)
+    assert bool(((v2d.grad.double() - ref).abs() <= 1e-6 * mass).all())
+    assert torch.equal(v2d.grad, expand.fused_expand_backward(cot, idx))
+    plain = expand._expand_backward_plain(cot, idx)
+    assert bool(((plain.double() - ref).abs() <= 1e-6 * mass + 1e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_lanes", [(400, 1000), (257, 5), (7105, 40), (2, 9)])
+@pytest.mark.parametrize("d", [1, 3])
+def test_expand_lanes_backward_kernel_on_card(cuda, n, n_lanes, d):
+    """The same through ``fused_expand_lanes``, lane 0 degenerate."""
+    g = torch.Generator(device=cuda).manual_seed(n + n_lanes + d)
+    lw = torch.randn(n, n_lanes, generator=g, device=cuda) * 2.0
+    lw[:, 0] = -math.inf
+    lw[n - 1, 0] = 0.0
+    planes = torch.randn(d, n, n_lanes, generator=g, device=cuda).requires_grad_(True)
+    out, idx = expand.fused_expand_lanes(torch.softmax(lw, 0), torch.rand(n_lanes, generator=g, device=cuda), planes)
+    cot = torch.randn(d, n, n_lanes, generator=g, device=cuda)
+    before = expand.fused_expand_lanes_backward.launches
+    (out * cot).sum().backward()
+    assert expand.fused_expand_lanes_backward.launches == before + 1
+    ref, mass = _float64_scatter(cot, idx)
+    assert bool(((planes.grad.double() - ref).abs() <= 1e-6 * mass).all())
+    assert torch.equal(planes.grad, expand.fused_expand_lanes_backward(cot, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [(), (4,)])
+def test_differentiable_sisr_step_on_card_carries_the_gradient(cuda, lanes):
+    """A differentiable SISR step on the card resamples through the kernel,
+    its gathered values carry a ``grad_fn``, and the log-likelihood's
+    gradient reaches the parameter through the backward kernel."""
+    beta = torch.full(lanes, 0.6, device=cuda, requires_grad=True)
+    model = pt.timeseries.LinearStateSpaceModel(pt.timeseries.models.AR(0.0, beta, 0.5), (1.0, 0.3))
+    filt = pt.SISR(model, 1000, ess_threshold=2.0, differentiable=True, batch_shape=lanes)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    state = filt.initialize(gen)
+    state = filt.filter(gen, 0.3, state, first_step=True)
+    state = filt.filter(gen, -0.1, state)
+    pred = filt.predict(gen, state)
+    assert pred.x.value.grad_fn is not None
+    back = (expand.fused_expand_backward.launches, expand.fused_expand_lanes_backward.launches)
+    res = filt.batch_filter(gen, [0.3, -0.1, 0.5, 0.2])
+    res.log_likelihood.sum().backward()
+    assert bool(torch.isfinite(beta.grad).all()) and bool((beta.grad != 0).all())
+    now = (expand.fused_expand_backward.launches, expand.fused_expand_lanes_backward.launches)
+    assert now[1 if lanes else 0] - back[1 if lanes else 0] == 3  # the first step's gathers hold no gradient
+
+
+def test_gradient_entry_points_refuse_without_a_card(monkeypatch):
+    """Without a card, the OU process, the nutria model and the fits through
+    a filter on the default device raise unless given ``device="cpu"``."""
+    from pyfilter_tpu_torch import inference as inf
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    build = lambda ctx: pt.examples.nutria_builder(ctx, num_obs=5)  # noqa: E731
+    for make in (
+        lambda: pt.timeseries.models.OrnsteinUhlenbeck(0.5, 1.0, 0.1),
+        lambda: pt.examples.nutria_model(),
+        lambda: inf.fit_svi(build, [0.1] * 5, lambda b: pt.APF(b, 10), num_steps=1),
+        lambda: inf.fit_mle(build, [0.1] * 5, lambda b: pt.APF(b, 10), num_steps=1),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    res = inf.fit_svi(build, [0.1] * 5, lambda b: pt.APF(b, 10, device="cpu"), num_steps=1, num_elbo_samples=2)
+    assert res.context.device.type == "cpu" and res.losses.shape == (1,)

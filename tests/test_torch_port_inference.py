@@ -192,7 +192,9 @@ def test_one_pmmh_acceptance_matches_jax():
     tkernel = SymmetricMH().build(tctx, state, None, None)
     tprop = tctx.unstack_parameters(_t(rvs), constrained=False)
     new_res = pt.FilterResult(_t(ll_new), None, None, None, new)
-    step = pmmh_accept(tctx, state, SymmetricMH(), tkernel, _t(rvs), tprop, new_res, _t(log_u))
+    # SymmetricMH's candidate-side build reads neither the candidate's filter
+    # nor the observations nor the generator (as the JAX side's, given None)
+    step = pmmh_accept(tctx, state, SymmetricMH(), tkernel, _t(rvs), tprop, None, new_res, _t(log_u), None, None)
 
     np.testing.assert_array_equal(step.accepted.numpy(), j_accept)
     for name in tctx.parameters:
