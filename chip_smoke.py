@@ -7,6 +7,8 @@
     python3 chip_smoke.py --apf-bias [SEEDS]   # phase 5's APF over more seeds only
     python3 chip_smoke.py --oracle    # phases 1-3 and 12 only
     python3 chip_smoke.py --gradients # phases 1-3 and 13 only
+    python3 chip_smoke.py --backward  # phases 1-3 and 13a only
+    python3 chip_smoke.py --backward-ab TREE   # TREE's backward kernels against these, one card
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -124,10 +126,15 @@ Phases, in order; any failure exits non-zero before the result line:
 13. Gradients through the filter (float64 host oracles, TF32 off):
    (a) both backward kernels (the scatter-add transposes of the two gathers)
    at phase 3's shapes, the main paths' and this phase's, degenerate clouds
-   among them: the same bits at two launches, each source within 1e-6 of its
-   run's sum of |g| of a float64 index_add_, the forward kernels still bit
-   for bit their plain versions; each timed at the main paths' shapes
-   against its bound and index_add_ (scatter_add_ for lanes).
+   among them, and on indices built directly (``backward_indices``: runs and
+   gaps at the kernels' tile and chunk edges, n around one tile, lanes past
+   the staged rows, L in 1, 7, 9): the same bits at two launches, each source
+   within 1e-6 of its run's sum of |g| of a float64 index_add_, the forward
+   kernels still bit for bit their plain versions; each timed at the main
+   paths' shapes against its bound and index_add_ (scatter_add_ for lanes),
+   on a degenerate cloud beside the library call on it, and at the gradient
+   paths' shapes (13b, 13c); one differentiable SISR step at N = 1e6 on a
+   collapsed cloud, forward and backward, on the host clock.
    (b) ``tests/test_differentiable.py``'s score gate at its own size
    (AR(1), T = 40, N = 512, beta0 = 0.6): the mean gradient of the
    differentiable SISR (a resample every step) and APF over 64 seeds of one
@@ -147,6 +154,11 @@ Phases, in order; any failure exits non-zero before the result line:
 fit (``pmmh_fit``), the host time of a lane resample-and-gather call at
 phase 11's shape and one phase-11 fit, and prints them as one JSON line; run
 it over two trees in alternating order to compare them on one card.
+
+``--backward-ab TREE`` builds TREE's two backward kernels from its sources
+and times them against this tree's in turns on one card (phase 13a's
+shapes, the gradient paths', degenerate clouds, the collapsed SISR step)
+and prints one JSON line; ``--backward`` runs phases 1-3 and 13a only.
 
 ``--ness-spread`` runs only phase 9's seed sweep (card and CPU fits and the
 gaps between them). ``--apf-bias [SEEDS]`` runs only phase 5's APF over
@@ -355,6 +367,60 @@ MLE_N, MLE_T, MLE_STEPS, MLE_LR, MLE_TOL = 256, 150, 250, 3e-2, 0.08
 # at T = 200 with APF(300) and 4 chains; samples cut from 40 to 20 to keep
 # the whole run near 900 s (the 40-sample fits took 19-30 s a proposal)
 OU_TRUE, OU_OBS, OU_T, OU_N, OU_SAMPLES, OU_CHAINS = (0.5, 1.0, 0.1), 0.05, 200, 300, 20, 4
+# phase 13a: a differentiable SISR at N = 1e6 on phase 13's AR(1) with its
+# level alpha far from the truth (0): the cloud sits over 10 observation
+# sds from every observation, so each resample copies a handful of particles
+COLLAPSE_ALPHA, COLLAPSE_T = 3.0, 10
+
+
+# the backward kernels' tiling, where their edge cases lie: the single-lane
+# kernel's output tile (expand.cu kBackTile), the lane kernel's row chunks a
+# lane (expand_lanes.cu kChunks) and the rows past which it stops staging one
+# plane in shared memory (kBackStageBytes / 32 bytes a row of 8 lanes)
+K1T_TILE, LANE_CHUNKS, LANE_STAGED_ROWS = 4096, 64, 180 * 1024 // 32
+BACKWARD_INDEX_NAMES = ("runs-T-1", "runs-T", "runs-T+1", "runs-2T+1", "runs-T-1-off", "runs-T-off", "runs-T+1-off",
+                        "runs-2T+1-off", "one-run", "all-first", "all-last", "gap-edge", "sorted-random")
+
+
+def backward_indices(n: int, name: str, tile: int, seed: int = 0):
+    """A monotone int32 index array ``(n,)`` into [0, n), built directly (not
+    through a forward kernel), of a kind ``name`` where a tiled backward
+    kernel breaks (BACKWARD_INDEX_NAMES): runs of tile - 1, tile, tile + 1 and
+    2 tile + 1 outputs each, aligned to the tile edges or off them ("-off");
+    one run over every tile; all mass on the first or the last source; two
+    copies a source, then a jump of ``tile`` sources at a tile edge (a gap of
+    zero-copy sources across it); sorted uniform draws."""
+    import numpy as np
+
+    i = np.arange(n, dtype=np.int64)
+    if name.startswith("runs-"):
+        spec = name[len("runs-"):].removesuffix("-off")
+        length = {"T-1": tile - 1, "T": tile, "T+1": tile + 1, "2T+1": 2 * tile + 1}[spec]
+        idx = (i + (tile // 3 if name.endswith("-off") else 0)) // max(length, 1)
+    elif name == "one-run":
+        idx = np.full(n, n // 2)
+    elif name == "all-first":
+        idx = np.zeros(n, np.int64)
+    elif name == "all-last":
+        idx = np.full(n, n - 1)
+    elif name == "gap-edge":
+        idx = np.where(i < tile - 3, i // 2, i // 2 + tile)
+    elif name == "sorted-random":
+        idx = np.sort(np.random.default_rng(seed + n).integers(0, n, n))
+    else:
+        raise ValueError(f"unknown index kind {name}")
+    return np.minimum(idx, n - 1).astype(np.int32)
+
+
+def backward_lane_indices(n: int, lanes: int, shift: int = 0):
+    """Monotone columns ``(n, lanes)`` int32: lane l's column is
+    :func:`backward_indices` of kind BACKWARD_INDEX_NAMES[(l + shift) % 13],
+    its tile the lane kernel's rows a chunk."""
+    import numpy as np
+
+    tile = max(-(-n // LANE_CHUNKS), 2)
+    names = BACKWARD_INDEX_NAMES
+    return np.stack([backward_indices(n, names[(l + shift) % len(names)], tile, seed=l) for l in range(lanes)], axis=1)
 
 
 def nutria_start(lanes: int) -> dict:
@@ -572,11 +638,17 @@ def main(argv) -> int:
             if "ptxas" in line and ("registers" in line or "spill" in line):
                 print(f"  {name}: {line.strip()}")
 
+    if argv[:1] == ["--backward-ab"]:
+        return backward_ab(torch, pt, expand, card, argv[1])
+
     # -- 3. kernels against their plain versions ----------------------------
     max_err = check_expand(torch, expand)
     lanes_err = check_expand_lanes(torch, expand)
     if argv[:1] == ["--oracle"]:
         oracle_suite(torch, pt, expand, card, profile="--profile" in argv)
+        return 0
+    if argv[:1] == ["--backward"]:
+        print(json.dumps(check_backward(torch, pt, expand, card)))
         return 0
     if argv[:1] == ["--gradients"]:
         grads = gradients(torch, pt, expand, card)
@@ -2137,7 +2209,7 @@ def _lane_weights(torch, n, lanes, name, g):
     return lw
 
 
-def check_backward(torch, expand, card) -> dict:
+def check_backward(torch, pt, expand, card) -> dict:
     """Phase 13a: both backward kernels against their float64 references on
     the card. Per case: the forward kernel bit-equal to its plain version,
     the backward kernel bit-identical across two launches, and each source's
@@ -2176,9 +2248,7 @@ def check_backward(torch, expand, card) -> dict:
                 a, b = expand.fused_expand_backward(gr, idx), expand.fused_expand_backward(gr, idx)
                 if not torch.equal(a, b):
                     raise AssertionError(f"expand backward kernel not deterministic at n={n} d={d} {name}")
-                il = idx.long()
-                ref64 = torch.zeros(d, n, dtype=torch.float64, device="cuda").index_add_(1, il, gr.double())
-                mass = torch.zeros(d, n, dtype=torch.float64, device="cuda").index_add_(1, il, gr.double().abs())
+                ref64, mass = float64_scatter(torch, gr, idx)
                 worst = max(worst, gate(f"n={n} d={d} {name}", a, ref64, mass))
                 n_cases += 1
     torch.cuda.synchronize()
@@ -2205,10 +2275,7 @@ def check_backward(torch, expand, card) -> dict:
                 a, b = expand.fused_expand_lanes_backward(gr, idx), expand.fused_expand_lanes_backward(gr, idx)
                 if not torch.equal(a, b):
                     raise AssertionError(f"lane backward kernel not deterministic at n={n} L={lanes} d={d} {name}")
-                il = idx.long().unsqueeze(0).expand(d, n, lanes)
-                ref64 = torch.zeros(d, n, lanes, dtype=torch.float64, device="cuda").scatter_add_(1, il, gr.double())
-                mass = torch.zeros(d, n, lanes, dtype=torch.float64, device="cuda").scatter_add_(
-                    1, il, gr.double().abs())
+                ref64, mass = float64_scatter(torch, gr, idx)
                 worst = max(worst, gate(f"n={n} L={lanes} d={d} {name}", a, ref64, mass))
                 n_cases += 1
     torch.cuda.synchronize()
@@ -2217,6 +2284,51 @@ def check_backward(torch, expand, card) -> dict:
           f"launches, within 1e-6 of each source's run's sum of |g| of a float64 scatter-add (largest error "
           f"{worst}); the forward kernel bit for bit its plain version")
     out["lane_err"] = worst
+
+    # synthetic indices, built directly: runs and gaps at the tile edges
+    # (K1T_TILE outputs) and at the lane kernel's row chunks, past its staged rows
+    worst, n_cases = 0.0, 0
+    k1_sets = [(5 * K1T_TILE + 3, BACKWARD_INDEX_NAMES)] + [
+        (n, ("sorted-random", "one-run", "runs-T-1", "gap-edge", "all-last")) for n in
+        (K1T_TILE - 1, K1T_TILE, K1T_TILE + 1)] + [(N_PARTICLES, ("one-run", "all-first", "all-last", "sorted-random"))]
+    for n, names in k1_sets:
+        for name in names:
+            idx = torch.from_numpy(backward_indices(n, name, K1T_TILE)).to("cuda")
+            for d in (1, 2):
+                gr = torch.randn(d, n, generator=g, device="cuda")
+                a, b = expand.fused_expand_backward(gr, idx), expand.fused_expand_backward(gr, idx)
+                if not torch.equal(a, b):
+                    raise AssertionError(f"expand backward kernel not deterministic at n={n} d={d} {name}")
+                ref64, mass = float64_scatter(torch, gr, idx)
+                worst = max(worst, gate(f"n={n} d={d} {name} (synthetic)", a, ref64, mass))
+                n_cases += 1
+    torch.cuda.synchronize()
+    print(f"phase 13a: expand backward kernel on {n_cases} synthetic index cases (tile {K1T_TILE}; n in "
+          f"{', '.join(str(n) for n, _ in k1_sets)}; d in 1, 2; {', '.join(BACKWARD_INDEX_NAMES)}): the same bits at "
+          f"two launches, within 1e-6 of each source's run's sum of |g| of a float64 scatter-add (largest error "
+          f"{worst})")
+    out["k1_err"] = max(out["k1_err"], worst)
+
+    worst, n_cases = 0.0, 0
+    lane_sets = ((400, 9), (400, 1000), (65, 7), (64, 1), (2, 9), (1, 1), (4096, 7), (LANE_STAGED_ROWS, 9),
+                 (LANE_STAGED_ROWS + 1, 7), (7105, 9))
+    for n, lanes in lane_sets:
+        for shift in (0, 5):
+            idx = torch.from_numpy(backward_lane_indices(n, lanes, shift)).to("cuda")
+            for d in (1, 2, 5):
+                gr = torch.randn(d, n, lanes, generator=g, device="cuda")
+                a, b = expand.fused_expand_lanes_backward(gr, idx), expand.fused_expand_lanes_backward(gr, idx)
+                if not torch.equal(a, b):
+                    raise AssertionError(f"lane backward kernel not deterministic at n={n} L={lanes} d={d} (synthetic)")
+                ref64, mass = float64_scatter(torch, gr, idx)
+                worst = max(worst, gate(f"n={n} L={lanes} d={d} shift {shift} (synthetic)", a, ref64, mass))
+                n_cases += 1
+    torch.cuda.synchronize()
+    print(f"phase 13a: lane backward kernel on {n_cases} synthetic index cases ((n, L) in "
+          f"{', '.join(map(str, lane_sets))}; every lane one of the {len(BACKWARD_INDEX_NAMES)} kinds with the "
+          f"chunk's rows as its tile, two rotations; d in 1, 2, 5): the same bits at two launches, within 1e-6 of "
+          f"each source's run's sum of |g| of a float64 scatter-add (largest error {worst})")
+    out["lane_err"] = max(out["lane_err"], worst)
 
     # times at the main paths' shapes: K1 n = 1e6, d = 1; the lane kernel n = 400, L = 1000, d = 2
     n = N_PARTICLES
@@ -2231,11 +2343,14 @@ def check_backward(torch, expand, card) -> dict:
     deg = torch.zeros(n, device="cuda")
     deg[n // 2] = 1.0
     _, deg_idx = expand.fused_expand(deg, torch.rand((), generator=g, device="cuda"), gr)
+    deg_il = deg_idx.long()
     out["k1_degenerate_ms"] = time_cold(torch, lambda: expand.fused_expand_backward(gr, deg_idx))
+    out["k1_library_degenerate_ms"] = time_cold(torch, lambda: buf.index_add_(1, deg_il, gr))
     print(f"phase 13a: expand backward at n={n}, d=1 (L2 flushed, median of 20): kernel {out['k1_ms']} ms, plain "
           f"(zeros + index_add_) {out['k1_plain_ms']} ms, library (index_add_) {out['k1_library_ms']} ms, bound "
           f"{out['k1_bound_ms']} ms (bytes), {out['k1_bound_ms'] / out['k1_ms']:.4f} of the bound; one run of n "
-          f"(every output from one source, summed by one thread) {out['k1_degenerate_ms']} ms; card {card}")
+          f"(every output from one source): kernel {out['k1_degenerate_ms']} ms, index_add_ "
+          f"{out['k1_library_degenerate_ms']} ms; card {card}")
 
     n, lanes, d = SMC2_N, SMC2_K, 2
     probs = torch.softmax(torch.randn(n, lanes, generator=g, device="cuda"), dim=0)
@@ -2246,11 +2361,208 @@ def check_backward(torch, expand, card) -> dict:
     out["lane_plain_ms"] = time_cold(torch, lambda: expand._expand_lanes_backward_plain(gr, idx))
     out["lane_library_ms"] = time_cold(torch, lambda: buf.scatter_add_(1, il, gr))
     out["lane_bound_ms"] = (4 * d * n * lanes + 4 * n * lanes + 4 * d * n * lanes) / HBM_BYTES_PER_S * 1e3
+    deg_idx = torch.full((n, lanes), n // 2, dtype=torch.int32, device="cuda")
+    deg_il = deg_idx.long().unsqueeze(0).expand(d, n, lanes)
+    out["lane_degenerate_ms"] = time_cold(torch, lambda: expand.fused_expand_lanes_backward(gr, deg_idx))
+    out["lane_library_degenerate_ms"] = time_cold(torch, lambda: buf.scatter_add_(1, deg_il, gr))
     print(f"phase 13a: lane backward at n={n}, L={lanes}, d={d} (L2 flushed, median of 20): kernel {out['lane_ms']} "
           f"ms, plain (zeros + scatter_add_) {out['lane_plain_ms']} ms, library (scatter_add_) "
           f"{out['lane_library_ms']} ms, bound {out['lane_bound_ms']} ms (bytes), "
-          f"{out['lane_bound_ms'] / out['lane_ms']:.4f} of the bound; card {card}")
+          f"{out['lane_bound_ms'] / out['lane_ms']:.4f} of the bound; every lane one run of n: kernel "
+          f"{out['lane_degenerate_ms']} ms, scatter_add_ {out['lane_library_degenerate_ms']} ms; card {card}")
+
+    # times where the gradient paths launch the kernels (13b, 13c)
+    out["path_ms"] = {}
+    for label, gr, idx in gradient_path_inputs(torch, expand, g):
+        kernel = expand.fused_expand_backward if idx.dim() == 1 else expand.fused_expand_lanes_backward
+        out["path_ms"][label] = (time_cold(torch, lambda: kernel(gr, idx)),
+                                 time_cold(torch, library_backward(torch, gr, idx)))
+    print("phase 13a: at the gradient paths' shapes (L2 flushed, median of 20; kernel ms, library ms): "
+          + "; ".join(f"{k} {v[0]}, {v[1]}" for k, v in out["path_ms"].items()) + f"; card {card}")
+    out["collapsed_step_ms"] = collapsed_sisr_step(torch, pt, expand, card)
     return out
+
+
+def float64_scatter(torch, g, idx):
+    """The float64 transpose of the gather and each source's sum of |g| (its
+    run's mass), ``g`` ``(d, n[, L])``, ``idx`` ``(n[, L])``."""
+    il = idx.long().unsqueeze(0).expand(g.shape)
+    ref = torch.zeros(g.shape, dtype=torch.float64, device=g.device).scatter_add_(1, il, g.double())
+    mass = torch.zeros(g.shape, dtype=torch.float64, device=g.device).scatter_add_(1, il, g.double().abs())
+    return ref, mass
+
+
+def gradient_path_inputs(torch, expand, g) -> list:
+    """``(label, gradient, indices)`` at the shapes where the gradient paths
+    launch the backward kernels: K1T at n = 256, d = 1 (13c) and n = 512, d =
+    1 and 2 (13b's SISR and APF), the lane kernel at (512, 64), d = 1 and 2
+    (13b), each on indices from the forward kernel on random weights."""
+    cases = []
+    for n, d in ((MLE_N, 1), (SCORE_N, 1), (SCORE_N, 2)):
+        gr = torch.randn(d, n, generator=g, device="cuda")
+        probs = torch.softmax(torch.randn(n, generator=g, device="cuda"), dim=0)
+        cases.append((f"K1T n={n} d={d}", gr,
+                      expand.fused_expand(probs, torch.rand((), generator=g, device="cuda"), gr)[1]))
+    for d in (1, 2):
+        n, lanes = SCORE_N, SCORE_SEEDS
+        gr = torch.randn(d, n, lanes, generator=g, device="cuda")
+        probs = torch.softmax(torch.randn(n, lanes, generator=g, device="cuda"), dim=0)
+        cases.append((f"K2T n={n} L={lanes} d={d}", gr,
+                      expand.fused_expand_lanes(probs, torch.rand(lanes, generator=g, device="cuda"), gr)[1]))
+    return cases
+
+
+def library_backward(torch, gr, idx):
+    """The one PyTorch call that computes a backward kernel's function:
+    ``index_add_`` (``scatter_add_`` over lanes) into a zeroed buffer made
+    here, untimed."""
+    buf = torch.zeros_like(gr)
+    if idx.dim() == 1:
+        il = idx.long()
+        return lambda: buf.index_add_(1, il, gr)
+    il = idx.long().unsqueeze(0).expand(gr.shape)
+    return lambda: buf.scatter_add_(1, il, gr)
+
+
+def collapsed_sisr_step(torch, pt, expand, card, kernel=None, label: str = "") -> float:
+    """One line: the host ms of a differentiable SISR step, forward and
+    backward, at N = 1e6 on a collapsed cloud (phase 13's AR(1) filtered
+    with its level alpha COLLAPSE_ALPHA, far from the truth 0, so every
+    observation leaves a handful of particles): COLLAPSE_T steps and the
+    log-likelihood's backward, after a warm-up run, the card synced. The
+    warm-up run records the longest run of copies each backward call sums.
+    ``kernel`` replaces the port's K1T (another tree's, ``--backward-ab``)."""
+    y = score_data(torch, pt, COLLAPSE_T, 3)
+    kernel = kernel or expand.fused_expand_backward
+    original = expand.fused_expand_backward
+    longest, calls = [], [0]
+
+    def counted(gr, idx):
+        calls[0] += 1
+        return kernel(gr, idx)
+
+    def recording(gr, idx):
+        longest.append(int(torch.bincount(idx.long()).max()))
+        return kernel(gr, idx)
+
+    def run(seed):
+        alpha = torch.tensor(COLLAPSE_ALPHA, device="cuda", requires_grad=True)
+        model = pt.timeseries.LinearStateSpaceModel(
+            pt.timeseries.models.AR(alpha, SCORE_BETA, SCORE_SIGMA, device="cuda"), (1.0, SCORE_OBS_S))
+        res = pt.SISR(model, N_PARTICLES, differentiable=True).batch_filter(
+            torch.Generator(device="cuda").manual_seed(seed), y)
+        res.log_likelihood.backward()
+        return float(alpha.grad)
+
+    # the port's wrapper counts its launches on the module's name, which these
+    # stand in for while they run: they carry the count, handed back after
+    counted.launches = recording.launches = original.launches
+    try:
+        expand.fused_expand_backward = recording
+        run(0)
+        counted.launches = recording.launches
+        expand.fused_expand_backward = counted
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grad = run(1)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / COLLAPSE_T * 1e3
+    finally:
+        original.launches = expand.fused_expand_backward.launches
+        expand.fused_expand_backward = original
+    longest.sort()
+    print(f"phase 13a{label}: differentiable SISR at N={N_PARTICLES} on a collapsed cloud (alpha {COLLAPSE_ALPHA}, "
+          f"truth 0), T={COLLAPSE_T}: {ms:.3f} ms a step forward and backward (host clock, synced); the warm-up's "
+          f"backward calls summed runs of up to {longest[-1] if longest else 0} copies (median "
+          f"{longest[len(longest) // 2] if longest else 0}); backward calls {calls[0]}; gradient {grad:.4f}; "
+          f"card {card}")
+    if not (math.isfinite(grad) and calls[0] > 0):
+        raise AssertionError(f"phase 13a: the collapsed SISR step gave gradient {grad} over {calls[0]} backward calls")
+    return ms
+
+
+def backward_ab(torch, pt, expand, card, tree: str) -> int:
+    """``--backward-ab TREE``: TREE's two backward kernels (built here from
+    TREE's ``csrc`` sources with the port's flags into ``build/ab/``) against
+    this tree's, in turns (TREE, this, this, TREE) on one card, L2 flushed,
+    median of 20 each: at the gradient paths' shapes (13b, 13c), at the main
+    paths' shapes, on a degenerate cloud; then the collapsed SISR step of
+    phase 13a in situ with each tree's K1T in the same turns. Each kernel is
+    first held to the float64 gate of phase 13a on each input. Prints one
+    JSON line."""
+    import ctypes
+
+    from pyfilter_tpu_torch.ops import _build
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "ab")
+    os.makedirs(out_dir, exist_ok=True)
+    started = {}
+    for name in ("expand", "expand_lanes"):
+        lib = os.path.join(out_dir, f"lib{name}.so")
+        src = os.path.join(os.path.abspath(tree), "pyfilter_tpu_torch", "ops", "csrc", f"{name}.cu")
+        started[name] = (subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, src],
+                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    libs = {}
+    for name, (proc, lib) in started.items():
+        text = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"{tree}: {name}.cu did not build\n{text}")
+        libs[name] = ctypes.CDLL(lib)
+    ptr, cint = ctypes.c_void_p, ctypes.c_int
+    k1_fn = libs["expand"].pf_expand_backward
+    k1_fn.argtypes, k1_fn.restype = [ptr] * 3 + [cint] * 2 + [ptr], cint
+    lane_fn = libs["expand_lanes"].pf_expand_lanes_backward
+    lane_fn.argtypes, lane_fn.restype = [ptr] * 3 + [cint] * 3 + [ptr], cint
+
+    def old_k1(gr, idx):
+        out = torch.empty_like(gr)
+        if k1_fn(gr.data_ptr(), idx.data_ptr(), out.data_ptr(), gr.shape[1], gr.shape[0],
+                 torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("the other tree's expand backward kernel did not launch")
+        return out
+
+    def old_lanes(gr, idx):
+        out = torch.empty_like(gr)
+        if lane_fn(gr.data_ptr(), idx.data_ptr(), out.data_ptr(), gr.shape[1], gr.shape[2], gr.shape[0],
+                   torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("the other tree's lane backward kernel did not launch")
+        return out
+
+    g = torch.Generator(device="cuda").manual_seed(29)
+    inputs = gradient_path_inputs(torch, expand, g)
+    n = N_PARTICLES
+    gr = torch.randn(1, n, generator=g, device="cuda")
+    probs = torch.softmax(torch.randn(n, generator=g, device="cuda"), dim=0)
+    inputs.append((f"K1T n={n} d=1", gr, expand.fused_expand(probs, torch.rand((), generator=g, device="cuda"), gr)[1]))
+    inputs.append((f"K1T n={n} d=1 one run", gr, torch.full((n,), n // 2, dtype=torch.int32, device="cuda")))
+    n, lanes = SMC2_N, SMC2_K
+    gr = torch.randn(2, n, lanes, generator=g, device="cuda")
+    probs = torch.softmax(torch.randn(n, lanes, generator=g, device="cuda"), dim=0)
+    inputs.append((f"K2T n={n} L={lanes} d=2", gr,
+                   expand.fused_expand_lanes(probs, torch.rand(lanes, generator=g, device="cuda"), gr)[1]))
+    inputs.append((f"K2T n={n} L={lanes} d=2 one run a lane", gr,
+                   torch.full((n, lanes), n // 2, dtype=torch.int32, device="cuda")))
+    rows = {}
+    for label, gr, idx in inputs:
+        lane = idx.dim() == 2
+        new = expand.fused_expand_lanes_backward if lane else expand.fused_expand_backward
+        old = old_lanes if lane else old_k1
+        ref64, mass = float64_scatter(torch, gr, idx)
+        for who, fn in (("parent", old), ("change", new)):
+            bad = int(((fn(gr, idx).double() - ref64).abs() > 1e-6 * mass).sum())
+            if bad:
+                raise AssertionError(f"--backward-ab: {who} kernel off the float64 scatter-add at {label} ({bad})")
+        t = [time_cold(torch, lambda f=f: f(gr, idx)) for f in (old, new, new, old)]
+        rows[label] = {"parent_ms": [t[0], t[3]], "change_ms": [t[1], t[2]],
+                       "library_ms": time_cold(torch, library_backward(torch, gr, idx))}
+        print(f"--backward-ab {label}: parent {t[0]}, {t[3]} ms; change {t[1]}, {t[2]} ms; library "
+              f"{rows[label]['library_ms']} ms")
+    steps = {"parent": [], "change": []}
+    for who in ("parent", "change", "change", "parent"):
+        steps[who].append(collapsed_sisr_step(torch, pt, expand, card, old_k1 if who == "parent" else None,
+                                              f" ({who} K1T)"))
+    print(json.dumps({"tree": os.path.abspath(tree), "card": card, "rows": rows, "collapsed_step_ms": steps}))
+    return 0
 
 
 def _launch_counts(expand) -> tuple:
@@ -2574,6 +2886,9 @@ def backward_kernel_lines(grads: dict) -> list:
             "bound_ms": grads[f"{key}_bound_ms"],
             "bound_by": "bytes",
             "library_ms": grads[f"{key}_library_ms"],
+            "degenerate_ms": grads[f"{key}_degenerate_ms"],
+            "library_degenerate_ms": grads[f"{key}_library_degenerate_ms"],
+            "path_ms": {k: v for k, v in grads["path_ms"].items() if k.startswith("K1T" if key == "k1" else "K2T")},
         })
     return lines
 
@@ -2582,7 +2897,7 @@ def gradients(torch, pt, expand, card) -> dict:
     """Phase 13 (module docstring): returns the backward kernels' errors and
     times, and each path's launches by kernel."""
     t_phase = time.perf_counter()
-    out = check_backward(torch, expand, card)
+    out = check_backward(torch, pt, expand, card)
     out["paths"] = {"phase 13b": score_gate(torch, pt, expand, card), "phase 13c": mle_gate(torch, pt, expand, card),
                     "phase 13d": nutria_svi(torch, pt, expand, card), "phase 13e": gradient_pmmh(torch, pt, expand, card)}
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s; launches by path {out['paths']}")

@@ -52,24 +52,64 @@
 // ops/expand.py::fused_expand): the transpose of the gather,
 //     grad_src[c][j] = sum of grad_out[c][i] over the outputs i with idx[i] = j,
 // the scatter-add that JAX's autodiff derives for the gather (the JAX package
-// has no kernel for it; this is the port's own). Systematic ancestors are
-// monotone, so the outputs of source j are one contiguous run [lo, hi) of idx:
-// one thread per source finds it by two binary searches in idx and sums it in
-// output order in float64, rounding once to float32. Every source is written
-// exactly once (a zero-copy source as 0): no atomics, so the result is the same
-// bits at every launch, and within 1e-6 of the run's sum of |g| of a float64
-// sum. A run can be as long as n (all the mass on one particle); such a run is
-// summed serially by its one thread, and its time is recorded in PERF.md
-// (section 6) rather than split. Bound: it must read grad_out (4 d n bytes) and
-// idx (4 n) and write grad_src (4 d n): 12 MB at n = 1e6, d = 1, 3.6 us on an
-// H100 SXM (3.35 TB/s); the searches' reads of idx (log2 n each) mostly hit L2.
+// has no kernel for it; this is the port's own), for any monotone idx into
+// [0, n): the outputs of source j are one contiguous run of idx. Every source is
+// written exactly once, a source that no output names as 0.
+//
+// What bounds it. It must read grad_out (4 d n bytes) and idx (4 n) and write
+// grad_src (4 d n): 12 MB at n = 1e6, d = 1, 3.6 us on an H100 SXM (3.35 TB/s).
+// One float64 add an output: memory-bound. Its rules: the same bits at every
+// launch (no float atomics, no look-back that groups float partials by
+// timing), float64 sums in an order fixed by the shapes alone, rounded once,
+// and no host decision by data.
+//
+// What the design does about it: a reduction by key over output tiles, in one
+// launch (expand_backward_kernel).
+// - A block owns a tile of 4096 outputs (16 a thread; 245 tiles at n = 1e6, all
+//   resident at once, three blocks an SM) and reads its idx once, then each
+//   plane of grad_out once, by 16-byte loads, the next plane's loads in flight
+//   during this plane's work: the bound's traffic.
+// - Each thread sums the runs of its 16 outputs serially in float64; a
+//   segmented scan (warp shuffles, then the warps' totals in order through
+//   shared memory, segmented_scan.cuh) carries the run that crosses each thread
+//   edge, and the thread holding a run's last output has its sum.
+// - A tile owns the window of sources (the previous tile's last key, its own
+//   last key], the last tile up to n - 1, so the windows split [0, n). A
+//   window of up to 16384 sources is staged in shared memory, zeroed, given the
+//   sums and written out in coalesced stores, zero-copy sources included.
+// - A run that crosses tile edges is written by the tile it ends in: that tile
+//   waits for the flags of the tiles the run covers (usually one) and adds
+//   their published float64 partials in tile order. The wait sees only values
+//   each tile computes alone, so the sum's order is fixed by the inputs, never
+//   by timing (unlike a look-back that takes whatever prefix is published
+//   first). A degenerate cloud's one run of n is 245 block scans and one fixed
+//   tree over 243 partials, not n serial adds by one thread.
+// - A window wider than that (a gap of zero-copy sources: half of n on each
+//   side of a degenerate cloud's one source) would put megabytes of zeros on
+//   one SM. So 32 helper blocks split all wide windows' zeros evenly (each
+//   helper reads every tile's last key), and a wide tile writes its sums
+//   straight out once the helpers' flags are set.
+// - Blocks take tickets in the order they start: helpers first, then tiles in
+//   order. A block waits only on blocks with earlier tickets, which run and
+//   never wait on later ones, so no wait can deadlock, whatever the grid. The
+//   flags carry an epoch in device state that the last ticket advances: no
+//   host state, no host sync, graph-safe.
+// With n <= 4096 there is one tile, nothing crosses and nothing is wide: no
+// tickets, no flags.
+//
+// What stops it short of the bound (times in PERF.md, section 6): each block
+// takes its ticket before its loads (one atomic's round trip), the tile's
+// barriers (a window's zeroing, the scan, the write-out), the helpers' reads
+// of every tile's last key, and a crossing run's wait for its first tile.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstddef>
 #include <cstdint>
 
 #include "fixed_counts.cuh"
+#include "segmented_scan.cuh"
 
 namespace {
 
@@ -311,20 +351,345 @@ expand_kernel(const int* __restrict__ counts, const int* __restrict__ starts,
 }
 
 constexpr int kBackThreads = 256;
+constexpr int kBackItems = 16;                           // outputs per thread: four int4 / float4 loads
+constexpr int kBackTile = kBackThreads * kBackItems;     // 4096 outputs per tile: 245 tiles at n = 1e6
+constexpr int kMaxBackTiles = (1 << 24) / kBackTile;     // n <= 2^24
+constexpr int kBackStage = 4 * kBackTile;                // sources of a tile's window staged in shared memory
+constexpr int kBackHelpers = 32;                         // blocks that zero the wide windows
+// device state, int64 words: [0] ticket, [1] epoch, then one flag per tile and
+// per helper, each epoch + 1 once that block's results are in memory
+constexpr int kBackStateWords = 2 + kMaxBackTiles + kBackHelpers;
+constexpr int kNoKey = 0x7fffffff;                       // the key of a position past n
 
-__global__ void __launch_bounds__(kBackThreads)
-expand_backward_kernel(const float* __restrict__ grad_out, const int* __restrict__ idx,
-                       float* __restrict__ grad_src, int n, int d) {
-  const int j = blockIdx.x * kBackThreads + threadIdx.x;
-  if (j >= n) return;
-  // source j's outputs: [first i with idx[i] >= j, first i with idx[i] > j)
-  const int lo = first_above(idx, 0, n, j - 1);
-  const int hi = first_above(idx, lo, n, j);
-  for (int k = 0; k < d; ++k) {
-    const float* g = grad_out + static_cast<size_t>(k) * n;
-    double sum = 0.0;
-    for (int i = lo; i < hi; ++i) sum += static_cast<double>(__ldg(g + i));
-    grad_src[static_cast<size_t>(k) * n + j] = static_cast<float>(sum);
+// Scratch of a call with more than one tile: what each tile publishes.
+struct BackScratch {
+  double* part;  // [plane][tile][2]: the sums of the tile's first and last run
+  int* keys;     // [tile][3]: their keys, and the key before the tile
+};
+
+__device__ __forceinline__ void load16(const float* src, bool vec, int base, int n, float (&v)[kBackItems]) {
+  if (vec) {
+    const float4* p = reinterpret_cast<const float4*>(src + base);
+#pragma unroll
+    for (int q = 0; q < kBackItems / 4; ++q) {
+      const float4 x = __ldg(p + q);
+      v[4 * q] = x.x;
+      v[4 * q + 1] = x.y;
+      v[4 * q + 2] = x.z;
+      v[4 * q + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < kBackItems; ++r) v[r] = base + r < n ? __ldg(src + base + r) : 0.0f;
+  }
+}
+
+// Waits until `flag` holds `want`. Only blocks with earlier tickets are waited
+// on, and they never wait on later ones, so the wait ends; a bound turns a
+// fault into an error rather than a hang.
+__device__ __forceinline__ void wait_flag(const long long* flag, long long want) {
+  for (long long spins = 0; ld_acquire(flag) != want; ++spins) {
+    if (spins > (1LL << 24)) __trap();
+    __nanosleep(32);
+  }
+}
+
+// One block per ticket. The first `helpers` tickets zero the wide windows;
+// ticket helpers + m takes tile m of kBackTile outputs. A tile owns the window
+// of sources (the previous tile's last key, its own last key], the last tile up
+// to n - 1, so the windows split [0, n). kSingle: one tile, no state, nothing
+// crosses and nothing is wide.
+template <bool kSingle>
+__global__ void __launch_bounds__(kBackThreads, 3)
+expand_backward_kernel(const float* __restrict__ grad_out, const int* __restrict__ idx, float* __restrict__ grad_src,
+                       BackScratch sc, long long* state, int n, int d, int tiles, int helpers) {
+  extern __shared__ int s_dyn[];             // the staged window (a tile), or the windows (a helper)
+  __shared__ int s_first[kBackThreads + 1];  // each thread's first key; then the next tile's first
+  __shared__ int s_last[kBackThreads];       // each thread's last key
+  __shared__ int s_prev;                     // the previous tile's last key
+  __shared__ int s_ticket;
+  __shared__ long long s_mark;
+  __shared__ int s_start;
+  __shared__ int s_min;
+  __shared__ int s_isum[kBackThreads / 32];
+  __shared__ bool s_head[kBackThreads / 32];
+  __shared__ double s_sum[kBackThreads / 32];
+  __shared__ double s_mid[kBackThreads / 32];
+  float* s_win = reinterpret_cast<float*>(s_dyn);
+  long long* tile_flag = state + 2;
+  long long* helper_flag = tile_flag + kMaxBackTiles;
+
+  if (!kSingle) {
+    if (threadIdx.x == 0) {  // the epoch is read before the ticket, so the last ticket may advance it
+      const long long epoch = ld_acquire(state + 1);
+      __threadfence();
+      const int t = static_cast<int>(atomicAdd(reinterpret_cast<unsigned long long*>(state), 1ull));
+      if (t == tiles + helpers - 1) {  // every block holds a ticket: reset for the next call
+        st_relaxed(state, 0);
+        st_release(state + 1, epoch + 1);
+      }
+      s_ticket = t;
+      s_mark = epoch + 1;
+    }
+    __syncthreads();
+  }
+  const long long mark = kSingle ? 0 : s_mark;
+
+  if (!kSingle && s_ticket < helpers) {
+    // a helper: every tile's window from the tiles' last keys, the wide ones
+    // compacted with their widths' prefix, then this helper's even share of
+    // their zeros (all but a last key that a later tile writes)
+    const int h = s_ticket;
+    int* s_bound = s_dyn;                // [tiles] each tile's last key
+    int* s_after = s_bound + tiles;      // [tiles] the next tile's first key
+    int* s_wide = s_after + tiles;       // the wide windows' tiles
+    int* s_zoff = s_wide + tiles;        // their zeros' exclusive prefix
+    for (int m = threadIdx.x; m < tiles; m += kBackThreads) {
+      s_bound[m] = __ldg(idx + min((m + 1) * kBackTile, n) - 1);
+      s_after[m] = m + 1 < tiles ? __ldg(idx + (m + 1) * kBackTile) : -1;
+    }
+    __syncthreads();
+    auto win_lo = [&](int m) { return m == 0 ? 0 : s_bound[m - 1] + 1; };
+    auto win_hi = [&](int m) { return m == tiles - 1 ? n - 1 : s_bound[m]; };
+    const int per = (tiles + kBackThreads - 1) / kBackThreads;  // thread t: tiles per t ... per t + per - 1
+    int count = 0, zeros = 0;
+    for (int q = 0; q < per; ++q) {
+      const int m = threadIdx.x * per + q;
+      if (m < tiles && win_hi(m) - win_lo(m) + 1 > kBackStage) {
+        ++count;
+        zeros += win_hi(m) - win_lo(m) + 1;
+      }
+    }
+    int wide, total;
+    int at = pf::block_exclusive_sum<kBackThreads>(count, s_isum, wide);
+    int zoff = pf::block_exclusive_sum<kBackThreads>(zeros, s_isum, total);
+    for (int q = 0; q < per; ++q) {
+      const int m = threadIdx.x * per + q;
+      if (m < tiles && win_hi(m) - win_lo(m) + 1 > kBackStage) {
+        s_wide[at] = m;
+        s_zoff[at++] = zoff;
+        zoff += win_hi(m) - win_lo(m) + 1;
+      }
+    }
+    if (threadIdx.x == 0) s_zoff[wide] = total;
+    __syncthreads();
+    const int z0 = static_cast<int>(static_cast<long long>(total) * h / helpers);
+    const int z1 = static_cast<int>(static_cast<long long>(total) * (h + 1) / helpers);
+    int w = 0;
+    for (int top = wide; w < top;) {  // the first wide window whose zeros reach past z0
+      const int mid = (w + top) / 2;
+      if (s_zoff[mid + 1] > z0) {
+        top = mid;
+      } else {
+        w = mid + 1;
+      }
+    }
+    for (; w < wide && s_zoff[w] < z1; ++w) {
+      const int m = s_wide[w];
+      const int p0 = max(z0, s_zoff[w]);
+      const int p1 = min(z1, s_zoff[w + 1]);
+      const int src = win_lo(m) + p0 - s_zoff[w];
+      const int keep = s_after[m] == s_bound[m] ? s_bound[m] : -1;
+      for (int c = 0; c < d; ++c) {
+        float* out = grad_src + static_cast<size_t>(c) * n;
+        for (int e = threadIdx.x; e < p1 - p0; e += kBackThreads) {
+          if (src + e != keep) out[src + e] = 0.0f;
+        }
+      }
+    }
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) st_release(helper_flag + h, mark);
+    return;
+  }
+
+  const int tile = kSingle ? 0 : s_ticket - helpers;
+  const int t0 = tile * kBackTile;
+  const int base = t0 + threadIdx.x * kBackItems;
+  const bool full = base + kBackItems <= n;
+
+  // loads first: idx, planes 0 and 1, the keys either side of the tile
+  int k[kBackItems];
+  if (full && (reinterpret_cast<uintptr_t>(idx) & 15) == 0) {
+    const int4* src = reinterpret_cast<const int4*>(idx + base);
+#pragma unroll
+    for (int q = 0; q < kBackItems / 4; ++q) {
+      const int4 x = __ldg(src + q);
+      k[4 * q] = x.x;
+      k[4 * q + 1] = x.y;
+      k[4 * q + 2] = x.z;
+      k[4 * q + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < kBackItems; ++r) k[r] = base + r < n ? __ldg(idx + base + r) : kNoKey;
+  }
+  auto plane_vec = [&](int c) {
+    return full && (reinterpret_cast<uintptr_t>(grad_out + static_cast<size_t>(c) * n) & 15) == 0;
+  };
+  float v[kBackItems], v_next[kBackItems];
+  load16(grad_out, plane_vec(0), base, n, v);
+  if (d > 1) load16(grad_out + n, plane_vec(1), base, n, v_next);
+  s_first[threadIdx.x] = k[0];
+  s_last[threadIdx.x] = k[kBackItems - 1];
+  if (threadIdx.x == 0) {
+    s_first[kBackThreads] = tile + 1 < tiles ? __ldg(idx + t0 + kBackTile) : -1;
+    s_prev = tile > 0 ? __ldg(idx + t0 - 1) : -1;
+  }
+  __syncthreads();
+  const int first = s_first[0];               // the tile's first run's key
+  const int last = s_last[kBackThreads - 1];  // its last run's key (kNoKey past n)
+  const int before = s_prev;                  // -1 for the first tile
+  const int after = s_first[kBackThreads];    // -1 for the last tile
+  const bool cross_left = before == first;    // the first run began in an earlier tile
+  const bool cross_right = after == last;     // the last run goes on in a later tile
+  const int lo = before + 1;                  // the window [lo, hi]
+  const int hi = tile == tiles - 1 ? n - 1 : last;
+  const int width = hi - lo + 1;
+  const bool staged = width <= kBackStage;
+  const int next = s_first[threadIdx.x + 1];  // the key after this thread's outputs
+  const bool joins = threadIdx.x > 0 && k[0] == s_last[threadIdx.x - 1];
+  if (!kSingle && !staged) {  // a wide window: the helpers zero it first, then the sums go straight out
+    for (int h = threadIdx.x; h < helpers; h += kBackThreads) wait_flag(helper_flag + h, mark);
+    __syncthreads();
+  }
+
+  // plane c's staged window, zeros included, in coalesced stores; a last key
+  // that a later tile writes is left to it
+  auto write_out = [&](int c) {
+    if (!staged) return;
+    const int skip = cross_right ? last - lo : -1;
+    float* out = grad_src + static_cast<size_t>(c) * n + lo;
+    for (int e = threadIdx.x; e < width; e += kBackThreads) {
+      if (e != skip) out[e] = s_win[e];
+    }
+  };
+
+  for (int c = 0; c < d; ++c) {
+    if (c > 0) {  // plane c is in v_next; start plane c + 1's loads
+      write_out(c - 1);
+      __syncthreads();  // the window is free again
+#pragma unroll
+      for (int r = 0; r < kBackItems; ++r) v[r] = v_next[r];
+      if (c + 1 < d) load16(grad_out + static_cast<size_t>(c + 1) * n, plane_vec(c + 1), base, n, v_next);
+    }
+    if (staged) {
+      for (int e = threadIdx.x; e < width; e += kBackThreads) s_win[e] = 0.0f;
+    }
+    __syncthreads();
+    // a run's sum, once it is complete: the tile's first and last runs are
+    // published; a run that crosses a tile edge is written by the tile it
+    // ends in; the rest land in the staged window, or straight out
+    auto emit = [&](int key, double sum) {
+      if (!kSingle) {
+        if (key == first) sc.part[(static_cast<size_t>(c) * tiles + tile) * 2] = sum;
+        if (key == last) sc.part[(static_cast<size_t>(c) * tiles + tile) * 2 + 1] = sum;
+      }
+      if ((key == first && cross_left) || (key == last && cross_right) || key >= n) return;
+      if (staged) {
+        s_win[key - lo] = static_cast<float>(sum);
+      } else {
+        grad_src[static_cast<size_t>(c) * n + key] = static_cast<float>(sum);
+      }
+    };
+    // the thread's runs in output order: a run that starts and ends inside it
+    // is complete; its first run (head) may continue an earlier thread's
+    double acc = 0.0;
+    double head = 0.0;
+    bool closed = false;
+#pragma unroll
+    for (int r = 0; r < kBackItems - 1; ++r) {
+      acc += static_cast<double>(v[r]);
+      if (k[r + 1] != k[r]) {
+        if (closed) {
+          emit(k[r], acc);
+        } else {
+          head = acc;
+          closed = true;
+        }
+        acc = 0.0;
+      }
+    }
+    acc += static_cast<double>(v[kBackItems - 1]);  // the thread's last run (tail), so far
+    const bool starts = closed || !joins;          // the tail begins in this thread
+    bool any;
+    const double carry = pf::block_segmented_prefix<kBackThreads>(starts, acc, s_head, s_sum, any);
+    if (closed) emit(k[0], joins ? carry + head : head);
+    // the tail ends here when the next key differs, and at the tile's end in
+    // any case (where emit publishes it)
+    if (next != k[kBackItems - 1] || threadIdx.x == kBackThreads - 1) {
+      emit(k[kBackItems - 1], starts ? acc : carry + acc);
+    }
+    __syncthreads();
+  }
+  if (kSingle) {
+    write_out(d - 1);
+    return;
+  }
+
+  // publish the tile (its runs' keys and sums are in scratch), then write out
+  if (threadIdx.x == 0) {
+    sc.keys[3 * tile] = first;
+    sc.keys[3 * tile + 1] = last;
+    sc.keys[3 * tile + 2] = before;
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) st_release(tile_flag + tile, mark);
+  write_out(d - 1);
+  if (!cross_left || (first == last && cross_right)) return;
+
+  // The run that crosses into this tile ends here: its sum is its partials in
+  // tile order, from the tile it began in (start) to this one. A tile between
+  // them is that one run whole, and crossed into as well.
+  auto continues = [&](int q) {  // tile q is the run whole and began before it
+    const int f = __ldcg(sc.keys + 3 * q), l = __ldcg(sc.keys + 3 * q + 1), b = __ldcg(sc.keys + 3 * q + 2);
+    return f == l && b == f;
+  };
+  if (threadIdx.x == 0) {
+    wait_flag(tile_flag + tile - 1, mark);
+    s_start = continues(tile - 1) ? -1 : tile - 1;
+  }
+  __syncthreads();
+  for (int top = tile - 2; s_start < 0; top -= kBackThreads) {  // a long run: look back a block's width at a time
+    const int q = top - static_cast<int>(threadIdx.x);
+    bool stops = false;
+    if (q >= 0) {
+      wait_flag(tile_flag + q, mark);
+      stops = !continues(q);  // tile 0 never continues
+    }
+    if (threadIdx.x == 0) s_min = kNoKey;
+    __syncthreads();
+    if (stops) atomicMin(&s_min, static_cast<int>(threadIdx.x));  // the nearest tile that stops
+    __syncthreads();
+    if (threadIdx.x == 0 && s_min != kNoKey) s_start = top - s_min;
+    __syncthreads();
+  }
+  const int start = s_start;
+  if (start + 1 == tile) {  // two tiles: a thread per plane
+    for (int c = threadIdx.x; c < d; c += kBackThreads) {
+      const double* pc = sc.part + static_cast<size_t>(c) * tiles * 2;
+      grad_src[static_cast<size_t>(c) * n + first] =
+          static_cast<float>(__ldcg(pc + 2 * start + 1) + __ldcg(pc + 2 * tile));
+    }
+    return;
+  }
+  for (int c = 0; c < d; ++c) {
+    const double* pc = sc.part + static_cast<size_t>(c) * tiles * 2;
+    // the whole tiles between, thread i taking start + 1 + i, + 256, ... in
+    // order, then a fixed tree across the block
+    double mid = 0.0;
+    for (int q = start + 1 + static_cast<int>(threadIdx.x); q < tile; q += kBackThreads) mid += __ldcg(pc + 2 * q);
+    for (int o = 16; o > 0; o >>= 1) mid += __shfl_xor_sync(0xffffffffu, mid, o);
+    if (threadIdx.x % 32 == 0) s_mid[threadIdx.x / 32] = mid;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      mid = 0.0;
+      for (int w = 0; w < kBackThreads / 32; ++w) mid += s_mid[w];
+      grad_src[static_cast<size_t>(c) * n + first] =
+          static_cast<float>(__ldcg(pc + 2 * start + 1) + mid + __ldcg(pc + 2 * tile));
+    }
+    __syncthreads();
   }
 }
 
@@ -361,15 +726,46 @@ extern "C" int pf_expand(const void* probs, const void* u, const void* values, v
   return static_cast<int>(cudaGetLastError());
 }
 
+// int64 words of scratch the backward needs at (n, d): none for one tile, else
+// per tile two float64 partials a plane and three int32 keys.
+extern "C" long long pf_expand_backward_scratch(int n, int d) {
+  const long long tiles = (static_cast<long long>(n) + kBackTile - 1) / kBackTile;
+  if (tiles <= 1) return 0;
+  return tiles * 2 * d + (tiles * 3 + 1) / 2;
+}
+
+// int64 words of the backward's device state (tickets, epoch, flags); the
+// caller zeroes it once and keeps it for the calls of one stream.
+extern "C" long long pf_expand_backward_state_words() { return kBackStateWords; }
+
 // Launch the backward on `stream`: grad_out and grad_src are (d, n) float32, idx
-// is (n,) int32 and monotone (the forward's indices). All device memory,
-// allocated by the caller. Returns the CUDA error of the launch as an int (0 on
-// success).
-extern "C" int pf_expand_backward(const void* grad_out, const void* idx, void* grad_src, int n, int d,
-                                  void* stream) {
-  if (n <= 0) return 0;
-  expand_backward_kernel<<<(n + kBackThreads - 1) / kBackThreads, kBackThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(grad_out), static_cast<const int*>(idx), static_cast<float*>(grad_src), n, d);
+// is (n,) int32 and monotone into [0, n); scratch holds
+// pf_expand_backward_scratch(n, d) int64 words (may be null when that is 0),
+// state is the stream's backward state. All device memory, allocated by the
+// caller. Returns the first CUDA error as an int (0 on success).
+extern "C" int pf_expand_backward(const void* grad_out, const void* idx, void* grad_src, void* scratch, void* state,
+                                  int n, int d, void* stream) {
+  if (n <= 0 || d <= 0) return 0;
+  if (n > kMaxBackTiles * kBackTile) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* g = static_cast<const float*>(grad_out);
+  const auto* ix = static_cast<const int*>(idx);
+  auto* out = static_cast<float*>(grad_src);
+  const int tiles = (n + kBackTile - 1) / kBackTile;
+  if (tiles == 1) {
+    expand_backward_kernel<true><<<1, kBackThreads, sizeof(float) * n, s>>>(g, ix, out, BackScratch{}, nullptr, n,
+                                                                             d, 1, 0);
+    return static_cast<int>(cudaGetLastError());
+  }
+  BackScratch sc;
+  sc.part = static_cast<double*>(scratch);
+  sc.keys = reinterpret_cast<int*>(sc.part + static_cast<size_t>(2) * d * tiles);
+  const int helpers = std::min(tiles, kBackHelpers);
+  const int bytes = static_cast<int>(sizeof(int)) * std::max(kBackStage, 4 * tiles + 1);
+  const cudaError_t err = cudaFuncSetAttribute(expand_backward_kernel<false>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  expand_backward_kernel<false><<<tiles + helpers, kBackThreads, bytes, s>>>(
+      g, ix, out, sc, static_cast<long long*>(state), n, d, tiles, helpers);
   return static_cast<int>(cudaGetLastError());
 }

@@ -63,22 +63,48 @@
 // by lane,
 //     grad_src[c][j][l] = sum of grad_out[c][i][l] over the i with idx[i][l] = j,
 // the scatter-add that JAX's autodiff derives (the port's own kernel; the JAX
-// package has none). Each lane's ancestors are monotone, so source j's outputs
-// are one contiguous run of rows: one thread per (source, lane) finds it by two
-// binary searches down the lane's column of idx (neighbouring threads are
-// neighbouring lanes, so a warp's probes of one row share sectors while their
-// searches agree) and sums it in row order in float64, rounding once. Every
-// (source, lane) is written exactly once, zero-copy sources as 0: no atomics,
-// the same bits at every launch. A run as long as n (a degenerate lane) is
-// summed serially by its thread; its time is recorded in PERF.md (section 6).
-// Bound: read grad_out (4 d n L bytes) and idx (4 n L), write grad_src
-// (4 d n L): 8 MB at n = 400, L = 1000, d = 2, 2.4 us on an H100 SXM.
+// package has none), for any idx whose every column is monotone into [0, n):
+// source j's outputs are one contiguous run of rows. Every (source, lane) is
+// written exactly once, a zero-copy source as 0.
+//
+// What bounds it. Read grad_out (4 d n L bytes) and idx (4 n L), write
+// grad_src (4 d n L): 8 MB at n = 400, L = 1000, d = 2, 2.4 us on an H100 SXM,
+// below a launch's own latency. One float64 add an output: memory-bound. The
+// same rules as the single-lane backward (expand.cu): the same bits at every
+// launch, float64 sums in an order fixed by the shapes alone, no host decision
+// by data.
+//
+// What the design does about it: the forward's layout. A block owns kLanes = 8
+// lanes (one 32-byte sector of a row) and all n rows, so it owns every source of
+// its lanes: no search, no scratch, no second kernel, no state across blocks
+// (125 blocks at L = 1000, one wave).
+// - Its 512 threads are 64 row chunks x 8 lanes, as in the forward; each thread
+//   reads its chunk of one lane's idx and of up to kBackPlanes planes of
+//   grad_out, kBatch rows' loads in flight at once, whole sectors per warp, so
+//   one read of idx serves the planes of a group.
+// - It sums the runs of its chunk serially in row order in float64; a run that
+//   starts and ends inside the chunk is complete. The chunk's first and last
+//   runs go to shared memory; one warp per lane combines them across the 64
+//   chunks in chunk order by a segmented scan of shuffles, so a degenerate
+//   lane's run of n is 64 partials, not n serial adds.
+// - The sums land in a shared-memory copy of the group's planes (zeroed
+//   first, so every zero-copy source is written too), which the block then
+//   writes row by row in whole sectors. Past kBackStageBytes of planes (n
+//   above 5760 for one plane) the sums go to grad_src directly after the
+//   block has zeroed its lanes there; the C entry point chooses by shape.
+//
+// What stops it short of the bound (times in PERF.md, section 6): a launch's
+// latency is most of it at these sizes; then the chain of one chunk's loads,
+// its serial adds, two barriers and the write-out, with one block of 16 warps
+// per SM.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstddef>
 
 #include "fixed_counts.cuh"
+#include "segmented_scan.cuh"
 
 namespace {
 
@@ -206,37 +232,178 @@ expand_lanes_kernel(const float* __restrict__ probs, const float* __restrict__ u
   }
 }
 
-constexpr int kBackThreads = 256;
+constexpr int kBackPlanes = 4;               // planes summed together: one read of idx serves them
+constexpr int kBackStageBytes = 180 * 1024;  // a group's planes staged in shared memory, at most
+constexpr int kStaticBytes = 2 * kChunks * kLanes * sizeof(int);       // each chunk's two keys
+constexpr int kRecordBytes = 2 * kChunks * kLanes * sizeof(double);    // a plane's two sums a chunk
 
-// First row p in [lo, hi) with c[p * stride] > q (hi if none), for monotone c.
-__device__ __forceinline__ int first_above_strided(const int* c, int stride, int lo, int hi, int q) {
-  while (lo < hi) {
-    const int mid = lo + ((hi - lo) >> 1);
-    if (__ldg(c + static_cast<size_t>(mid) * stride) <= q) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
-
-__global__ void __launch_bounds__(kBackThreads)
+// One block per kLanes lanes, planes [c0, c0 + group) at a time. kStaged: the
+// sums land in s_out[plane][row][lane] and are written out at the end;
+// otherwise straight into grad_src.
+template <bool kStaged>
+__global__ void __launch_bounds__(kThreads)
 expand_lanes_backward_kernel(const float* __restrict__ grad_out, const int* __restrict__ idx,
-                             float* __restrict__ grad_src, int n, int n_lanes, int d) {
-  const size_t t = static_cast<size_t>(blockIdx.x) * kBackThreads + threadIdx.x;  // j * n_lanes + l
+                             float* __restrict__ grad_src, int n, int n_lanes, int d, int group) {
+  extern __shared__ double s_back[];
+  __shared__ int s_first[kChunks][kLanes];  // each chunk's first and last key (-1: no rows)
+  __shared__ int s_last[kChunks][kLanes];
+  // dynamic: each chunk's first and last runs' sums [group][kChunks][kLanes],
+  // then (kStaged) the group's planes s_out[group][n][kLanes]
+  double* s_head = s_back;
+  double* s_tail = s_head + group * kChunks * kLanes;
+  float* s_out = reinterpret_cast<float*>(s_tail + group * kChunks * kLanes);
+
+  const int lane = threadIdx.x % kLanes;
+  const int chunk = threadIdx.x / kLanes;
+  const int l0 = blockIdx.x * kLanes;
+  const bool lane_ok = l0 + lane < n_lanes;
+  const int rows = (n + kChunks - 1) / kChunks;
+  const int r0 = min(chunk * rows, n);
+  const int r1 = min(r0 + rows, n);
   const size_t plane = static_cast<size_t>(n) * n_lanes;
-  if (t >= plane) return;
-  const int l = static_cast<int>(t % n_lanes);
-  const int j = static_cast<int>(t / n_lanes);
-  const int* col = idx + l;
-  const int lo = first_above_strided(col, n_lanes, 0, n, j - 1);
-  const int hi = first_above_strided(col, n_lanes, lo, n, j);
-  for (int k = 0; k < d; ++k) {
-    const float* g = grad_out + k * plane + l;
-    double sum = 0.0;
-    for (int i = lo; i < hi; ++i) sum += static_cast<double>(__ldg(g + static_cast<size_t>(i) * n_lanes));
-    grad_src[k * plane + t] = static_cast<float>(sum);
+  const int span = n * kLanes;  // one staged plane
+
+  for (int c0 = 0; c0 < d; c0 += group) {
+    const int gp = min(group, d - c0);
+    // kBatch rows of the chunk, loads only: the first batch's are in flight
+    // while the block zeroes the group's outputs
+    int key[kBatch];
+    float v[kBackPlanes][kBatch];
+    auto load = [&](int j0) {
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const bool ok = lane_ok && j0 + b < r1;
+        const size_t at = static_cast<size_t>(j0 + b) * n_lanes + l0 + lane;
+        key[b] = ok ? __ldg(idx + at) : -1;
+#pragma unroll
+        for (int k = 0; k < kBackPlanes; ++k) v[k][b] = ok && k < gp ? __ldg(grad_out + (c0 + k) * plane + at) : 0.0f;
+      }
+    };
+    load(r0);
+    // every (source, lane) of the group starts at 0
+    for (int e = threadIdx.x; e < gp * span; e += kThreads) {
+      if (kStaged) {
+        s_out[e] = 0.0f;
+      } else {
+        const int ln = e % kLanes;
+        if (l0 + ln < n_lanes) {
+          grad_src[(c0 + e / span) * plane + static_cast<size_t>(e % span / kLanes) * n_lanes + l0 + ln] = 0.0f;
+        }
+      }
+    }
+    __syncthreads();
+    // a complete run's sum: plane c0 + k, source src, block lane ln
+    auto put = [&](int k, int src, int ln, double sum) {
+      if (kStaged) {
+        s_out[k * span + src * kLanes + ln] = static_cast<float>(sum);
+      } else {
+        grad_src[(c0 + k) * plane + static_cast<size_t>(src) * n_lanes + l0 + ln] = static_cast<float>(sum);
+      }
+    };
+
+    // pass 1: the chunk's runs in row order
+    int first = -1, cur = -1;
+    bool closed = false;
+    double acc[kBackPlanes], head[kBackPlanes];
+#pragma unroll
+    for (int k = 0; k < kBackPlanes; ++k) acc[k] = head[k] = 0.0;
+    for (int j0 = r0; j0 < r1; j0 += kBatch) {
+      if (j0 > r0) load(j0);
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        if (key[b] >= 0) {
+          if (key[b] != cur) {
+            if (cur < 0) {
+              first = key[b];
+            } else if (closed) {
+#pragma unroll
+              for (int k = 0; k < kBackPlanes; ++k) {
+                if (k < gp) put(k, cur, lane, acc[k]);
+              }
+            } else {
+#pragma unroll
+              for (int k = 0; k < kBackPlanes; ++k) head[k] = acc[k];
+              closed = true;
+            }
+            cur = key[b];
+#pragma unroll
+            for (int k = 0; k < kBackPlanes; ++k) acc[k] = 0.0;
+          }
+#pragma unroll
+          for (int k = 0; k < kBackPlanes; ++k) acc[k] += static_cast<double>(v[k][b]);
+        }
+      }
+    }
+    s_first[chunk][lane] = first;
+    s_last[chunk][lane] = cur;
+#pragma unroll
+    for (int k = 0; k < kBackPlanes; ++k) {
+      if (k < gp) {
+        s_head[(k * kChunks + chunk) * kLanes + lane] = closed ? head[k] : acc[k];
+        s_tail[(k * kChunks + chunk) * kLanes + lane] = acc[k];
+      }
+    }
+    __syncthreads();
+
+    // the first and last runs of each chunk, across the chunks: warp w takes
+    // lane w, its thread t chunks 2t and 2t + 1. A chunk's last run carries
+    // the sum of the chunks before it while each is that one run whole.
+    const int warp = threadIdx.x / 32;
+    const int t = threadIdx.x % 32;
+    if (warp < kLanes && l0 + warp < n_lanes) {
+      const int ln = warp;
+      int f[2], z[2];
+      bool cont[2], whole[2], restart[2], ends[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        f[q] = s_first[2 * t + q][ln];
+        z[q] = s_last[2 * t + q][ln];
+      }
+      const int before = t > 0 ? s_last[2 * t - 1][ln] : -1;
+      const int after = t < 31 ? s_first[2 * t + 2][ln] : -1;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        cont[q] = f[q] >= 0 && f[q] == (q == 0 ? before : z[0]);
+        whole[q] = f[q] >= 0 && f[q] == z[q];
+        restart[q] = !(whole[q] && cont[q]);
+        ends[q] = f[q] >= 0 && (q == 0 ? f[1] : after) != z[q];
+      }
+      for (int k = 0; k < gp; ++k) {
+        double tail[2], sum = 0.0;
+        bool any = false;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          tail[q] = s_tail[(k * kChunks + 2 * t + q) * kLanes + ln];
+          sum = restart[q] ? tail[q] : sum + tail[q];
+          any = any || restart[q];
+        }
+        bool hx = any;
+        double vx = sum;
+        pf::warp_segmented_scan(hx, vx);
+        const double up = __shfl_up_sync(0xffffffffu, vx, 1);
+        double carry = t > 0 ? up : 0.0;  // the carry of chunk 2t - 1's last run
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const double into = carry;  // the carry of the chunk before
+          carry = restart[q] ? tail[q] : carry + tail[q];
+          if (ends[q]) put(k, z[q], ln, carry);
+          if (f[q] >= 0 && !whole[q]) {
+            const double h = s_head[(k * kChunks + 2 * t + q) * kLanes + ln];
+            put(k, f[q], ln, cont[q] ? into + h : h);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (kStaged) {  // the group's planes, row by row in whole sectors
+      for (int e = threadIdx.x; e < gp * span; e += kThreads) {
+        const int ln = e % kLanes;
+        if (l0 + ln < n_lanes) {
+          grad_src[(c0 + e / span) * plane + static_cast<size_t>(e % span / kLanes) * n_lanes + l0 + ln] = s_out[e];
+        }
+      }
+      __syncthreads();
+    }
   }
 }
 
@@ -282,18 +449,34 @@ extern "C" int pf_expand_lanes(const void* probs, const void* u, const void* val
 }
 
 // Launch the backward on `stream`: grad_out and grad_src are (d, n, n_lanes)
-// float32, idx is (n, n_lanes) int32 with every lane's column monotone (the
-// forward's indices). All contiguous device memory, allocated by the caller.
-// Returns the CUDA error of the launch as an int (0 on success).
+// float32, idx is (n, n_lanes) int32 with every lane's column monotone into
+// [0, n). All contiguous device memory, allocated by the caller. Returns the
+// first CUDA error as an int (0 on success).
 extern "C" int pf_expand_lanes_backward(const void* grad_out, const void* idx, void* grad_src, int n, int n_lanes,
                                         int d, void* stream) {
-  if (n <= 0 || n_lanes <= 0) return 0;
-  const long long total = static_cast<long long>(n) * n_lanes;
-  const long long blocks = (total + kBackThreads - 1) / kBackThreads;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  expand_lanes_backward_kernel<<<static_cast<unsigned>(blocks), kBackThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(grad_out), static_cast<const int*>(idx), static_cast<float*>(grad_src), n, n_lanes,
-      d);
+  if (n <= 0 || n_lanes <= 0 || d <= 0) return 0;
+  const int tiles = (n_lanes + kLanes - 1) / kLanes;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* g = static_cast<const float*>(grad_out);
+  const auto* ix = static_cast<const int*>(idx);
+  auto* out = static_cast<float*>(grad_src);
+  // planes staged together: as many as fit in kBackStageBytes, at most kBackPlanes
+  const long long plane_bytes = static_cast<long long>(n) * kLanes * sizeof(float);
+  const int fit = static_cast<int>(std::min<long long>(kBackStageBytes / plane_bytes, kBackPlanes));
+  const bool staged = fit >= 1;
+  const int group = std::min(d, staged ? fit : kBackPlanes);
+  const size_t bytes = static_cast<size_t>(group) * (kRecordBytes + (staged ? plane_bytes : 0));
+  if (bytes + kStaticBytes > 48 * 1024) {  // past the default, static and dynamic together
+    const cudaError_t err = cudaFuncSetAttribute(staged ? expand_lanes_backward_kernel<true>
+                                                        : expand_lanes_backward_kernel<false>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (staged) {
+    expand_lanes_backward_kernel<true><<<tiles, kThreads, bytes, s>>>(g, ix, out, n, n_lanes, d, group);
+  } else {
+    expand_lanes_backward_kernel<false><<<tiles, kThreads, bytes, s>>>(g, ix, out, n, n_lanes, d, group);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -103,8 +103,9 @@ def _check_cuda(*tensors: torch.Tensor) -> bool:
     return False
 
 
-# the single-lane kernel's look-back state, one zeroed buffer per (device, stream):
-# the kernels reset it themselves, so it is allocated once
+# the single-lane kernels' device state (the forward's look-back, the backward's
+# tickets), one zeroed buffer per (device, stream[, "backward"]): the kernels
+# reset it themselves, so it is allocated once
 _lookback_states: dict = {}
 
 
@@ -127,11 +128,23 @@ def fused_expand_backward(g: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     g = g.contiguous()
     if g.dtype != torch.float32 or idx.dtype != torch.int32 or idx.shape != (n,) or not idx.is_contiguous():
         raise ValueError(f"the backward takes a (d, {n}) float32 gradient and ({n},) int32 indices")
+    if n >= MAX_EXACT_INDEX:
+        raise ValueError("particle count must stay below 2**24 for exact f32 indexing")
     out = torch.empty_like(g)
+    words = _query("expand", "pf_expand_backward_scratch", n, d)
+    scratch = torch.empty(words, dtype=torch.int64, device=g.device) if words else None
     with torch.cuda.device(g.device):
-        rc = _kernel("expand", 3, 2, "pf_expand_backward")(g.data_ptr(), idx.data_ptr(), out.data_ptr(), n, d,
-                                                           torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        key = (g.device.index, stream, "backward")
+        state = _lookback_states.get(key)
+        if state is None:
+            words = _query("expand", "pf_expand_backward_state_words")
+            state = _lookback_states[key] = torch.zeros(words, dtype=torch.int64, device=g.device)
+        rc = _kernel("expand", 5, 2, "pf_expand_backward")(
+            g.data_ptr(), idx.data_ptr(), out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            state.data_ptr(), n, d, stream)
     if rc:
+        _lookback_states.pop(key, None)  # a launch that failed half way leaves its ticket set
         raise RuntimeError(f"expand backward kernel launch failed with CUDA error {rc}")
     fused_expand_backward.launches += 1
     return out

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card (marker ``cuda``; skips without a GPU).
 
-This file imports only torch and the port, so it also runs where JAX is not
-installed (skip the JAX-side conftest there):
+This file imports only torch, the port and ``chip_smoke`` (its index
+generators), so it also runs where JAX is not installed (skip the JAX-side
+conftest there):
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 """
@@ -11,6 +12,7 @@ import math
 import pytest
 import torch
 
+import chip_smoke
 import pyfilter_tpu_torch as pt
 from pyfilter_tpu_torch.ops import expand
 
@@ -347,10 +349,7 @@ def test_oracle_entry_points_refuse_without_a_card(monkeypatch):
 def _float64_scatter(g, idx):
     """The float64 transpose of the gather and each source's sum of |g| (its
     run's mass), ``g`` ``(d, n[, L])``, ``idx`` ``(n[, L])``."""
-    il = idx.long().unsqueeze(0).expand(g.shape)
-    ref = torch.zeros(g.shape, dtype=torch.float64, device=g.device).scatter_add_(1, il, g.double())
-    mass = torch.zeros(g.shape, dtype=torch.float64, device=g.device).scatter_add_(1, il, g.double().abs())
-    return ref, mass
+    return chip_smoke.float64_scatter(torch, g, idx)
 
 
 @pytest.mark.cuda
@@ -398,6 +397,45 @@ def test_expand_lanes_backward_kernel_on_card(cuda, n, n_lanes, d):
     ref, mass = _float64_scatter(cot, idx)
     assert bool(((planes.grad.double() - ref).abs() <= 1e-6 * mass).all())
     assert torch.equal(planes.grad, expand.fused_expand_lanes_backward(cot, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", chip_smoke.BACKWARD_INDEX_NAMES)
+@pytest.mark.parametrize("n_tiles", ["T-1", "T", "T+1", "5T+3"])
+def test_expand_backward_kernel_on_synthetic_indices(cuda, n_tiles, name):
+    """The backward kernel on monotone indices built directly
+    (``chip_smoke.backward_indices``): runs and gaps at its tile edges, n
+    around one tile; d = 1 and 2. The same bits at two launches, each source
+    within 1e-6 of its run's sum of |g| of a float64 scatter-add."""
+    tile = chip_smoke.K1T_TILE
+    n = {"T-1": tile - 1, "T": tile, "T+1": tile + 1, "5T+3": 5 * tile + 3}[n_tiles]
+    idx = torch.from_numpy(chip_smoke.backward_indices(n, name, tile)).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(n)
+    for d in (1, 2):
+        cot = torch.randn(d, n, generator=g, device=cuda)
+        a, b = expand.fused_expand_backward(cot, idx), expand.fused_expand_backward(cot, idx)
+        assert torch.equal(a, b)
+        ref, mass = _float64_scatter(cot, idx)
+        assert bool(((a.double() - ref).abs() <= 1e-6 * mass).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0, 5])
+@pytest.mark.parametrize("n,n_lanes", [(400, 9), (65, 7), (1, 1), (2, 9), (6080, 9), (6081, 7), (7105, 1)])
+def test_expand_lanes_backward_kernel_on_synthetic_indices(cuda, n, n_lanes, shift):
+    """The lane backward kernel on columns built directly
+    (``chip_smoke.backward_lane_indices``: each lane one of the kinds above,
+    its tile the kernel's rows a chunk), below and past the rows it stages;
+    d = 1, 2 and 5 (two plane groups). The same bits at two launches, within
+    1e-6 of each source's run's sum of |g|."""
+    idx = torch.from_numpy(chip_smoke.backward_lane_indices(n, n_lanes, shift)).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(n + n_lanes + shift)
+    for d in (1, 2, 5):
+        cot = torch.randn(d, n, n_lanes, generator=g, device=cuda)
+        a, b = expand.fused_expand_lanes_backward(cot, idx), expand.fused_expand_lanes_backward(cot, idx)
+        assert torch.equal(a, b)
+        ref, mass = _float64_scatter(cot, idx)
+        assert bool(((a.double() - ref).abs() <= 1e-6 * mass).all())
 
 
 @pytest.mark.cuda

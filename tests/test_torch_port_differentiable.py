@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import pyfilter_tpu as pf
 import pyfilter_tpu_torch as pt
 from pyfilter_tpu import distributions as jdist
@@ -223,12 +224,22 @@ def _weights(n, lanes, name, rng):
     return lw
 
 
-@pytest.mark.parametrize("name", ["random", "degenerate", "zero-runs"])
+@pytest.mark.parametrize("name", ["random", "degenerate", "zero-runs", *chip_smoke.BACKWARD_INDEX_NAMES])
 @pytest.mark.parametrize("n,d", [(7, 1), (7, 2), (1000, 1), (1000, 2)])
 def test_expand_backward_plain_matches_jax_vjp(n, d, name):
     """``fused_expand``'s gradient in its values (the backward's plain
-    version) equals ``jax.vjp`` of ``batched_gather`` on the same indices."""
+    version) equals ``jax.vjp`` of ``batched_gather`` on the same indices:
+    the forward's, or indices built directly (``chip_smoke.backward_indices``,
+    the kinds the card's kernel is held to at its tile edges, with a tile of
+    n / 8 here) fed to ``fused_expand_backward``."""
     rng = np.random.default_rng(n + d)
+    if name in chip_smoke.BACKWARD_INDEX_NAMES:
+        idx = chip_smoke.backward_indices(n, name, max(2, n // 8))
+        g = rng.normal(size=(d, n)).astype(np.float32)
+        _, vjp = jax.vjp(lambda v: j_gather(v, jnp.asarray(idx), 1), jnp.zeros((n, d), jnp.float32))
+        grad = texpand.fused_expand_backward(_t(g), torch.from_numpy(idx))
+        _close(grad, np.asarray(vjp(jnp.asarray(g.T))[0]).T, rtol=1e-6, atol=1e-6)
+        return
     probs = torch.softmax(_t(_weights(n, (), name, rng)), dim=0)
     v2d = _t(rng.normal(size=(d, n))).requires_grad_(True)
     out, idx = texpand.fused_expand(probs, torch.tensor(0.37), v2d)
@@ -240,13 +251,24 @@ def test_expand_backward_plain_matches_jax_vjp(n, d, name):
         assert int(torch.count_nonzero(v2d.grad[0])) == 1
 
 
-@pytest.mark.parametrize("name", ["random", "degenerate", "zero-runs"])
+@pytest.mark.parametrize("name", ["random", "degenerate", "zero-runs", "synthetic", "synthetic-shifted"])
 @pytest.mark.parametrize("n,lanes,d", [(300, 4, 1), (300, 4, 3), (512, 64, 1), (512, 64, 3)])
 def test_expand_lanes_backward_plain_matches_jax_vjp(n, lanes, d, name):
     """``fused_expand_lanes``'s gradient in its value planes equals
     ``jax.vjp`` of ``batched_gather`` on the same per-lane indices; lane 0
-    of the "random" case is degenerate as well."""
+    of the "random" case is degenerate as well. The "synthetic" cases feed
+    ``fused_expand_lanes_backward`` columns built directly
+    (``chip_smoke.backward_lane_indices``, rotated by 5 kinds when
+    "shifted")."""
     rng = np.random.default_rng(n + lanes + d)
+    if name.startswith("synthetic"):
+        idx = chip_smoke.backward_lane_indices(n, lanes, 5 if name.endswith("shifted") else 0)
+        g = rng.normal(size=(d, n, lanes)).astype(np.float32)
+        _, vjp = jax.vjp(lambda v: j_gather(v, jnp.asarray(idx), 1), jnp.zeros((n, lanes, d), jnp.float32))
+        grad = texpand.fused_expand_lanes_backward(_t(g), torch.from_numpy(idx))
+        _close(grad, np.moveaxis(np.asarray(vjp(jnp.asarray(np.moveaxis(g, 0, -1)))[0]), -1, 0), rtol=1e-6,
+               atol=1e-6)
+        return
     lw = _weights(n, (lanes,), name, rng)
     lw[:, 0] = -np.inf
     lw[n - 1, 0] = 0.0
