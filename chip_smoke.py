@@ -8,6 +8,7 @@
     python3 chip_smoke.py --oracle    # phases 1-3 and 12 only
     python3 chip_smoke.py --gradients # phases 1-3 and 13 only
     python3 chip_smoke.py --backward  # phases 1-3 and 13a only
+    python3 chip_smoke.py --streaming # phases 1-3 and 14 only
     python3 chip_smoke.py --backward-ab TREE   # TREE's backward kernels against these, one card
 
 Phases, in order; any failure exits non-zero before the result line:
@@ -150,6 +151,32 @@ Phases, in order; any failure exits non-zero before the result line:
    more MALA transition of each order deciding as the host's float64
    log-ratio (the Hastings term from both kernels) says, MSJD, R-hat, ESS.
 
+14. Online smoothing and streaming maximum likelihood (the JAX package's
+   ``tests/test_score.py`` and ``tests/test_smoothing_ffbsi.py`` at their
+   sizes; TF32 off). (a) ``fit_mle_streaming`` over T = 10,000 observations of
+   an AR(1) (SISR(500), one Adam step per window of 50, lr 2e-2, from beta
+   0.3, sigma 0.7): the fit within STREAM_TOL of the truth, finite window
+   log-likelihoods, a path of 200 rows, K1 once per resample fire; the wall,
+   ms a window and host syncs an observation by source. (b) ``online_score``
+   at N = 1e5, T = 200, 8 seeds: each run within rel 0.18 / abs 2.5 of the
+   float64 Kalman score (in beta and log sigma), their mean within 4 SEM + 5%
+   (one more run at the default 16 rejection rounds of the backward kernel,
+   the 8 seeds at ONLINE_ROUNDS); K1 on the last cloud; ms and syncs an observation, peak memory; the
+   transition's score functional by ``vmap(grad)`` and by ``jacfwd`` on one
+   cloud. (c) PaRIS on the stochastic-volatility model (5 sub-steps, N = 1000,
+   30 observations, the caller's bound) within 15% + 0.5 of FFBSi's functional
+   over a recorded-intermediary history, and on phase 8's AR model (N = 3000)
+   against the RTS smoother's sum. (d) SISR with ``stratified``,
+   ``multinomial``, ``residual``, ``metropolis`` and ``rejection`` at N = 1e5
+   on phase 12's ``"ar"`` under its Kalman gate, and ``residual`` and
+   ``stratified`` over 400 x 1000 lanes, with no kernel launch; ms and host
+   syncs a fire. (e) TrendingOU's reversion and UCSV's volatility and level
+   gates; SISR at N = 1e5, T = 200 on LLT and the cycle (Kalman gate, d = 2
+   planes), TrendingOU and UCSV, K1 once per fire and equal to its plain
+   version on each last cloud. (f) ``step`` equal to ``filter``,
+   ``batch_filter_masked`` on padded rows equal to ``batch_filter`` of the
+   first 137 (N = 1e5), ``lane_concat`` and ``resample_particles``.
+
 ``--host-probe TREE`` times, with TREE's package and TREE's own phase-11
 fit (``pmmh_fit``), the host time of a lane resample-and-gather call at
 phase 11's shape and one phase-11 fit, and prints them as one JSON line; run
@@ -168,7 +195,8 @@ With ``--profile``, also the device operations per observation (main path
 1 and phase 9), per APF step (main path 2, phases 7 and 10), per backward
 step of FFBS (phase 7) and FFBSi (phase 8), per NESS rejuvenation (phase 9)
 and per SISR lane step (phase 11) and filter step (phase 12's damped-Newton
-filters), each from one traced run, and the host
+filters) and per observation of two streaming windows (phase 14a), each from
+one traced run, and the host
 time of one notebook rejuvenation with and without the distance stop.
 Prints a ``{"kernels": [...]}`` line, then, as the last line, ``{"ok":
 true, "device": {...}}``.
@@ -178,10 +206,12 @@ from __future__ import annotations
 
 import json
 import math
+import multiprocessing
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 N_PARTICLES = 1_000_000
 N_OBS = 200
@@ -204,6 +234,10 @@ SPIN_CYCLES = 2_000_000
 LL_TOL = 0.05
 N_CPU_REF = 1 << 16
 N_CPU_SEEDS = 8
+# the CPU references of phases 4, 6 and 9 run in worker processes beside the
+# card's phases from the start: phase 6's fit on 3 torch threads and phase 9's
+# on 2, submitted first, phase 4's eight runs on 1 each on the other two
+CPU_REF_WORKERS = 4
 # main path 2: bench.py's SMC2 configuration
 SMC2_N, SMC2_K, SMC2_STEPS, SMC2_THRESHOLD = 400, 1000, 2, 0.2
 SMC2_TIMED = 2
@@ -224,7 +258,8 @@ FLAG_RMSE_MAX = 0.2
 AR_ALPHA, AR_BETA, AR_SIGMA, AR_OBS_S = 0.2, 0.7, 0.4, 0.25
 FFBSI_T = 200
 FFBSI_SIZES = ((100_000, None), (1_000_000, 4096))
-FFBSI_TIMED = 3
+# one timed pass a size: a pass is device-bound and repeats within 0.5% (7.61-7.65 s at N = 1e5)
+FFBSI_TIMED = 1
 LANES_N, LANES_K = 400, 8
 # phase 9: examples/lorenz_ness.py's full size (the reference's lorenz.ipynb):
 # SISR 400 x K = 1000 parameter lanes, 10 sub-steps, T = 300 observations
@@ -371,6 +406,40 @@ OU_TRUE, OU_OBS, OU_T, OU_N, OU_SAMPLES, OU_CHAINS = (0.5, 1.0, 0.1), 0.05, 200,
 # level alpha far from the truth (0): the cloud sits over 10 observation
 # sds from every observation, so each resample copies a handful of particles
 COLLAPSE_ALPHA, COLLAPSE_T = 3.0, 10
+
+
+# phase 14: online smoothing and streaming maximum likelihood. (a) The JAX
+# package's tests/test_score.py:87-104 at its own size (the T of
+# examples/streaming_and_switching.py part 1): AR(0.2, beta, sigma) observed
+# with noise 0.25, T = 10,000, SISR(500), one Adam step per window of 50 at
+# lr 2e-2 from beta 0.3, sigma 0.7, within 0.06 of the truth (its gate).
+STREAM_ALPHA, STREAM_BETA, STREAM_SIGMA, STREAM_OBS = 0.2, 0.7, 0.4, 0.25
+STREAM_T, STREAM_N, STREAM_WINDOW, STREAM_LR, STREAM_START, STREAM_TOL = 10_000, 500, 50, 2e-2, (0.3, 0.7), 0.06
+# (b) the online score at N = 1e5, T = 200 at tests/test_score.py:33-62's
+# point, each run within its tolerance of the float64 Kalman score. One run
+# at the default 16 rejection rounds of the backward kernel, then the seeds
+# at ONLINE_ROUNDS: the same law (a target that fails every round takes the
+# exact Gumbel-max fallback), and about a fifth of the targets in the
+# fallback, which is 90% of a default run's 18 s at this size
+ONLINE_N, ONLINE_T, ONLINE_SEEDS, ONLINE_AT, ONLINE_RTOL, ONLINE_ATOL = 100_000, 200, 8, (0.5, 0.5), 0.18, 2.5
+ONLINE_ROUNDS = 64
+# (c) tests/test_smoothing_ffbsi.py:214-247 (PaRIS on the stochastic-volatility
+# model, 5 sub-steps, the caller's bound from a floor on the volatility) and
+# :170-183 (PaRIS on phase 8's AR model against the RTS smoother's sum)
+PARIS_SV_N, PARIS_SV_T, PARIS_SV_XMIN, PARIS_AR_N, PARIS_AR_T = 1000, 30, 0.05, 3000, 70
+# (d) every other resampler on phase 12's "ar" at N = 1e5, and two over lanes
+RESAMPLERS = ("stratified", "multinomial", "residual", "metropolis", "rejection")
+RESAMPLE_N, RESAMPLE_LANE_N, RESAMPLE_LANES, RESAMPLE_LANE_SCHEMES = 100_000, 400, 1000, ("residual", "stratified")
+# (e) the four models: LLT and the cycle against the Kalman filter (the JAX
+# package's tests/test_timeseries.py:233 and :280 models), TrendingOU and
+# UCSV under that file's gates and then SISR at N = 1e5, T = 200
+MODEL14_N, MODEL14_T = 100_000, 200
+LLT_SIGMA, LLT_OBS = (0.05, 0.02), 0.15
+CYC_RHO, CYC_LAMDA, CYC_SIGMA, CYC_OBS = 0.9, 0.5, 0.1, 0.05
+TOU_PARAMS, TOU_OBS, TOU_PATHS, TOU_STEPS = (0.8, 1.0, 0.05, 0.1), 0.1, 200, 200
+UCSV_SV, UCSV_OBS, UCSV_N, UCSV_T = 0.05, 0.1, 1000, 80
+# (f) batch_filter_masked against batch_filter on the first rows
+MASKED_N, MASKED_VALID = 100_000, 137
 
 
 # the backward kernels' tiling, where their edge cases lie: the single-lane
@@ -613,8 +682,6 @@ def main(argv) -> int:
         return host_probe(torch, argv[1])
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import numpy as np
-
     import pyfilter_tpu_torch as pt
 
     if argv[:1] == ["--ness-spread"]:
@@ -625,6 +692,24 @@ def main(argv) -> int:
     from pyfilter_tpu_torch.ops import _build, expand
     from pyfilter_tpu_torch.ops.resample import copy_counts
 
+    refs, cpu = None, None
+    if argv[:1] not in (["--backward-ab"], ["--oracle"], ["--backward"], ["--gradients"], ["--streaming"]):
+        # the CPU references of phases 4, 6 and 9 run in worker processes while the card runs
+        refs = ProcessPoolExecutor(CPU_REF_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        if refs is not None:
+            cpu = {"phase 6": refs.submit(smc2_cpu_fit, 10), "phase 9": refs.submit(ness_cpu_fit, NESS_CPU_SEED),
+                   "phase 4": [refs.submit(sisr_cpu_ll, seed) for seed in range(N_CPU_SEEDS)]}
+        return card_phases(torch, pt, _build, expand, copy_counts, argv, cpu)
+    finally:
+        if refs is not None:
+            refs.shutdown(cancel_futures=True)
+
+
+def card_phases(torch, pt, _build, expand, copy_counts, argv, cpu) -> int:
+    """Phases 1-3, then the mode ``argv`` asks for: one of the partial runs,
+    or phases 4-14 (:func:`full_run`) with ``cpu``, the futures of the CPU
+    references."""
     # -- 1. device --------------------------------------------------------
     card = card_line()
     print(card)
@@ -654,6 +739,16 @@ def main(argv) -> int:
         grads = gradients(torch, pt, expand, card)
         print(json.dumps({"kernels": backward_kernel_lines(grads)}))
         return 0
+    if argv[:1] == ["--streaming"]:
+        streaming(torch, pt, expand, card, profile="--profile" in argv)
+        return 0
+    return full_run(torch, pt, expand, copy_counts, card, max_err, lanes_err, argv, cpu)
+
+
+def full_run(torch, pt, expand, copy_counts, card, max_err, lanes_err, argv, cpu) -> int:
+    """Phases 4-14 (module docstring), after the kernels' checks; ``cpu``
+    holds the futures of the CPU references of phases 4, 6 and 9."""
+    import numpy as np
 
     # -- 4. main path -------------------------------------------------------
     y = simulate_obs(N_OBS)
@@ -687,10 +782,7 @@ def main(argv) -> int:
 
     # the same filter on the CPU through the plain versions: estimates of
     # the same log-likelihood with independent randomness
-    cpu_model = pt.examples.stochastic_volatility_model(KAPPA, GAMMA, SIGMA, MU, NU, TAU, dt=DT, device="cpu")
-    cpu_lls = [float(pt.SISR(cpu_model, N_CPU_REF, record_moments=False, device="cpu")
-                     .batch_filter(torch.Generator().manual_seed(seed), y).log_likelihood)
-               for seed in range(N_CPU_SEEDS)]
+    cpu_lls = [job.result() for job in cpu["phase 4"]]
     gap = abs(float(np.mean(lls)) - float(np.mean(cpu_lls)))
     print(f"  CPU reference (plain versions, N={N_CPU_REF}, {N_CPU_SEEDS} seeds): {cpu_lls}; "
           f"mean {float(np.mean(cpu_lls))}, sd {float(np.std(cpu_lls, ddof=1))}")
@@ -751,7 +843,7 @@ def main(argv) -> int:
     lanes = apf_lanes(torch, pt, expand, copy_counts, y, card)
 
     # -- 6. main path 2: SMC2 ---------------------------------------------------
-    smc2_launches = smc2(torch, pt, expand, y, card, profile="--profile" in argv)
+    smc2_launches = smc2(torch, pt, expand, y, card, cpu["phase 6"], profile="--profile" in argv)
 
     # -- 7. the flagship flow -------------------------------------------------
     flag_launches, flag_err = flagship(torch, pt, expand, card, profile="--profile" in argv)
@@ -761,7 +853,8 @@ def main(argv) -> int:
                                                                    profile="--profile" in argv)
 
     # -- 9. NESS on the Lorenz-63 model, and the hybrids ------------------------
-    ness_launches, hybrid_launches, ness_err = lorenz_ness(torch, pt, expand, card, profile="--profile" in argv)
+    ness_launches, hybrid_launches, ness_err = lorenz_ness(torch, pt, expand, card, cpu["phase 9"],
+                                                           profile="--profile" in argv)
 
     # -- 10. the reference notebook's SMC2 (Sobol start, distance stop) ---------
     nb_launches, nb_err = notebook(torch, pt, expand, card, profile="--profile" in argv)
@@ -777,8 +870,11 @@ def main(argv) -> int:
     # -- 13. gradients through the filter ----------------------------------------------
     grads = gradients(torch, pt, expand, card)
 
+    # -- 14. online smoothing and streaming maximum likelihood ------------------------
+    stream = streaming(torch, pt, expand, card, profile="--profile" in argv)
+
     k1_paths = {"phase 4": launches, "phase 7": flag_launches, "phase 8": ffbsi_launches, "phase 12": oracle_k1,
-                **{path: c["k1"] for path, c in grads["paths"].items() if c["k1"]}}
+                **{path: c["k1"] for path, c in grads["paths"].items() if c["k1"]}, **stream["paths"]}
     lane_paths = {"phase 5": lanes["launches"], "phase 6": smc2_launches, "phase 8": lane_launches,
                   "phase 9 NESS": ness_launches, "phase 9 hybrids": hybrid_launches, "phase 10": nb_launches,
                   "phase 11": pmmh_launches, "phase 12": oracle_lanes,
@@ -791,7 +887,7 @@ def main(argv) -> int:
         "replaces": "pyfilter_tpu/ops/expand.py:110",
         "launches": sum(k1_paths.values()),
         "launches_by_path": k1_paths,
-        "max_abs_err": max(max_err, err, flag_err, ffbsi_err, oracle_err),
+        "max_abs_err": max(max_err, err, flag_err, ffbsi_err, oracle_err, stream["err"]),
         "ms": k_ms,
         "plain_ms": p_ms,
         "bound_ms": bound_ms,
@@ -967,33 +1063,39 @@ def apf_lanes(torch, pt, expand, copy_counts, y, card) -> dict:
     return {"err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": bound_ms, "launches": launches}
 
 
-def smc2(torch, pt, expand, y, card, profile: bool = False) -> int:
-    """Phase 6: SMC2 at bench.py's configuration on the card (warm-up, then
-    SMC2_TIMED timed fits) and once on the CPU; with ``profile``, one more
-    card fit under the profiler. Returns the lane kernel's launches over the
-    timed fits."""
-    import numpy as np
-
+def smc2_fit(torch, pt, y, device: str, seed: int):
+    """One fit of phase 6's SMC2 over ``y`` on ``device``, its context and
+    generator seeded from ``seed``: the algorithm, and the posterior mean and
+    sd by name."""
     from pyfilter_tpu_torch import inference as inf
 
-    def fit(device, seed):
-        def gen(s):
-            return torch.Generator(device=device).manual_seed(s)
+    def gen(s):
+        return torch.Generator(device=device).manual_seed(s)
 
-        ctx = inf.make_context(generator=gen(seed), device=device)
-        filt = pt.APF(pt.examples.stochastic_volatility_builder, SMC2_N, record_moments=False, device=device)
-        alg = inf.SMC2(filt, SMC2_K, threshold=SMC2_THRESHOLD, num_steps=SMC2_STEPS, context=ctx,
-                       generator=gen(seed + 1), record_moments=False, device=device)
-        state = alg.fit(y)
-        w = state.normalized_weights()
-        stacked = ctx.stack_parameters(constrained=True)
-        mean = w @ stacked
-        sd = torch.sqrt(torch.clamp(w @ torch.square(stacked - mean), min=1e-12))
-        if device == "cuda":
-            torch.cuda.synchronize()
-        if not bool(torch.isfinite(state.w).all()):
-            raise AssertionError(f"non-finite SMC2 weights on {device}")
-        return alg, dict(zip(ctx.parameters, mean.tolist())), dict(zip(ctx.parameters, sd.tolist()))
+    ctx = inf.make_context(generator=gen(seed), device=device)
+    filt = pt.APF(pt.examples.stochastic_volatility_builder, SMC2_N, record_moments=False, device=device)
+    alg = inf.SMC2(filt, SMC2_K, threshold=SMC2_THRESHOLD, num_steps=SMC2_STEPS, context=ctx,
+                   generator=gen(seed + 1), record_moments=False, device=device)
+    state = alg.fit(y)
+    w = state.normalized_weights()
+    stacked = ctx.stack_parameters(constrained=True)
+    mean = w @ stacked
+    sd = torch.sqrt(torch.clamp(w @ torch.square(stacked - mean), min=1e-12))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    if not bool(torch.isfinite(state.w).all()):
+        raise AssertionError(f"non-finite SMC2 weights on {device}")
+    return alg, dict(zip(ctx.parameters, mean.tolist())), dict(zip(ctx.parameters, sd.tolist()))
+
+
+def smc2(torch, pt, expand, y, card, cpu_fit, profile: bool = False) -> int:
+    """Phase 6: SMC2 at bench.py's configuration on the card (warm-up, then
+    SMC2_TIMED timed fits), held against one CPU fit (``cpu_fit``, the
+    future of :func:`smc2_cpu_fit`); with ``profile``, one more card fit
+    under the profiler. Returns the lane kernel's launches over the timed
+    fits."""
+    def fit(device, seed):
+        return smc2_fit(torch, pt, y, device, seed)
 
     fit("cuda", 0)  # warm-up
     expand.fused_expand.launches = expand.fused_expand_lanes.launches = 0
@@ -1022,9 +1124,8 @@ def smc2(torch, pt, expand, y, card, profile: bool = False) -> int:
         if not (0.3 < mean["gamma"] < 3.0 and 0.5 < mean["tau"] < 2.0):
             raise AssertionError(f"posterior means out of bounds: {mean}")
 
-    t0 = time.perf_counter()
-    _, cpu_mean, cpu_sd = fit("cpu", 10)
-    print(f"  CPU fit (plain versions, seed of card fit 0): {time.perf_counter() - t0:.1f} s; "
+    cpu_mean, cpu_sd, cpu_seconds = cpu_fit.result()
+    print(f"  CPU fit (plain versions, seed of card fit 0, a worker process): {cpu_seconds:.1f} s; "
           f"posterior mean {cpu_mean}; sd {cpu_sd}")
     for rep, (mean, sd) in enumerate(runs):
         gaps = {n: abs(mean[n] - cpu_mean[n]) / max(sd[n], cpu_sd[n]) for n in mean}
@@ -1307,12 +1408,13 @@ def lorenz_fit(torch, pt, y, device: str, seed: int, make=None, **kwargs):
     return alg, state, wall, dict(zip(ctx.parameters, mean)), dict(zip(ctx.parameters, sd))
 
 
-def lorenz_ness(torch, pt, expand, card, profile: bool = False):
+def lorenz_ness(torch, pt, expand, card, cpu_fit, profile: bool = False):
     """Phase 9: NESS at the notebook's configuration on the card (warm-up,
     then one timed fit per seed of NESS_SEEDS), the lane kernel on the last
     fit's cloud, NESSMC2 and SMC2FW over the first HYBRID_T observations,
     with ``profile`` one traced fit and one traced rejuvenation, and last one
-    CPU fit that the card's fits that find the truth are held against.
+    CPU fit (``cpu_fit``, the future of :func:`ness_cpu_fit`) that the card's
+    fits that find the truth are held against.
     Returns the lane kernel's launches over the timed fits and over the
     hybrids, and its largest difference from the plain version on the last
     cloud."""
@@ -1390,11 +1492,10 @@ def lorenz_ness(torch, pt, expand, card, profile: bool = False):
               f"{LORENZ_OES - 1} sub-steps, the fit's {n_rej} rejuvenations taken out) "
               f"{(ops - n_rej * rej_ops) / LORENZ_T:.2f}")
 
-    t0 = time.perf_counter()
-    _, cpu_state, _, cpu_mean, cpu_sd = lorenz_fit(torch, pt, y, "cpu", NESS_CPU_SEED)
-    print(f"  CPU fit (plain versions, seed {NESS_CPU_SEED}): {time.perf_counter() - t0:.1f} s; posterior mean "
-          f"{cpu_mean}; sd {cpu_sd}")
-    if not bool(torch.isfinite(cpu_state.w).all()):
+    cpu_finite, cpu_mean, cpu_sd, cpu_seconds = cpu_fit.result()
+    print(f"  CPU fit (plain versions, seed {NESS_CPU_SEED}, a worker process): {cpu_seconds:.1f} s; posterior "
+          f"mean {cpu_mean}; sd {cpu_sd}")
+    if not cpu_finite:
         raise AssertionError("non-finite NESS weights on the CPU")
     if not finds_truth(cpu_mean):
         raise AssertionError(f"the CPU reference fit (seed {NESS_CPU_SEED}) froze away from the truth: {cpu_mean}")
@@ -1841,14 +1942,8 @@ def oracle_data(name: str, missing: int = 0, seed: int = ORACLE_SEED):
     ``tests/kalman.py``), with ``missing`` rows of ``y`` set to NaN."""
     import numpy as np
 
-    f, b, q, h, r, m0, p0 = oracle_system(name)
     rng = np.random.default_rng(seed)
-    x, y = np.zeros((ORACLE_T, len(b))), np.zeros((ORACLE_T, h.shape[0]))
-    xc = rng.multivariate_normal(m0, p0)
-    for t in range(ORACLE_T):
-        xc = f @ xc + b + rng.multivariate_normal(np.zeros(len(b)), q)
-        x[t] = xc
-        y[t] = h @ xc + rng.multivariate_normal(np.zeros(h.shape[0]), r)
+    x, y = simulate_linear(oracle_system(name), ORACLE_T, rng)
     if missing:
         y[rng.integers(1, ORACLE_T, size=missing)] = np.nan
     return x, y
@@ -1905,6 +2000,43 @@ def oracle_cpu_ll(filter_name: str, model_name: str, seed: int) -> float:
     return float(filt.batch_filter(torch.Generator().manual_seed(seed), oracle_obs(model_name, y)).log_likelihood)
 
 
+def _cpu_worker(threads: int):
+    """A CPU reference worker's torch (on ``threads`` threads) and port."""
+    import torch
+
+    torch.set_num_threads(threads)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import pyfilter_tpu_torch as pt
+
+    return torch, pt
+
+
+def sisr_cpu_ll(seed: int) -> float:
+    """Phase 4's CPU reference: one SISR run at N_CPU_REF through the plain
+    versions (a worker process); its log-likelihood."""
+    torch, pt = _cpu_worker(1)
+    model = pt.examples.stochastic_volatility_model(KAPPA, GAMMA, SIGMA, MU, NU, TAU, dt=DT, device="cpu")
+    filt = pt.SISR(model, N_CPU_REF, record_moments=False, device="cpu")
+    return float(filt.batch_filter(torch.Generator().manual_seed(seed), simulate_obs(N_OBS)).log_likelihood)
+
+
+def smc2_cpu_fit(seed: int) -> tuple:
+    """Phase 6's CPU fit (a worker process): the posterior mean and sd by
+    name, and its seconds."""
+    torch, pt = _cpu_worker(3)
+    t0 = time.perf_counter()
+    _, mean, sd = smc2_fit(torch, pt, simulate_obs(N_OBS), "cpu", seed)
+    return mean, sd, time.perf_counter() - t0
+
+
+def ness_cpu_fit(seed: int) -> tuple:
+    """Phase 9's CPU fit (a worker process): whether its weights are finite,
+    the posterior mean and sd by name, and its seconds."""
+    torch, pt = _cpu_worker(2)
+    t0 = time.perf_counter()
+    _, state, _, mean, sd = lorenz_fit(torch, pt, lorenz_data(torch, pt), "cpu", seed)
+    return bool(torch.isfinite(state.w).all()), mean, sd, time.perf_counter() - t0
+
 def count_syncs(torch, fn) -> dict:
     """The host syncs ``fn()`` makes on the card, by the line of the port
     (or of torch) that asked for each: ``torch.cuda.set_sync_debug_mode``
@@ -1934,9 +2066,6 @@ def oracle_suite(torch, pt, expand, card, profile: bool = False) -> tuple:
     docstring). Returns the expand kernel's and the lane kernel's launches
     over its runs and their largest differences from the plain versions on
     the suite's clouds."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
     import numpy as np
 
     t_phase = time.perf_counter()
@@ -2902,6 +3031,572 @@ def gradients(torch, pt, expand, card) -> dict:
                     "phase 13d": nutria_svi(torch, pt, expand, card), "phase 13e": gradient_pmmh(torch, pt, expand, card)}
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s; launches by path {out['paths']}")
     return out
+
+
+def stream_builder(pt, ctx):
+    """Phase 14's model builder (the JAX package's tests/test_score.py
+    ``build``): ``beta ~ N(0, 2)``, ``sigma ~ LogNormal(-1, 1)``, the AR(1)
+    at STREAM_ALPHA observed with noise STREAM_OBS."""
+    def const(v):
+        return pt.timeseries.models.parameter(v, ctx.device)
+
+    dist = pt.distributions
+    beta = ctx.named_parameter("beta", dist.Normal(const(0.0), const(2.0)))
+    sigma = ctx.named_parameter("sigma", dist.LogNormal(const(-1.0), const(1.0)))
+    return pt.timeseries.LinearStateSpaceModel(
+        pt.timeseries.models.AR(STREAM_ALPHA, beta, sigma, device=ctx.device), (1.0, STREAM_OBS))
+
+
+def stream_model(pt, device=None):
+    """Phase 14's AR(1) at the true parameters, on ``device`` (the card)."""
+    return pt.timeseries.LinearStateSpaceModel(
+        pt.timeseries.models.AR(STREAM_ALPHA, STREAM_BETA, STREAM_SIGMA, device=device), (1.0, STREAM_OBS))
+
+
+def stream_data(torch, pt, n_obs: int, seed: int):
+    """Observations of phase 14's AR(1) at the true parameters, simulated by
+    the port on the CPU."""
+    return stream_model(pt, "cpu").sample_states(torch.Generator().manual_seed(seed), n_obs).get_paths()[1].numpy()
+
+
+def stream_context(torch, pt, device, beta: float, sigma: float):
+    """A context of :func:`stream_builder`'s parameters, lane shape (), at
+    ``beta`` and ``sigma``."""
+    ctx = pt.inference.make_context(generator=torch.Generator(device=device).manual_seed(0), device=device)
+    ctx.set_batch_shape(())
+    stream_builder(pt, ctx)
+    ctx.update_parameter("beta", beta)
+    ctx.update_parameter("sigma", sigma)
+    return ctx
+
+
+def kalman_score(y, beta: float, sigma: float, h: float = 1e-6):
+    """The float64 score of phase 14's AR(1) at ``(beta, sigma)`` in the
+    unconstrained parameters ``(beta, log sigma)`` (the LogNormal prior's
+    bijection), by central differences of the Kalman log-likelihood."""
+    import numpy as np
+
+    def ll(b, log_s):
+        return kalman_ar_ll(b, y, alpha=STREAM_ALPHA, sigma=math.exp(log_s), obs_s=STREAM_OBS)
+
+    ls = math.log(sigma)
+    return np.array([(ll(beta + h, ls) - ll(beta - h, ls)) / (2 * h), (ll(beta, ls + h) - ll(beta, ls - h)) / (2 * h)])
+
+
+def ar_paris_data(n_obs: int = PARIS_AR_T, seed: int = 11):
+    """Phase 8's AR(1) (x_0 ~ N(alpha, sigma^2), y = x + obs noise) simulated
+    in float64 from numpy ``seed``: the observations and the RTS smoother's
+    means and variances at t = 1..T."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x, y = rng.normal(AR_ALPHA, AR_SIGMA), np.zeros(n_obs)
+    for t in range(n_obs):
+        x = AR_ALPHA + AR_BETA * x + AR_SIGMA * rng.normal()
+        y[t] = x + AR_OBS_S * rng.normal()
+    sm, sv = rts_ar(y, AR_ALPHA, AR_BETA, AR_SIGMA, AR_OBS_S)
+    return y.astype(np.float32), sm, sv
+
+
+def sv_log_sup(x_min: float = PARIS_SV_XMIN, dt: float = DT) -> float:
+    """The stochastic-volatility transition's density bound for a volatility
+    above ``x_min`` (tests/test_smoothing_ffbsi.py:232-235): the Verhulst
+    diffusion's scale is ``sigma x sqrt(dt)``."""
+    return -math.log(SIGMA * x_min * math.sqrt(dt)) - 0.5 * math.log(2 * math.pi)
+
+
+def observation_time(torch, oes: int):
+    """PaRIS's functional ``h(x_prev, x, t) = x`` at the observation times
+    ``t = 1, 1 + oes, ...`` (t mod oes == 1), 0 between them."""
+    def h(x_prev, x, t):
+        return x if t % oes == 1.0 else torch.zeros_like(x)
+
+    return h
+
+
+def model14(torch, pt, name: str, device):
+    """Phase 14's state-space models of the four processes: ``"llt"`` observed
+    in both components, ``"cyclical"`` and ``"ucsv"`` in the first,
+    ``"trending_ou"`` directly (the JAX package's tests/test_timeseries.py)."""
+    models, ts = pt.timeseries.models, pt.timeseries
+    first = torch.tensor([[1.0, 0.0]], device=device)
+    if name == "llt":
+        return ts.LinearStateSpaceModel(models.LocalLinearTrend(*LLT_SIGMA, device=device),
+                                        (torch.eye(2, device=device), torch.full((2,), LLT_OBS, device=device)),
+                                        event_shape=(2,))
+    if name == "cyclical":
+        return ts.LinearStateSpaceModel(models.Cyclical(CYC_RHO, CYC_LAMDA, CYC_SIGMA, device=device),
+                                        (first, torch.full((1,), CYC_OBS, device=device)), event_shape=(1,))
+    if name == "ucsv":
+        return ts.LinearStateSpaceModel(models.UCSV(UCSV_SV, device=device),
+                                        (first, torch.full((1,), UCSV_OBS, device=device)), event_shape=(1,))
+    return ts.LinearStateSpaceModel(models.TrendingOU(*TOU_PARAMS, device=device), (1.0, TOU_OBS))
+
+
+def system14(name: str) -> tuple:
+    """The float64 linear-Gaussian system (:func:`oracle_system`'s form) of
+    :func:`model14`'s ``"llt"`` or ``"cyclical"``."""
+    import numpy as np
+
+    if name == "llt":
+        q = np.diag(np.square(LLT_SIGMA))
+        return (np.array([[1.0, 1.0], [0.0, 1.0]]), np.zeros(2), q, np.eye(2), LLT_OBS**2 * np.eye(2), np.zeros(2), q)
+    c, s = math.cos(CYC_LAMDA), math.sin(CYC_LAMDA)
+    p0 = CYC_SIGMA**2 / (1.0 - CYC_RHO**2) * np.eye(2)
+    return (CYC_RHO * np.array([[c, s], [-s, c]]), np.zeros(2), CYC_SIGMA**2 * np.eye(2), np.array([[1.0, 0.0]]),
+            np.array([[CYC_OBS**2]]), np.zeros(2), p0)
+
+
+def simulate_linear(system, n_obs: int, rng):
+    """A path ``(x, y)`` of ``system`` (:func:`oracle_system`'s form) in
+    float64, drawn from ``rng`` (a numpy generator, or a seed for one)."""
+    import numpy as np
+
+    f, b, q, h, r, m0, p0 = system
+    rng = np.random.default_rng(rng)
+    x, y = np.zeros((n_obs, len(b))), np.zeros((n_obs, h.shape[0]))
+    xc = rng.multivariate_normal(m0, p0)
+    for t in range(n_obs):
+        xc = f @ xc + b + rng.multivariate_normal(np.zeros(len(b)), q)
+        x[t] = xc
+        y[t] = h @ xc + rng.multivariate_normal(np.zeros(h.shape[0]), r)
+    return x, y
+
+
+def trending_ou_reversion(torch, pt, device, generator) -> tuple:
+    """The JAX package's tests/test_timeseries.py:263-278 gate: TOU_PATHS
+    paths of TOU_STEPS steps of TrendingOU; the mean over paths of the last
+    half against the trend ``gamma + beta t``. Returns the worst gap and its
+    limit ``beta / kappa + 0.05``."""
+    kappa, gamma, beta, _ = TOU_PARAMS
+    proc = pt.timeseries.models.TrendingOU(*TOU_PARAMS, device=device)
+    x = proc.initial_sample(generator, (TOU_PATHS,))
+    values = []
+    for _ in range(TOU_STEPS):
+        x = proc.propagate(generator, x)
+        values.append(x.value)
+    mean = torch.stack(values).double().mean(dim=1).cpu().numpy()  # states at t = 1..TOU_STEPS
+    t = range(TOU_STEPS // 2, TOU_STEPS)
+    return max(abs(mean[i] - (gamma + beta * i)) for i in t), beta / kappa + 0.05
+
+
+def ucsv_checks(torch, pt, device, generator) -> tuple:
+    """The JAX package's tests/test_timeseries.py:316- gates: the sd of one
+    step of log-volatility over 512 particles (within 30% of
+    sigma_volatility), and the level RMSE of SISR(UCSV_N) over UCSV_T
+    observations of the level (under 0.25). Returns (sd, RMSE, the
+    log-likelihood)."""
+    proc = pt.timeseries.models.UCSV(UCSV_SV, device=device)
+    x0 = proc.initial_sample(generator, (512,))
+    x1 = proc.propagate(generator, x0)
+    dv_sd = float((x1.value[:, 1] - x0.value[:, 1]).double().std())
+    model = model14(torch, pt, "ucsv", device)
+    path = model.sample_states(generator, UCSV_T)
+    res = pt.SISR(model, UCSV_N, device=device).batch_filter(generator, path.y.cpu().numpy())
+    means = res.filter_means[:, 0].double().cpu()
+    rmse = float(torch.sqrt(torch.mean((means - path.x[:, 0].double().cpu()) ** 2)))
+    return dv_sd, rmse, float(res.log_likelihood)
+
+
+def counted_sisr(pt):
+    """A SISR class whose resample fires, over every copy of its filters (a
+    model rebuild copies the filter), add to its one ``fires`` count; it
+    keeps the probabilities and values of the last fire (``last``)."""
+    class Counted(pt.SISR):
+        fires, last = 0, None
+
+        def _resample(self, generator, normalized, ts_state):
+            type(self).fires += 1
+            type(self).last = (normalized, ts_state.value)
+            return super()._resample(generator, normalized, ts_state)
+
+    return Counted
+
+
+def last_cloud_planes(values):
+    """A single-lane cloud ``(n,)`` or ``(n, d)`` as the expand kernel's value
+    planes ``(d, n)``."""
+    return values.reshape(1, -1) if values.dim() == 1 else values.T
+
+
+def jacfwd_transition(torch, pt, ctx, build, theta, ev):
+    """The transition's score functional by forward mode, ``jacfwd`` of the
+    particles' log-density vector in the parameters (the port takes
+    ``vmap`` over particles of ``grad``, as the JAX package does): phase
+    14(b) times both on one cloud."""
+    def h_fn(x_prev, x_cur, t):
+        def log_f(th):
+            ctx2 = ctx.unstack_parameters(th, constrained=False)
+            with ctx2.no_prior_verification():
+                model = build(ctx2)
+            return model.hidden.build_density(pt.timeseries.TimeseriesState(t - 1.0, x_prev, ev)).log_prob(x_cur)
+
+        return torch.func.jacfwd(log_f)(theta)[:, 0, :]
+
+    return h_fn
+
+
+def streaming_fit(torch, pt, expand, card, profile: bool = False) -> int:
+    """Phase 14(a): fit_mle_streaming at tests/test_score.py:87-104's size.
+    Returns the expand kernel's launches."""
+    import numpy as np
+
+    build = lambda c: stream_builder(pt, c)  # noqa: E731
+    y = stream_data(torch, pt, STREAM_T, seed=8)
+    counted = counted_sisr(pt)
+
+    def fit(n_obs, seed):
+        return pt.inference.fit_mle_streaming(build, y[:n_obs], lambda b: counted(b, STREAM_N),
+                                              torch.Generator(device="cuda").manual_seed(seed), window=STREAM_WINDOW,
+                                              learning_rate=STREAM_LR,
+                                              context=stream_context(torch, pt, "cuda", *STREAM_START))
+
+    fit(2 * STREAM_WINDOW, 1)  # warm-up: the first forward-mode pass loads torch's decompositions
+    _zero_counts(expand)
+    counted.fires = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fit(STREAM_T, 10)
+    fitted = res.parameters()
+    lls = res.window_log_likelihoods.cpu().numpy()
+    wall = time.perf_counter() - t0
+    launches, fires = expand.fused_expand.launches, counted.fires
+    n_win = STREAM_T // STREAM_WINDOW
+    gaps = {"beta": float(fitted["beta"]) - STREAM_BETA, "sigma": float(fitted["sigma"]) - STREAM_SIGMA}
+    sync_obs = 2 * STREAM_WINDOW
+    syncs = count_syncs(torch, lambda: fit(sync_obs, 11))
+    print(f"phase 14a: fit_mle_streaming(SISR({STREAM_N}), T={STREAM_T}, window {STREAM_WINDOW}, lr {STREAM_LR}, start "
+          f"beta {STREAM_START[0]}, sigma {STREAM_START[1]}): beta {float(fitted['beta']):.6f}, sigma "
+          f"{float(fitted['sigma']):.6f} (gaps {gaps}, limit {STREAM_TOL}); wall {wall:.3f} s, "
+          f"{wall / n_win * 1e3:.3f} ms a window, {wall / STREAM_T * 1e3:.4f} ms an observation; resample fires "
+          f"{fires} = expand launches {launches}; card {card}")
+    print(f"  host syncs per observation by source ({sync_obs} observations): "
+          f"{ {k: round(v / sync_obs, 4) for k, v in syncs.items()} }; total {sum(syncs.values()) / sync_obs:.4f}")
+    if not (np.isfinite(lls).all() and res.theta_path.shape == (n_win, 2)):
+        raise AssertionError(f"phase 14a: window log-likelihoods finite {bool(np.isfinite(lls).all())}, path "
+                             f"{tuple(res.theta_path.shape)}")
+    if not all(abs(g) < STREAM_TOL for g in gaps.values()):
+        raise AssertionError(f"phase 14a: fitted parameters off the truth by {gaps} (limit {STREAM_TOL})")
+    if not launches == fires > 0:
+        raise AssertionError(f"phase 14a: expand kernel launched {launches} times for {fires} resample fires")
+    if profile:
+        ops = profile_run(torch, "phase 14a, two streaming windows", lambda: fit(2 * STREAM_WINDOW, 12))
+        print(f"  device operations per observation {ops / (2 * STREAM_WINDOW):.2f}")
+    return launches
+
+
+def online_score_phase(torch, pt, expand, card) -> tuple:
+    """Phase 14(b): the online score at N = 1e5, one run at the default
+    rejection rounds and ONLINE_SEEDS at ONLINE_ROUNDS, against the float64
+    Kalman score; the score functional's two ways timed on one cloud; K1 on
+    the last cloud. Returns the launches and the
+    kernel's difference from its plain version."""
+    import numpy as np
+
+    from pyfilter_tpu_torch.filters.particle.smoothing import ffbsi_smooth
+    from pyfilter_tpu_torch.inference.score import _score_functionals
+
+    build = lambda c: stream_builder(pt, c)  # noqa: E731
+    y = stream_data(torch, pt, ONLINE_T, seed=0)
+    exact = kalman_score(y, *ONLINE_AT)
+    counted = counted_sisr(pt)
+
+    def run(seed, n_obs=ONLINE_T, max_rounds=16):
+        return pt.inference.online_score(build, y[:n_obs], lambda b: counted(b, ONLINE_N),
+                                         torch.Generator(device="cuda").manual_seed(seed),
+                                         context=stream_context(torch, pt, "cuda", *ONLINE_AT), max_rounds=max_rounds)
+
+    def timed(seed, max_rounds):
+        ffbsi_smooth.fallback_passes = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        score = run(seed, max_rounds=max_rounds).score.cpu().numpy().astype(np.float64)
+        return score, time.perf_counter() - t0, ffbsi_smooth.fallback_passes
+
+    run(99, 10)  # warm-up
+    _zero_counts(expand)
+    counted.fires = 0
+    torch.cuda.reset_peak_memory_stats()
+    default_score, default_wall, default_passes = timed(99, 16)
+    runs = [timed(100 + seed, ONLINE_ROUNDS) for seed in range(ONLINE_SEEDS)]
+    scores, walls, passes = (np.asarray([r[k] for r in runs]) for k in range(3))
+    peak = torch.cuda.max_memory_allocated()
+    launches, fires = expand.fused_expand.launches, counted.fires
+    mean, sem = scores.mean(axis=0), scores.std(axis=0, ddof=1) / math.sqrt(len(scores))
+    limit = 4 * sem + 0.05 * np.abs(exact)
+    print(f"phase 14b: online_score(SISR({ONLINE_N}), T={ONLINE_T}) at beta {ONLINE_AT[0]}, sigma {ONLINE_AT[1]}: "
+          f"default 16 rounds: score {default_score.tolist()}, {default_wall:.3f} s, "
+          f"{default_wall / ONLINE_T * 1e3:.4f} ms an observation, {default_passes / ONLINE_T:.2f} fallback passes an "
+          f"observation; {ONLINE_ROUNDS} rounds, {ONLINE_SEEDS} seeds: scores {scores.tolist()}; mean {mean.tolist()}, "
+          f"SEM {sem.tolist()}; wall per run {walls.tolist()} s, {walls.min() / ONLINE_T * 1e3:.4f} ms an observation "
+          f"(best), {passes.mean() / ONLINE_T:.2f} fallback passes an observation; float64 Kalman score "
+          f"{exact.tolist()} (per run: rel {ONLINE_RTOL}, abs {ONLINE_ATOL}; mean: 4 SEM + 5% = {limit.tolist()}); "
+          f"peak device memory {peak / 2**30:.4f} GiB; resample fires {fires} = expand launches {launches}; "
+          f"card {card}")
+    scores = np.vstack([default_score, scores])
+    if not np.isfinite(scores).all():
+        raise AssertionError("phase 14b: non-finite scores")
+    worst = np.abs(scores - exact) - (ONLINE_ATOL + ONLINE_RTOL * np.abs(exact))
+    if not (worst <= 0).all():
+        raise AssertionError(f"phase 14b: a run's score is off the Kalman score by {worst.max()} over the tolerance")
+    if not (np.abs(mean - exact) < limit).all():
+        raise AssertionError(f"phase 14b: mean score {mean} off the Kalman score {exact} by more than {limit}")
+    if not launches == fires > 0:
+        raise AssertionError(f"phase 14b: expand kernel launched {launches} times for {fires} resample fires")
+    probs, values = counted.last
+    err = check_on_cloud(torch, expand, probs, last_cloud_planes(values), f"phase 14b's last cloud (n={ONLINE_N})")
+
+    syncs = count_syncs(torch, lambda: run(7, 20))
+    print(f"  host syncs per observation by source (20 observations): "
+          f"{ {k: round(v / 20, 4) for k, v in syncs.items()} }; total {sum(syncs.values()) / 20:.4f}")
+
+    # the transition's score functional at N = 1e5: vmap(grad) (the port's) and jacfwd
+    ctx = stream_context(torch, pt, "cuda", *ONLINE_AT)
+    theta = ctx.stack_parameters(constrained=False)
+    h_vmap, _ = _score_functionals(ctx, build, theta, 0)
+    h_fwd = jacfwd_transition(torch, pt, ctx, build, theta, 0)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    xp, xc = torch.randn(ONLINE_N, generator=g, device="cuda"), torch.randn(ONLINE_N, generator=g, device="cuda")
+    a, b = h_fwd(xp, xc, 4.0), h_vmap(xp, xc, 4.0)
+    gap = float(((a - b).abs() / b.abs().clamp(min=1e-3)).max())
+    if not gap < 1e-4:
+        raise AssertionError(f"phase 14b: vmap(grad) and jacfwd functionals differ by rel {gap}")
+
+    def host_ms(fn, reps=20):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    fwd_ms, vmap_ms = host_ms(lambda: h_fwd(xp, xc, 4.0)), host_ms(lambda: h_vmap(xp, xc, 4.0))
+    print(f"  transition score functional at N={ONLINE_N}: vmap(grad) {vmap_ms:.4f} ms a call, jacfwd {fwd_ms:.4f} ms "
+          f"(host clock, synchronized, mean of 20; n_tilde = 2 calls an observation); largest relative gap {gap:.3g}")
+    return launches, err
+
+
+def paris_phase(torch, pt, expand, card) -> tuple:
+    """Phase 14(c): PaRIS on the stochastic-volatility model against FFBSi on
+    a recorded-intermediary history, and on phase 8's AR model against the
+    RTS smoother. Returns the launches and the kernel's difference from its
+    plain version."""
+    import numpy as np
+
+    from pyfilter_tpu_torch.filters.particle.smoothing import paris
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    counted = counted_sisr(pt)
+    _zero_counts(expand)
+    cpu_model = pt.examples.stochastic_volatility_model(dt=DT, device="cpu")
+    _, y_all = cpu_model.sample_states(torch.Generator().manual_seed(40), PARIS_SV_T * OES).get_paths()
+    y = y_all[OES - 1 :: OES].numpy()
+    model = pt.examples.stochastic_volatility_model(dt=DT)
+    log_sup = sv_log_sup()
+    h = observation_time(torch, OES)
+    t0 = time.perf_counter()
+    est, _, res = paris(counted(model, PARIS_SV_N), gen(41), y, h, n_tilde=2, log_density_sup=log_sup)
+    est = float(est)
+    paris_wall = time.perf_counter() - t0
+    filt_r = counted(model, PARIS_SV_N, record_states=True, record_intermediary=True)
+    res_r = filt_r.batch_filter(gen(42), y)
+    traj = filt_r.smooth(gen(43), res_r, method="ffbsi", log_density_sup=log_sup)
+    m = traj.double().mean(dim=1).cpu().numpy()
+    target = float(m[1 + OES * np.arange(len(y))].sum())
+    limit = 0.15 * abs(target) + 0.5
+    print(f"phase 14c: PaRIS(SISR({PARIS_SV_N})) on the stochastic-volatility model, T={PARIS_SV_T} x {OES} sub-steps, "
+          f"bound {log_sup:.6f}: estimate {est:.6f} ({paris_wall:.3f} s), FFBSi functional over the recorded "
+          f"sub-steps {target:.6f} (gap {est - target:+.6f}, limit {limit:.6f}); log-likelihood "
+          f"{float(res.log_likelihood):.6f}; card {card}")
+    if not (math.isfinite(est) and math.isfinite(float(res.log_likelihood))):
+        raise AssertionError(f"phase 14c: PaRIS estimate {est} (NaN: the bound guard fired)")
+    if not abs(est - target) < limit:
+        raise AssertionError(f"phase 14c: PaRIS estimate {est} off the FFBSi functional {target} (> {limit})")
+
+    y_ar, sm_mean, sm_var = ar_paris_data()
+    ar_model = pt.timeseries.LinearStateSpaceModel(
+        pt.timeseries.models.AR(AR_ALPHA, AR_BETA, AR_SIGMA), (1.0, AR_OBS_S))
+    est_ar, stats, res_ar = paris(counted(ar_model, PARIS_AR_N), gen(9), y_ar, lambda xp, xc, t: xc, n_tilde=2)
+    target = float(sm_mean.sum())
+    tol = max(5.0 * math.sqrt(sm_var.sum() / PARIS_AR_N) + 0.05 * abs(target), 0.6)
+    print(f"  PaRIS(SISR({PARIS_AR_N})) on phase 8's AR model, T={PARIS_AR_T}, sum of x_t: {float(est_ar):.6f}, RTS "
+          f"{target:.6f} (gap {float(est_ar) - target:+.6f}, limit {tol:.6f})")
+    if not abs(float(est_ar) - target) < tol:
+        raise AssertionError(f"phase 14c: PaRIS estimate {float(est_ar)} off the RTS sum {target} (> {tol})")
+    launches = expand.fused_expand.launches
+    if not launches == counted.fires > 0:
+        raise AssertionError(f"phase 14c: expand kernel launched {launches} times for {counted.fires} fires")
+    probs, values = counted.last
+    err = check_on_cloud(torch, expand, probs, last_cloud_planes(values), "phase 14c's last cloud")
+    return launches, err
+
+
+def resamplers_phase(torch, pt, expand, card) -> None:
+    """Phase 14(d): SISR with each other resampler at N = 1e5 on phase 12's
+    ``"ar"`` under its Kalman gate, and two over lanes; no kernel launches."""
+    import numpy as np
+
+    _, y = oracle_data("ar")
+    km, kll = kalman_linear(y, oracle_system("ar"))
+    model = oracle_model(pt, "ar", "cuda")
+    runs = [(scheme, RESAMPLE_N, ()) for scheme in RESAMPLERS]
+    runs += [(scheme, RESAMPLE_LANE_N, (RESAMPLE_LANES,)) for scheme in RESAMPLE_LANE_SCHEMES]
+    for scheme, n, lanes in runs:
+        resampler = getattr(pt.resampling, scheme)
+        filt = pt.SISR(model, n, resampling_method=resampler, batch_shape=lanes)
+        _zero_counts(expand)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = filt.batch_filter(torch.Generator(device="cuda").manual_seed(3), y[:, 0])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        kernels = sum(_launch_counts(expand))
+        lls = res.log_likelihood.double().cpu().numpy()
+        dev, ll_err = oracle_gate(res.filter_means.cpu().numpy(), lls, km, kll)
+        if lanes:  # the lanes' mean log-likelihood: each lane's is one N = 400 estimate
+            ll_err = abs(float(lls.mean()) - kll) / abs(kll)
+        probs = pt.normalize(res.latest_state.log_weights)
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        resampler(gen, probs, normalized=True)
+        fire_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            resampler(gen, probs, normalized=True)
+            torch.cuda.synchronize()
+            fire_ms.append((time.perf_counter() - t0) * 1e3)
+        syncs = sum(count_syncs(torch, lambda: resampler(gen, probs, normalized=True)).values())
+        shape = f"{n} x {lanes[0]} lanes" if lanes else f"N={n}"
+        print(f"phase 14d: SISR({shape}, {scheme}) on \"ar\", T={ORACLE_T}: median relative deviation {dev:.6f}, "
+              f"log-likelihood error {ll_err:.6f} (limit {ORACLE_TOL}); {wall:.3f} s, {filt.n_resamples} resample "
+              f"fires; kernel launches {kernels}; a fire {float(np.median(fire_ms)):.4f} ms (host clock, median of "
+              f"5), {syncs} host syncs a fire; card {card}")
+        if not (dev < ORACLE_TOL and ll_err < ORACLE_TOL):
+            raise AssertionError(f"phase 14d: {scheme} ({shape}) fails the Kalman gate: {dev}, {ll_err}")
+        if kernels or not filt.n_resamples:
+            raise AssertionError(f"phase 14d: {scheme} ({shape}): {kernels} kernel launches, "
+                                 f"{filt.n_resamples} resample fires")
+
+
+def models_phase(torch, pt, expand, card) -> tuple:
+    """Phase 14(e): the four models. Returns the launches and the kernel's
+    largest difference from its plain version."""
+    import numpy as np
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    launches, err = 0, 0.0
+    gap, limit = trending_ou_reversion(torch, pt, "cuda", gen(20))
+    print(f"phase 14e: TrendingOU{TOU_PARAMS}, {TOU_PATHS} paths of {TOU_STEPS} steps: the last half's mean off the "
+          f"trend by {gap:.6f} at worst (limit {limit:.6f})")
+    if not gap < limit:
+        raise AssertionError(f"phase 14e: TrendingOU off its trend by {gap} (> {limit})")
+    dv_sd, rmse, ucsv_ll = ucsv_checks(torch, pt, "cuda", gen(21))
+    print(f"  UCSV({UCSV_SV}): one log-volatility step's sd {dv_sd:.6f} (within 30% of {UCSV_SV}); SISR({UCSV_N}) over "
+          f"{UCSV_T} observations: level RMSE {rmse:.6f} (limit 0.25), log-likelihood {ucsv_ll:.6f}")
+    if not (abs(dv_sd - UCSV_SV) < 0.3 * UCSV_SV and rmse < 0.25 and math.isfinite(ucsv_ll)):
+        raise AssertionError(f"phase 14e: UCSV checks {dv_sd}, {rmse}, {ucsv_ll}")
+    for seed, name in enumerate(("llt", "cyclical", "trending_ou", "ucsv")):
+        if name in ("llt", "cyclical"):
+            system = system14(name)
+            _, y = simulate_linear(system, MODEL14_T, seed)
+        else:
+            path = model14(torch, pt, name, "cpu").sample_states(torch.Generator().manual_seed(seed), MODEL14_T)
+            y = path.y.numpy()
+        counted = counted_sisr(pt)
+        filt = counted(model14(torch, pt, name, "cuda"), MODEL14_N)
+        _zero_counts(expand)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = filt.batch_filter(gen(30 + seed), y)
+        ll = float(res.log_likelihood)
+        wall = time.perf_counter() - t0
+        k1 = expand.fused_expand.launches
+        line = f"  {name}: SISR(N={MODEL14_N}), T={MODEL14_T}: log-likelihood {ll:.6f}; {wall:.3f} s"
+        if name in ("llt", "cyclical"):
+            km, kll = kalman_linear(y, system)
+            dev, ll_err = oracle_gate(res.filter_means.cpu().numpy(), ll, km, kll)
+            line += f"; median relative deviation {dev:.6f}, log-likelihood error {ll_err:.6f} (limit {ORACLE_TOL})"
+            if not (dev < ORACLE_TOL and ll_err < ORACLE_TOL):
+                raise AssertionError(f"phase 14e: {name} fails the Kalman gate: {dev}, {ll_err}")
+        print(f"{line}; resample fires {counted.fires} = expand launches {k1}; card {card}")
+        if not (math.isfinite(ll) and k1 == counted.fires > 0):
+            raise AssertionError(f"phase 14e: {name}: log-likelihood {ll}, {k1} launches for {counted.fires} fires")
+        probs, values = counted.last
+        err = max(err, check_on_cloud(torch, expand, probs, last_cloud_planes(values), f"phase 14e's {name} cloud"))
+        launches += k1
+    return launches, err
+
+
+def single_step_phase(torch, pt, expand, card) -> int:
+    """Phase 14(f): ``step`` against ``filter``, ``batch_filter_masked``
+    against ``batch_filter`` of the first rows (N = 1e5), ``lane_concat`` and
+    ``resample_particles``. Returns the expand kernel's launches."""
+    from pyfilter_tpu_torch.filters.base import pad_observations
+    from pyfilter_tpu_torch.filters.state import ParticleFilterCorrection
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    y = stream_data(torch, pt, 2 * MASKED_VALID, seed=0)
+    model = stream_model(pt)
+    filt = pt.SISR(model, MASKED_N)
+    _zero_counts(expand)
+    state = filt.batch_filter(gen(1), y[:5]).latest_state
+    a, b = filt.step(gen(2), y[5], state), filt.filter(gen(2), y[5], state)
+    same = all(torch.equal(p, q) for p, q in zip((a.x.value, a.log_weights, a.log_likelihood, a.prev_indices),
+                                                 (b.x.value, b.log_weights, b.log_likelihood, b.prev_indices)))
+    padded, n_valid = pad_observations(y[:MASKED_VALID])
+    masked = filt.batch_filter_masked(gen(3), padded, n_valid)
+    plain = filt.batch_filter(gen(3), y[:MASKED_VALID])
+    same_masked = (torch.equal(masked.log_likelihood, plain.log_likelihood)
+                   and torch.equal(masked.step_log_likelihoods[:n_valid], plain.step_log_likelihoods)
+                   and not bool(masked.step_log_likelihoods[n_valid:].any())
+                   and torch.equal(masked.latest_state.x.value, plain.latest_state.x.value))
+    launches = expand.fused_expand.launches
+
+    parts = [pt.SISR(model, 1000, batch_shape=(k,)).batch_filter(gen(10 + k), y[:3]).latest_state for k in (2, 1, 3)]
+    cat = ParticleFilterCorrection.lane_concat(parts)
+    idx = pt.resampling.systematic(gen(4), cat.log_weights)
+    moved = cat.resample_particles(idx)
+    mean, var = pt.utils.get_mean_and_variance(moved.x.value, torch.full_like(moved.log_weights, 1e-3))
+    concat_ok = (tuple(cat.x.value.shape) == (1000, 6) and tuple(cat.log_likelihood.shape) == (6,)
+                 and torch.equal(cat.x.value, torch.cat([p.x.value for p in parts], dim=1))
+                 and torch.equal(cat.log_likelihood, torch.cat([p.log_likelihood for p in parts]))
+                 and torch.equal(moved.x.value, torch.gather(cat.x.value, 0, idx.long()))
+                 and not bool(moved.log_weights.any()) and torch.equal(moved.prev_indices, idx)
+                 and torch.equal(moved.log_likelihood, cat.log_likelihood)
+                 and bool(torch.allclose(moved.mean, mean, rtol=1e-5, atol=1e-6))
+                 and bool(torch.allclose(moved.variance, var, rtol=1e-5, atol=1e-6)))
+    print(f"phase 14f: step == filter from one state (N={MASKED_N}): {same}; batch_filter_masked("
+          f"pad_observations(y[:{MASKED_VALID}]), bucket {len(padded)}) == batch_filter(y[:{MASKED_VALID}]), bit "
+          f"for bit: {same_masked}; lane_concat of 2 + 1 + 3 lanes and resample_particles: {concat_ok}; expand "
+          f"launches {launches}; card {card}")
+    if not (same and same_masked and concat_ok):
+        raise AssertionError("phase 14f: the single-step API disagrees")
+    return launches
+
+
+def streaming(torch, pt, expand, card, profile: bool = False) -> dict:
+    """Phase 14 (module docstring): returns the expand kernel's launches by
+    path and its largest difference from its plain version."""
+    t_phase = time.perf_counter()
+    paths, errs = {}, []
+    paths["phase 14a"] = streaming_fit(torch, pt, expand, card, profile=profile)
+    paths["phase 14b"], err = online_score_phase(torch, pt, expand, card)
+    errs.append(err)
+    paths["phase 14c"], err = paris_phase(torch, pt, expand, card)
+    errs.append(err)
+    resamplers_phase(torch, pt, expand, card)
+    paths["phase 14e"], err = models_phase(torch, pt, expand, card)
+    errs.append(err)
+    paths["phase 14f"] = single_step_phase(torch, pt, expand, card)
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s; expand launches by path {paths}")
+    return {"paths": paths, "err": max(errs)}
 
 
 def apf_bias(torch, pt, seeds: int) -> int:

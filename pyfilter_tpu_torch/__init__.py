@@ -14,15 +14,18 @@ observations, the linearized (gradient and damped-Newton mode finding),
 nested and Gaussian-approximate proposals and the local linearization;
 joint processes and the imputation of missing observation components;
 recorded histories with exact FFBS, rejection FFBSi and fixed-lag
-smoothing; SMC² over a lane-batched APF, with a quasi-random
+smoothing; PaRIS online smoothing, the online score and streaming maximum
+likelihood; the single-step API (``step``, ``filter(...,
+return_intermediaries=True)``, ``batch_filter_masked``); the systematic,
+stratified, multinomial, residual, Metropolis and rejection resamplers; SMC² over a lane-batched APF, with a quasi-random
 (Sobol) start and the adaptive distance stop; batch PMMH with random-walk
 and adaptive random-walk proposals; NESS, FixedWidthNESS and their SMC²
 hybrids with the KDE jitter kernels; gradients through the filter (the
 differentiable SISR and APF, whose resample kernels have hand-written
 backward kernels too, ``fit_mle``, the VI bridge and ``fit_svi``,
 gradient-based PMMH, chain diagnostics); the AR, random-walk,
-Ornstein-Uhlenbeck, linear, Verhulst, sine-diffusion, Lorenz-63 and nutria
-models.
+Ornstein-Uhlenbeck, local-linear-trend, trending-OU, UCSV, cyclical, linear,
+Verhulst, sine-diffusion, Lorenz-63 and nutria models.
 """
 
 __version__ = "0.1.0"

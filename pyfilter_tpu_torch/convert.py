@@ -6,7 +6,8 @@ the port's objects from them — so both packages can start from one
 particle cloud (one lane or a lane batch), one set of model parameters
 (scalars or one per lane), one context's parameter values, and one recorded
 filter history (which the port's smoothers then run on), one fitted guide
-or maximum-likelihood point. Only numpy arrays,
+or maximum-likelihood point, and PaRIS's per-particle statistics (a pytree
+of arrays). Only numpy arrays,
 numpy scalars and Python numbers are accepted. It also builds the
 linear-Gaussian suite's 2-D models and the nonlinear benchmark model from
 their numpy parameters, so that both packages filter the same model.
@@ -214,3 +215,13 @@ def mle_result_from_numpy(theta, losses, context):
 
     dev = context.device
     return MLEResult(_tensor("theta", theta, torch.float32, dev), _tensor("losses", losses, torch.float32, dev), context)
+
+
+def tree_from_numpy(tree, device=None):
+    """A pytree (tuples, lists, dicts) of numpy arrays, such as the leaves of
+    the JAX package's PaRIS statistics, as float32 tensors on ``device``, in
+    the same structure."""
+    from torch.utils._pytree import tree_map
+
+    device = resolve_device(device)
+    return tree_map(lambda leaf: _tensor("leaf", leaf, torch.float32, device), tree)

@@ -102,14 +102,33 @@ class BaseFilter:
         raise NotImplementedError
 
     # -- single observation step ---------------------------------------------
-    def filter(self, generator, y, state, first_step: bool = False) -> ParticleFilterCorrection:
+    def step(self, generator, y, state, first_step: bool = False) -> ParticleFilterCorrection:
+        """One filter move, :meth:`filter` (the JAX package compiles it for
+        the sequential algorithms; PyTorch runs it as it stands)."""
+        return self.filter(generator, y, state, first_step=first_step)
+
+    def filter(self, generator, y, state, first_step: bool = False, return_intermediaries: bool = False):
         """One filter move: predict, ``observe_every_step - 1`` uncorrected
         sub-steps (none on the first observation, whose time is already
         aligned), then correct — or propagate only when ``y`` is all NaN.
-        ``y`` is a host value (a float or a numpy array)."""
+        ``y`` is a host value (a float or a numpy array).
+
+        ``return_intermediaries`` also returns the sub-steps, one propagation
+        at a time, as ``(time_indexes, values, log_weights, indices)``
+        stacked ``(n_sub, ...)`` (the time indexes on the host), or None when
+        the move has no sub-step."""
         y_host = np.asarray(y, dtype=np.float32)
         y_dev = torch.as_tensor(y_host, device=self.device)
-        return self._filter(generator, y_dev, self._nan_row(np.isnan(y_host)), state, first_step)
+        subs = [] if return_intermediaries else None
+        correction = self._filter(generator, y_dev, self._nan_row(np.isnan(y_host)), state, first_step,
+                                  on_substep=None if subs is None else subs.append)
+        if subs is None:
+            return correction
+        if not subs:
+            return correction, None
+        times = torch.tensor([p.x.time_index for p in subs], dtype=torch.float32)
+        return correction, (times, torch.stack([p.x.value for p in subs]),
+                            torch.stack([p.log_weights for p in subs]), torch.stack([p.indices for p in subs]))
 
     def _nan_row(self, nan_mask: np.ndarray) -> str | None:
         """What a row's NaN components ask of the step, decided on the host:
@@ -188,6 +207,25 @@ class BaseFilter:
             states=None if recorder is None else recorder.history(),
         )
 
+    def batch_filter_masked(self, generator, y_padded, n_valid) -> FilterResult:
+        """Filter the first ``n_valid`` rows of ``y_padded`` (see
+        :func:`pad_observations`), as :meth:`batch_filter` of them would, on
+        the same draws. The per-step log-likelihoods keep ``y_padded``'s
+        length, 0 past ``n_valid``; no moments or history are kept, and a
+        recording filter raises. The JAX package compiles one program per
+        padded length; here the rows past ``n_valid`` are simply not run."""
+        if self.record_states or self.record_intermediary:
+            raise ValueError("batch_filter_masked cannot record states")
+        if isinstance(y_padded, torch.Tensor):
+            y_padded = y_padded.detach().cpu().numpy()
+        n_valid = int(n_valid)
+        if not 0 < n_valid <= len(y_padded):
+            raise ValueError(f"n_valid={n_valid} outside [1, {len(y_padded)}]")
+        res = self.batch_filter(generator, np.asarray(y_padded)[:n_valid])
+        lls = res.step_log_likelihoods
+        step_lls = torch.cat([lls, lls.new_zeros((len(y_padded) - n_valid,) + tuple(lls.shape[1:]))])
+        return FilterResult(res.log_likelihood, step_lls, None, None, res.latest_state)
+
     def _recorder(self, state0, n_steps: int) -> "_HistoryRecorder | None":
         """The history recorder ``record_states`` asks for, holding ``state0``."""
         rs = self.record_states
@@ -203,6 +241,25 @@ class BaseFilter:
         if self.record_intermediary:
             raise ValueError("bounded record_states cannot record intermediaries")
         return _HistoryRecorder(state0, rs, rolling=True)
+
+
+def pad_observations(y, bucket: int | None = None):
+    """``y``'s time axis padded with zeros to the next power of two (or to
+    ``bucket``), for :meth:`BaseFilter.batch_filter_masked`. Returns
+    ``(y_padded, n_valid)``: a numpy array for a numpy ``y`` (the filters
+    take their observations on the host), a tensor on ``y``'s device for a
+    tensor."""
+    t = y.shape[0]
+    if bucket is None:
+        bucket = 1 << max(t - 1, 0).bit_length()
+    if bucket < t:
+        raise ValueError(f"bucket {bucket} shorter than the sequence {t}")
+    if isinstance(y, torch.Tensor):
+        return torch.cat([y, y.new_zeros((bucket - t,) + tuple(y.shape[1:]))]), t
+    y = np.asarray(y)
+    out = np.zeros((bucket,) + y.shape[1:], y.dtype)
+    out[:t] = y
+    return out, t
 
 
 class _HistoryRecorder:

@@ -1,33 +1,44 @@
-"""O(N) particle smoothing: rejection-sampling FFBSi.
+"""O(N) particle smoothing: rejection-sampling FFBSi and PaRIS.
 
-Counterpart of ``pyfilter_tpu/filters/particle/smoothing.py`` (without PaRIS
-and the in-trace bound). Each trajectory draws ancestor candidates
-uniformly, ``i ~ Uniform{0..N-1}``, and accepts with probability
-``(w_i / max w) · p(x_{t+1} | x_i) / sup p``: the accepted law is exactly the
-backward kernel's, ``∝ w_i p(x_{t+1} | x_i)``. All ``max_rounds`` rounds are
-drawn at once (one ``randint``, one gather, one density evaluation) and each
-target takes its first acceptance; targets with none are finished exactly by
-a Gumbel-max categorical streamed over particle blocks. The bound comes from
-:func:`transition_log_sup` (homoscedastic affine processes) or from the
+Counterpart of ``pyfilter_tpu/filters/particle/smoothing.py``. Each
+trajectory draws ancestor candidates uniformly, ``i ~ Uniform{0..N-1}``, and
+accepts with probability ``(w_i / max w) · p(x_{t+1} | x_i) / sup p``: the
+accepted law is exactly the backward kernel's, ``∝ w_i p(x_{t+1} | x_i)``.
+All ``max_rounds`` rounds are drawn at once (one ``randint``, one gather, one
+density evaluation) and each target takes its first acceptance; targets with
+none are finished exactly by a Gumbel-max categorical streamed over particle
+blocks. The bound comes from :func:`transition_log_sup` (homoscedastic
+affine processes, probed on the host), :func:`transition_log_sup_traced`
+(the same bound from the current parameters on the device, unprobed) or the
 caller.
+
+:func:`paris` smooths an additive functional online (Olsson & Westerborn
+2017): per-particle statistics ride the filter pass, each particle averaging
+the statistics it inherits through ``n_tilde`` backward draws of the same
+rejection kernel, with no recorded history.
 
 Where the JAX package decides on the device (``lax.cond`` on every target
 accepted, a ``while_loop`` over the failed slots), the port reads the number
-of failed slots once per backward step, one host sync, and from it knows how
+of failed slots once per backward draw, one host sync, and from it knows how
 many fallback passes to launch. A violated bound is accumulated on the device
 and poisons the output with NaN without a read. ``ffbsi_smooth.host_syncs``
-and ``ffbsi_smooth.fallback_passes`` count both since they were last set to 0.
+and ``ffbsi_smooth.fallback_passes`` count both (for PaRIS's draws too) since
+they were last set to 0.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from ...distributions import Independent, MultivariateNormal, Normal
 from ...timeseries import TimeseriesState
+from ...timeseries.models import parameter
 from ...utils import batched_gather
+from ..result import FilterResult
 from .base import gumbel, trajectory_ends
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -83,17 +94,39 @@ def transition_log_sup(model) -> torch.Tensor:
                 "pass log_density_sup explicitly (e.g. from the scale's known infimum)"
             )
 
+    return _log_sup(hidden, probes[0].to(torch.float32), d, ev)
+
+
+def _log_sup(hidden, scale: torch.Tensor, d: int, ev: int) -> torch.Tensor:
+    """``max log density(W) - log |det scale|``: a matrix scale's
+    log-determinant, or an elementwise scale's log summed over the ``d``
+    event components."""
     mlp = _max_log_prob(hidden.increment_distribution)
-    s = probes[0].to(torch.float32)
-    if s.dim() >= 2 and s.shape[-1] == s.shape[-2] == d:
-        logdet = torch.linalg.slogdet(s)[1]
+    if scale.dim() >= 2 and scale.shape[-1] == scale.shape[-2] == d:
+        logdet = torch.linalg.slogdet(scale)[1]
     else:
-        per = torch.log(torch.abs(s))
+        per = torch.log(torch.abs(scale))
         if per.dim() == 0:
             logdet = d * per
         else:
             logdet = torch.sum(per.expand(per.shape[:-1] + (d,)) if ev == 1 else per, dim=-1)
     return (mlp - logdet).to(torch.float32)
+
+
+def transition_log_sup_traced(model) -> torch.Tensor:
+    """:func:`transition_log_sup` from the process's current parameters, on
+    the device: the scale is read at one state and time and not probed, so
+    no value goes to the host. The caller has checked once, at a concrete
+    parameter point, that the scale depends on neither state nor time (a
+    property of the model family, not of the parameter values):
+    :func:`~pyfilter_tpu_torch.inference.score.fit_mle_streaming` runs
+    :func:`transition_log_sup` at its start and this at every window."""
+    hidden = model.hidden
+    ev = int(hidden.event_ndim)
+    d = int(hidden.initial_distribution().event_shape[0]) if ev == 1 else 1
+    probe = torch.zeros((d,) if ev == 1 else (), device=hidden.device)
+    _, scale = hidden.mean_scale(TimeseriesState(0.0, probe, ev))
+    return _log_sup(hidden, parameter(scale, hidden.device), d, ev)
 
 
 def _streaming_categorical(generator, model, vals_t, lw_t, time_index: float, targets, ev: int, block: int):
@@ -237,3 +270,114 @@ def ffbsi_smooth(
 
 ffbsi_smooth.host_syncs = 0
 ffbsi_smooth.fallback_passes = 0
+
+
+def paris(
+    filt,
+    generator,
+    y,
+    h_fn,
+    h0_fn=None,
+    n_tilde: int = 2,
+    log_density_sup=None,
+    max_rounds: int = 16,
+    block: int = 64,
+    h_obs_fn=None,
+    initial_state=None,
+    first_step: bool = True,
+):
+    """Online PaRIS smoothing of an additive functional, with O(1) memory in
+    the number of observations.
+
+    Estimates ``E[h_0(x_0) + sum_{t >= 1} h(x_{t-1}, x_t) | y_{1:T}]`` from
+    per-particle statistics updated inside the filter pass: at each
+    transition every particle draws ``n_tilde`` backward indices from the
+    previous cloud through :func:`backward_indices` and averages the
+    statistics it inherits plus ``h`` of the transition (``n_tilde >= 2`` is
+    the stable regime).
+
+    ``h_fn(x_prev_values, x_values, t)`` returns a tensor (or a pytree of
+    tensors) with leaves ``(N, *batch, ...)``, both values being whole
+    clouds and ``t`` the host time index of ``x_values``; ``h0_fn(x0_values)``
+    is the optional initial term. With ``observe_every_step > 1`` every
+    sub-step is its own backward update against the sub-step cloud, which
+    carries the post-resample weights (propagation alone never reweights),
+    and ``h_fn`` is called once per sub-step transition: a functional of the
+    observation times only gates on ``t``. ``h_obs_fn(x_values, y_t, t)``
+    is an optional term added once per observation after the update, ``y_t``
+    the observation on the device as it stands (its NaN handling is the
+    caller's).
+
+    ``initial_state`` with ``first_step=False`` continues from a carried
+    filter state, its first observation a full ``observe_every_step`` move.
+
+    A density above the bound at any candidate turns the statistics and the
+    estimate to NaN at the end; the flag stays on the device. Returns
+    ``(estimate, stats, result)``: the weighted estimate, the final
+    per-particle statistics and the pass's :class:`FilterResult` (no
+    history)."""
+    model = filt.model
+    ev = model.hidden.event_ndim
+    log_sup = transition_log_sup(model) if log_density_sup is None else parameter(log_density_sup, filt.device)
+
+    if isinstance(y, torch.Tensor):
+        y = y.detach().cpu().numpy()
+    y_host = np.asarray(y, dtype=np.float32)
+    n_steps = y_host.shape[0]
+    if n_steps == 0:
+        raise ValueError("empty observation sequence")
+    nan_mask = np.isnan(y_host.reshape(n_steps, -1))
+    y_dev = torch.as_tensor(y_host, device=filt.device)
+
+    state = filt.initialize(generator) if initial_state is None else initial_state
+    x0 = state.x
+    if h0_fn is not None:
+        stats = h0_fn(x0.value)
+    else:
+        stats = tree_map(torch.zeros_like, h_fn(x0.value, x0.value, x0.time_index))
+
+    def backward_update(vals_p, lw_p, t_p, targets, t_new, stats):
+        """The statistics averaged over ``n_tilde`` backward draws against
+        the cloud ``(vals_p, lw_p)`` at time ``t_p``."""
+        draws, viol = [], None
+        for _ in range(int(n_tilde)):
+            idx, v = backward_indices(generator, model, vals_p, lw_p, t_p, targets, log_sup, max_rounds, block)
+            inherited = tree_map(lambda leaf: batched_gather(leaf, idx, leaf.dim() - lw_p.dim()), stats)
+            inc = h_fn(batched_gather(vals_p, idx, ev), targets, t_new)
+            draws.append(tree_map(torch.add, inherited, inc))
+            viol = v if viol is None else viol | v
+        return tree_map(lambda *leaves: sum(leaves) / float(n_tilde), *draws), viol
+
+    violated = torch.zeros((), dtype=torch.bool, device=filt.device)
+    lls, means, variances = [], [], []
+    for t in range(n_steps):
+        subs = []
+        new = filt._filter(generator, y_dev[t], filt._nan_row(nan_mask[t]), state, first_step and t == 0,
+                           on_substep=subs.append)
+        # the chain state -> sub_1 -> ... -> sub_{oes-1} -> correction, one
+        # backward update per link
+        chain = [state.x, *(p.x for p in subs), new.x]
+        weights = [state.log_weights, *(p.log_weights for p in subs)]
+        for prev, lw_p, cur in zip(chain[:-1], weights, chain[1:]):
+            stats, v = backward_update(prev.value, lw_p, prev.time_index, cur.value, cur.time_index, stats)
+            violated = violated | v
+        if h_obs_fn is not None:
+            stats = tree_map(torch.add, stats, h_obs_fn(new.x.value, y_dev[t], new.x.time_index))
+        lls.append(new.log_likelihood)
+        means.append(new.mean)
+        variances.append(new.variance)
+        state = new
+
+    w = state.normalized_weights()
+    stats = tree_map(lambda leaf: torch.where(violated, math.nan, leaf), stats)
+    estimate = tree_map(lambda leaf: torch.sum(leaf * w.reshape(tuple(w.shape) + (1,) * (leaf.dim() - w.dim())), dim=0),
+                        stats)
+    step_lls = torch.stack(lls)
+    result = FilterResult(
+        log_likelihood=torch.sum(step_lls, dim=0),
+        step_log_likelihoods=step_lls,
+        filter_means=torch.stack(means),
+        filter_variances=torch.stack(variances),
+        latest_state=state,
+    )
+    return estimate, stats, result

@@ -13,7 +13,7 @@ import torch
 
 from ..distributions import Distribution, MultivariateNormal, Normal
 from ..timeseries import TimeseriesState
-from ..utils import get_mean_and_variance, normalize
+from ..utils import batched_gather, get_mean_and_variance, normalize
 
 
 class ParticleFilterPrediction(NamedTuple):
@@ -105,7 +105,7 @@ class ParticleFilterCorrection(NamedTuple):
         the corrected cloud."""
         return model.sample_states(generator, num_steps, x_0=self.x)
 
-    # -- lane surgery (JAX filters/state.py:139-178) ---------------------------
+    # -- lane surgery (JAX filters/state.py:139-202) ---------------------------
     def resample(self, indices: torch.Tensor) -> "ParticleFilterCorrection":
         """Gather the LANES by ``indices`` ``(K,)``: lane axis 1 of the
         particle-indexed leaves, lane axis 0 of the per-lane log-likelihood,
@@ -134,4 +134,28 @@ class ParticleFilterCorrection(NamedTuple):
             mix(self.prev_indices, other.prev_indices, 1),
             mix(self.mean, other.mean, 0),
             mix(self.variance, other.variance, 0),
+        )
+
+    @staticmethod
+    def lane_concat(states) -> "ParticleFilterCorrection":
+        """Several corrections concatenated along the LANE axis (axis 1 of
+        the particle-indexed leaves, axis 0 of the per-lane ones); the time
+        index is the first state's."""
+        s0 = states[0]
+        return ParticleFilterCorrection(
+            s0.x.copy(values=torch.cat([s.x.value for s in states], dim=1)),
+            torch.cat([s.log_weights for s in states], dim=1),
+            torch.cat([s.log_likelihood for s in states], dim=0),
+            torch.cat([s.prev_indices for s in states], dim=1),
+            torch.cat([s.mean for s in states], dim=0),
+            torch.cat([s.variance for s in states], dim=0),
+        )
+
+    def resample_particles(self, indices: torch.Tensor) -> "ParticleFilterCorrection":
+        """Gather the PARTICLE axis by ``indices`` ``(N, *batch)``: the cloud
+        takes zero log-weights, ``indices`` as its ancestry and moments
+        recomputed from it; the log-likelihood is kept."""
+        new_x = self.x.copy(values=batched_gather(self.x.value, indices, self.x.event_ndim))
+        return ParticleFilterCorrection.from_weighted_particles(
+            new_x, torch.zeros_like(self.log_weights), self.log_likelihood, indices.to(self.prev_indices.dtype)
         )

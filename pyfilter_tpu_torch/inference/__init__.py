@@ -1,9 +1,10 @@
 """Parameter inference: the context (plain and quasi-random), priors, batch
 PMMH and its proposals, SMC², NESS and their hybrids, variational inference
-and maximum likelihood through the filter, and chain diagnostics
-(counterpart of ``pyfilter_tpu/inference``, the subset those paths run)."""
+and maximum likelihood through the filter, the online score and streaming
+maximum likelihood, and chain diagnostics (counterpart of
+``pyfilter_tpu/inference``, the subset those paths run)."""
 
-from . import batch, diagnostics, logging, plot, prior, qmc, sequential, variational
+from . import batch, diagnostics, logging, plot, prior, qmc, score, sequential, variational
 from .base import BaseAlgorithm
 from .batch.mcmc import PMMH, AdaptiveRandomWalk, GradientBasedProposal, PMMHResult, RandomWalk, SymmetricMH
 from .diagnostics import effective_sample_size, potential_scale_reduction, summarize_chains
@@ -24,6 +25,7 @@ from .sequential import (
 from .state import RunningFilterResult, SequentialAlgorithmState, SMC2State, scrub_lane_increment
 from .qmc import EngineContainer
 from .utils import QuasiMultivariateNormal, calc_mean_chol, construct_mvn
+from .score import OnlineScoreResult, StreamingMLEResult, fit_mle_streaming, online_score
 from .variational import GuideState, MLEResult, SVIResult, fit_mle, fit_svi
 
 __all__ = [
@@ -32,6 +34,7 @@ __all__ = [
     "plot",
     "prior",
     "qmc",
+    "score",
     "sequential",
     "variational",
     "diagnostics",
@@ -66,6 +69,10 @@ __all__ = [
     "construct_mvn",
     "fit_svi",
     "fit_mle",
+    "online_score",
+    "fit_mle_streaming",
+    "OnlineScoreResult",
+    "StreamingMLEResult",
     "GuideState",
     "SVIResult",
     "MLEResult",

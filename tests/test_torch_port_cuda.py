@@ -478,3 +478,110 @@ def test_gradient_entry_points_refuse_without_a_card(monkeypatch):
             make()
     res = inf.fit_svi(build, [0.1] * 5, lambda b: pt.APF(b, 10, device="cpu"), num_steps=1, num_elbo_samples=2)
     assert res.context.device.type == "cpu" and res.losses.shape == (1,)
+
+
+def _counted(fn):
+    """``fn()``'s result and the expand kernel's launches during it."""
+    before = expand.fused_expand.launches
+    out = fn()
+    torch.cuda.synchronize()
+    return out, expand.fused_expand.launches - before
+
+
+@pytest.mark.cuda
+def test_paris_on_card_resamples_through_the_kernel(cuda):
+    """PaRIS on the card: the estimate and statistics stay on the device,
+    the expand kernel launches once per resample fire, and a bound below the
+    transition density's maximum poisons the estimate with NaN."""
+    from pyfilter_tpu_torch.filters.particle.smoothing import paris
+
+    y, sm_mean, _ = chip_smoke.ar_paris_data(40)
+    hidden = pt.timeseries.models.AR(chip_smoke.AR_ALPHA, chip_smoke.AR_BETA, chip_smoke.AR_SIGMA)
+    model = pt.timeseries.LinearStateSpaceModel(hidden, (1.0, chip_smoke.AR_OBS_S))
+    filt = pt.SISR(model, 20_000)
+    (est, stats, res), launches = _counted(lambda: paris(filt, torch.Generator(device=cuda).manual_seed(0), y,
+                                                          lambda xp, xc, t: xc))
+    assert est.device.type == stats.device.type == res.log_likelihood.device.type == "cuda"
+    assert launches == filt.n_resamples > 0
+    assert abs(float(est) - sm_mean.sum()) < 0.6
+    bad, _, _ = paris(filt, torch.Generator(device=cuda).manual_seed(1), y, lambda xp, xc, t: xc, log_density_sup=-5.0)
+    assert torch.isnan(bad)
+
+
+@pytest.mark.cuda
+def test_online_score_and_streaming_fit_on_card(cuda):
+    """The online score on the card within tests/test_score.py's tolerance of
+    the float64 Kalman score, its resamples through the kernel; a short
+    streaming fit keeps its path on the device."""
+    y = chip_smoke.stream_data(torch, pt, 100, seed=0)
+    ctx = chip_smoke.stream_context(torch, pt, "cuda", 0.5, 0.5)
+    counted = chip_smoke.counted_sisr(pt)  # counts the fires of every rebuilt copy
+    res, launches = _counted(lambda: pt.inference.online_score(
+        lambda c: chip_smoke.stream_builder(pt, c), y, lambda b: counted(b, 5000),
+        torch.Generator(device=cuda).manual_seed(2), context=ctx))
+    assert res.score.device.type == "cuda" and res.stats.shape == (5000, 2)
+    assert launches == counted.fires > 0
+    exact = chip_smoke.kalman_score(y, 0.5, 0.5)
+    assert all(abs(float(a) - b) <= 2.5 + 0.18 * abs(b) for a, b in zip(res.score.cpu(), exact)), (res.score, exact)
+
+    fit = pt.inference.fit_mle_streaming(lambda c: chip_smoke.stream_builder(pt, c), y, lambda b: pt.SISR(b, 500),
+                                         torch.Generator(device=cuda).manual_seed(3), window=25,
+                                         context=chip_smoke.stream_context(torch, pt, "cuda", 0.3, 0.7))
+    assert fit.theta_path.device.type == "cuda" and fit.theta_path.shape == (4, 2)
+    assert bool(torch.isfinite(fit.window_log_likelihoods).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", chip_smoke.RESAMPLERS)
+def test_explicit_resamplers_never_launch_the_kernel_on_card(cuda, scheme):
+    """SISR given any other resampler runs it on the card and launches
+    neither resample kernel, on one lane and on lanes."""
+    model = chip_smoke.oracle_model(pt, "ar", "cuda")
+    _, y = chip_smoke.oracle_data("ar")
+    for lanes in ((), (16,)):
+        filt = pt.SISR(model, 2000 if not lanes else 400, resampling_method=getattr(pt.resampling, scheme),
+                       batch_shape=lanes)
+        before = (expand.fused_expand.launches, expand.fused_expand_lanes.launches)
+        res = filt.batch_filter(torch.Generator(device=cuda).manual_seed(0), y[:, 0])
+        torch.cuda.synchronize()
+        assert (expand.fused_expand.launches, expand.fused_expand_lanes.launches) == before
+        assert filt.n_resamples > 0 and bool(torch.isfinite(res.log_likelihood).all())
+
+
+@pytest.mark.cuda
+def test_single_step_api_on_card(cuda):
+    """``step`` equals ``filter`` and ``batch_filter_masked`` equals
+    ``batch_filter`` of the first rows, bit for bit, on one seed."""
+    from pyfilter_tpu_torch.filters.base import pad_observations
+
+    model = chip_smoke.oracle_model(pt, "ar", "cuda")
+    _, y = chip_smoke.oracle_data("ar")
+    filt = pt.SISR(model, 4096)
+    state = filt.initialize(torch.Generator(device=cuda).manual_seed(0))
+    a = filt.step(torch.Generator(device=cuda).manual_seed(1), y[0, 0], state, first_step=True)
+    b = filt.filter(torch.Generator(device=cuda).manual_seed(1), y[0, 0], state, first_step=True)
+    assert torch.equal(a.x.value, b.x.value) and torch.equal(a.log_likelihood, b.log_likelihood)
+    padded, n_valid = pad_observations(y[:37, 0])
+    masked = filt.batch_filter_masked(torch.Generator(device=cuda).manual_seed(2), padded, n_valid)
+    plain = filt.batch_filter(torch.Generator(device=cuda).manual_seed(2), y[:37, 0])
+    assert torch.equal(masked.log_likelihood, plain.log_likelihood) and masked.step_log_likelihoods.shape == (64,)
+
+
+def test_streaming_entry_points_refuse_without_a_card(monkeypatch):
+    """Without a card the four models and the streaming entry points on the
+    default device raise; with ``device="cpu"`` they run."""
+    models = pt.timeseries.models
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    build = lambda ctx: chip_smoke.stream_builder(pt, ctx)  # noqa: E731
+    for make in (
+        lambda: models.LocalLinearTrend(0.05, 0.02),
+        lambda: models.TrendingOU(0.8, 1.0, 0.05, 0.1),
+        lambda: models.UCSV(0.05),
+        lambda: models.Cyclical(0.9, 0.5, 0.1),
+        lambda: pt.inference.online_score(build, [0.1] * 5, lambda b: pt.SISR(b, 10)),
+        lambda: pt.inference.fit_mle_streaming(build, [0.1] * 5, lambda b: pt.SISR(b, 10), window=5),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    res = pt.inference.fit_mle_streaming(build, [0.1] * 5, lambda b: pt.SISR(b, 10, device="cpu"), window=5)
+    assert res.context.device.type == "cpu" and res.theta_path.shape == (1, 2)
