@@ -9,6 +9,7 @@
     python3 chip_smoke.py --gradients # phases 1-3 and 13 only
     python3 chip_smoke.py --backward  # phases 1-3 and 13a only
     python3 chip_smoke.py --streaming # phases 1-3 and 14 only
+    python3 chip_smoke.py --batch     # phases 1-3 and 15 only
     python3 chip_smoke.py --backward-ab TREE   # TREE's backward kernels against these, one card
 
 Phases, in order; any failure exits non-zero before the result line:
@@ -177,6 +178,25 @@ Phases, in order; any failure exits non-zero before the result line:
    ``batch_filter_masked`` on padded rows equal to ``batch_filter`` of the
    first 137 (N = 1e5), ``lane_concat`` and ``resample_particles``.
 
+15. The batch-inference zoo (``examples/batch_inference_zoo.py`` parts 2-4 at
+   the example's full width, on phase 11's model and T = 400 observations;
+   TF32 off). (a) ``TemperedSMC(SISR(300), 600)`` at its defaults: the ladder
+   rising strictly to 1, each posterior mean within ZOO_POST_SD swarm sds of
+   the exact grid posterior's, the log evidence within ZOO_EVIDENCE_NATS of
+   the grid's (the priors' constants and the cell widths in). (b)
+   ``IF2(SISR(300), 600, 25 passes, sigma 0.1, cooling 0.88)``: the MLE within
+   ZOO_MLE_TOL of the grid's, the last 3 passes' log-likelihoods above the
+   first 3, the final swarm's beta sd under ZOO_SWARM_SD; host syncs a lane
+   step by source. Both fits within ZOO_JAX_TOL spreads between seeds of the
+   JAX package's fits of the same configuration (ZOO_JAX), the lane kernel
+   once per SISR lane step and equal to its plain version on each fit's last
+   cloud. (c) ``predictive_pit`` and ``crps`` of ``SISR(fitted, 300,
+   record_states=True)`` on a second series: PIT in [0, 1] with mean and
+   variance near the uniform's, the CRPS mean near the closed-form Gaussian
+   CRPS under the fitted model's float64 Kalman predictive, the expand
+   kernel once per resample fire and equal to its plain version on the last
+   cloud. Prints each fit's wall, ms a lane step and the ladder.
+
 ``--host-probe TREE`` times, with TREE's package and TREE's own phase-11
 fit (``pmmh_fit``), the host time of a lane resample-and-gather call at
 phase 11's shape and one phase-11 fit, and prints them as one JSON line; run
@@ -194,7 +214,8 @@ SEEDS seeds (16 by default) on the card and on the CPU.
 With ``--profile``, also the device operations per observation (main path
 1 and phase 9), per APF step (main path 2, phases 7 and 10), per backward
 step of FFBS (phase 7) and FFBSi (phase 8), per NESS rejuvenation (phase 9)
-and per SISR lane step (phase 11) and filter step (phase 12's damped-Newton
+and per SISR lane step (phase 11, one TemperedSMC stage's MH refresh and one
+IF2 pass of phase 15) and filter step (phase 12's damped-Newton
 filters) and per observation of two streaming windows (phase 14a), each from
 one traced run, and the host
 time of one notebook rejuvenation with and without the distance stop.
@@ -440,6 +461,35 @@ TOU_PARAMS, TOU_OBS, TOU_PATHS, TOU_STEPS = (0.8, 1.0, 0.05, 0.1), 0.1, 200, 200
 UCSV_SV, UCSV_OBS, UCSV_N, UCSV_T = 0.05, 0.1, 1000, 80
 # (f) batch_filter_masked against batch_filter on the first rows
 MASKED_N, MASKED_VALID = 100_000, 137
+# phase 15: examples/batch_inference_zoo.py parts 2-4 at the example's full
+# width on phase 11's model and data: TemperedSMC(SISR(300), 600) at its
+# defaults (target ESS 0.5, 2 MH steps), IF2(SISR(300), 600, 25 passes,
+# sigma 0.1, cooling 0.88), then PIT and CRPS of SISR(fitted, 300) on a
+# second series (the example's seeds: data 4, filter 5, PIT 6, CRPS 7)
+ZOO_N, ZOO_K, ZOO_IF2_ITERS, ZOO_IF2_SIGMA, ZOO_IF2_COOLING = 300, 600, 25, 0.1, 0.88
+# (a) each posterior mean within ZOO_POST_SD swarm sds of the exact grid
+# posterior's mean (tests/test_tempered.py:41's form, against the exact
+# posterior rather than the truth), the log evidence within ZOO_EVIDENCE_NATS
+# of the grid's (tests/test_tempered.py:73's limit); (b) the MLE within
+# ZOO_MLE_TOL of the grid's MLE (tests/test_if2.py:38-39's limits), the final
+# swarm's beta sd under ZOO_SWARM_SD, the last 3 passes' log-likelihoods
+# above the first 3; (c) tests/test_diagnostics_predictive.py:28-33's PIT
+# limits and :105's CRPS limit against the closed-form Gaussian CRPS under
+# the fitted model's float64 Kalman one-step predictive
+ZOO_POST_SD, ZOO_EVIDENCE_NATS, ZOO_MLE_TOL, ZOO_SWARM_SD = 3.5, 3.0, {"beta": 0.12, "sigma": 0.08}, 0.1
+ZOO_PIT_MEAN, ZOO_PIT_VAR, ZOO_CRPS = 0.05, 0.02, 0.02
+# The JAX package's fits of (a) and (b) on the CPU (keys from seeds 10-80;
+# ``PYTHONPATH=. python tests/test_torch_port_tempered.py --workers 4 10 20
+# 30 40 50 60 70 80``; PERF.md): per reading the mean over fits and its
+# spread between seeds. Each card fit must lie within ZOO_JAX_TOL spreads,
+# scaled by sqrt(1 + 1 / ZOO_JAX_N), of the JAX fits' mean.
+ZOO_JAX_N = 8
+ZOO_JAX = {"tempered": {"beta": (0.7293013408780098, 0.009679651573518775),
+                        "sigma": (0.28140270709991455, 0.0029277762999189343),
+                        "log_evidence": (-178.13827920531065, 0.17705244059205943)},
+           "if2": {"beta": (0.7445487678050995, 0.00420867755960679),
+                   "sigma": (0.29048461094498634, 0.00265811433308287)}}
+ZOO_JAX_TOL = 4.0
 
 
 # the backward kernels' tiling, where their edge cases lie: the single-lane
@@ -693,7 +743,8 @@ def main(argv) -> int:
     from pyfilter_tpu_torch.ops.resample import copy_counts
 
     refs, cpu = None, None
-    if argv[:1] not in (["--backward-ab"], ["--oracle"], ["--backward"], ["--gradients"], ["--streaming"]):
+    if argv[:1] not in (["--backward-ab"], ["--oracle"], ["--backward"], ["--gradients"], ["--streaming"],
+                        ["--batch"]):
         # the CPU references of phases 4, 6 and 9 run in worker processes while the card runs
         refs = ProcessPoolExecutor(CPU_REF_WORKERS, mp_context=multiprocessing.get_context("spawn"))
     try:
@@ -708,7 +759,7 @@ def main(argv) -> int:
 
 def card_phases(torch, pt, _build, expand, copy_counts, argv, cpu) -> int:
     """Phases 1-3, then the mode ``argv`` asks for: one of the partial runs,
-    or phases 4-14 (:func:`full_run`) with ``cpu``, the futures of the CPU
+    or phases 4-15 (:func:`full_run`) with ``cpu``, the futures of the CPU
     references."""
     # -- 1. device --------------------------------------------------------
     card = card_line()
@@ -742,11 +793,14 @@ def card_phases(torch, pt, _build, expand, copy_counts, argv, cpu) -> int:
     if argv[:1] == ["--streaming"]:
         streaming(torch, pt, expand, card, profile="--profile" in argv)
         return 0
+    if argv[:1] == ["--batch"]:
+        batch_zoo(torch, pt, expand, card, profile="--profile" in argv)
+        return 0
     return full_run(torch, pt, expand, copy_counts, card, max_err, lanes_err, argv, cpu)
 
 
 def full_run(torch, pt, expand, copy_counts, card, max_err, lanes_err, argv, cpu) -> int:
-    """Phases 4-14 (module docstring), after the kernels' checks; ``cpu``
+    """Phases 4-15 (module docstring), after the kernels' checks; ``cpu``
     holds the futures of the CPU references of phases 4, 6 and 9."""
     import numpy as np
 
@@ -873,12 +927,15 @@ def full_run(torch, pt, expand, copy_counts, card, max_err, lanes_err, argv, cpu
     # -- 14. online smoothing and streaming maximum likelihood ------------------------
     stream = streaming(torch, pt, expand, card, profile="--profile" in argv)
 
+    # -- 15. the batch-inference zoo: TemperedSMC, IF2, PIT and CRPS --------------------
+    zoo = batch_zoo(torch, pt, expand, card, profile="--profile" in argv)
+
     k1_paths = {"phase 4": launches, "phase 7": flag_launches, "phase 8": ffbsi_launches, "phase 12": oracle_k1,
-                **{path: c["k1"] for path, c in grads["paths"].items() if c["k1"]}, **stream["paths"]}
+                **{path: c["k1"] for path, c in grads["paths"].items() if c["k1"]}, **stream["paths"], **zoo["k1"]}
     lane_paths = {"phase 5": lanes["launches"], "phase 6": smc2_launches, "phase 8": lane_launches,
                   "phase 9 NESS": ness_launches, "phase 9 hybrids": hybrid_launches, "phase 10": nb_launches,
                   "phase 11": pmmh_launches, "phase 12": oracle_lanes,
-                  **{path: c["lanes"] for path, c in grads["paths"].items() if c["lanes"]}}
+                  **{path: c["lanes"] for path, c in grads["paths"].items() if c["lanes"]}, **zoo["lanes"]}
 
     kernels = [{
         "name": "expand",
@@ -887,7 +944,7 @@ def full_run(torch, pt, expand, copy_counts, card, max_err, lanes_err, argv, cpu
         "replaces": "pyfilter_tpu/ops/expand.py:110",
         "launches": sum(k1_paths.values()),
         "launches_by_path": k1_paths,
-        "max_abs_err": max(max_err, err, flag_err, ffbsi_err, oracle_err, stream["err"]),
+        "max_abs_err": max(max_err, err, flag_err, ffbsi_err, oracle_err, stream["err"], zoo["k1_err"]),
         "ms": k_ms,
         "plain_ms": p_ms,
         "bound_ms": bound_ms,
@@ -900,7 +957,8 @@ def full_run(torch, pt, expand, copy_counts, card, max_err, lanes_err, argv, cpu
         "replaces": "pyfilter_tpu/ops/expand.py:438, pyfilter_tpu/ops/expand.py:489",
         "launches": sum(lane_paths.values()),
         "launches_by_path": lane_paths,
-        "max_abs_err": max(lanes_err, lanes["err"], lane_run_err, ness_err, nb_err, pmmh_err, oracle_lane_err),
+        "max_abs_err": max(lanes_err, lanes["err"], lane_run_err, ness_err, nb_err, pmmh_err, oracle_lane_err,
+                           zoo["lanes_err"]),
         "ms": lanes["ms"],
         "plain_ms": lanes["plain_ms"],
         "bound_ms": lanes["bound_ms"],
@@ -1703,11 +1761,16 @@ def ar_grid_posterior(y, jacobian: bool = True) -> dict:
     on a grid in float64: each point's Kalman log-likelihood (``x_0 ~
     N(0, sigma^2)``, predict, then update on ``y_t``, as the port's filter
     steps) plus the log-prior. With ``jacobian=False``, the posterior a chain
-    reaches when its unconstrained target omits the bijections' Jacobian."""
+    reaches when its unconstrained target omits the bijections' Jacobian.
+    Also, under ``"log_evidence"``, the log of the integral of likelihood
+    times prior (the priors' normalizing constants and each cell's width in
+    beta and in sigma), and under ``"mle"`` the grid point of largest
+    likelihood."""
     import numpy as np
 
     beta = np.linspace(0.0005, 0.9995, 500)[:, None]
-    sigma = np.exp(np.linspace(math.log(0.05), math.log(1.0), 500))[None, :]
+    log_sigma = np.linspace(math.log(0.05), math.log(1.0), 500)[None, :]
+    sigma = np.exp(log_sigma)
     m, p = np.zeros_like(beta * sigma), np.broadcast_to(sigma**2, (beta * sigma).shape).copy()
     ll = np.zeros_like(m)
     for yt in np.asarray(y, np.float64):
@@ -1716,17 +1779,25 @@ def ar_grid_posterior(y, jacobian: bool = True) -> dict:
         ll -= 0.5 * (np.log(2 * math.pi * s) + (yt - m) ** 2 / s)
         gain = p / s
         m, p = m + gain * (yt - m), (1.0 - gain) * p
-    log_sigma_prior = -0.5 * ((np.log(sigma) + 1.0) / 0.5) ** 2 - np.log(sigma)
+    # beta ~ U(0, 1) has density 1; sigma ~ LogNormal(-1, 0.5)
+    log_sigma_prior = -0.5 * ((log_sigma + 1.0) / 0.5) ** 2 - log_sigma - math.log(0.5 * math.sqrt(2 * math.pi))
     logpost = ll + log_sigma_prior
+    # the grid is uniform in beta and in log sigma: a cell is d_beta wide and
+    # sigma * d_log_sigma tall
+    log_cell = math.log(beta[1, 0] - beta[0, 0]) + log_sigma + math.log(log_sigma[0, 1] - log_sigma[0, 0])
+    top = float((logpost + log_cell).max())
+    log_evidence = top + math.log(float(np.exp(logpost + log_cell - top).sum()))
     if not jacobian:
         logpost = logpost - np.log(beta * (1 - beta)) - np.log(sigma)
-    # the grid is uniform in beta and in log sigma: weigh each point by its cell
     w = np.exp(logpost - logpost.max()) * sigma
     w /= w.sum()
     out = {}
     for name, v in (("beta", beta + 0 * sigma), ("sigma", sigma + 0 * beta)):
         mean = float((w * v).sum())
         out[name] = (mean, float(np.sqrt((w * (v - mean) ** 2).sum())))
+    i, j = np.unravel_index(np.argmax(ll), ll.shape)
+    out["log_evidence"] = log_evidence
+    out["mle"] = {"beta": float(beta[i, 0]), "sigma": float(sigma[0, j])}
     return out
 
 
@@ -3334,6 +3405,9 @@ def online_score_phase(torch, pt, expand, card) -> tuple:
           f"peak device memory {peak / 2**30:.4f} GiB; resample fires {fires} = expand launches {launches}; "
           f"card {card}")
     scores = np.vstack([default_score, scores])
+    # a violated density bound poisons a run's whole estimate with NaN (PaRIS keeps the flag on the device)
+    violated = [bool(np.isnan(sc).any()) for sc in scores]
+    print(f"  bound violated in {sum(violated)} of {len(violated)} runs (each run's flag: {violated})")
     if not np.isfinite(scores).all():
         raise AssertionError("phase 14b: non-finite scores")
     worst = np.abs(scores - exact) - (ONLINE_ATOL + ONLINE_RTOL * np.abs(exact))
@@ -3597,6 +3671,221 @@ def streaming(torch, pt, expand, card, profile: bool = False) -> dict:
     paths["phase 14f"] = single_step_phase(torch, pt, expand, card)
     print(f"phase 14: {time.perf_counter() - t_phase:.1f} s; expand launches by path {paths}")
     return {"paths": paths, "err": max(errs)}
+
+
+def zoo_fitted(pt, beta: float, sigma: float, device):
+    """The example's fitted model: phase 11's AR at the given parameters."""
+    return pt.timeseries.LinearStateSpaceModel(pt.timeseries.models.AR(0.0, beta, sigma, device=device),
+                                               (1.0, PMMH_OBS))
+
+
+def zoo_test_data(torch, pt):
+    """Phase 15(c)'s second series: PMMH_T steps of the true model (the
+    port's simulator on the CPU, the example's seed 4)."""
+    model = zoo_fitted(pt, PMMH_TRUE["beta"], PMMH_TRUE["sigma"], "cpu")
+    return model.sample_states(torch.Generator().manual_seed(4), PMMH_T).get_paths()[1].numpy()
+
+
+def kalman_predictive(y, beta: float, sigma: float):
+    """The float64 Kalman one-step predictive ``(mean, sd)`` of each
+    observation under phase 11's model at ``(beta, sigma)`` (``x_0 ~ N(0,
+    sigma^2)``, as :func:`ar_grid_posterior` filters)."""
+    import numpy as np
+
+    m, p, mus, sds = 0.0, sigma**2, [], []
+    for yt in np.asarray(y, np.float64):
+        m, p = beta * m, beta**2 * p + sigma**2
+        s = p + PMMH_OBS**2
+        mus.append(m)
+        sds.append(math.sqrt(s))
+        m, p = m + p / s * (yt - m), (1.0 - p / s) * p
+    return np.asarray(mus), np.asarray(sds)
+
+
+def gaussian_crps(y, mu, sd):
+    """The closed-form CRPS of ``N(mu, sd^2)`` at ``y``."""
+    import numpy as np
+    from scipy import stats
+
+    z = (np.asarray(y, np.float64) - mu) / sd
+    return sd * (z * (2 * stats.norm.cdf(z) - 1) + 2 * stats.norm.pdf(z) - 1 / math.sqrt(math.pi))
+
+
+def zoo_tempered(torch, pt, y, device: str, seed: int, counted=None, **kwargs):
+    """One ``TemperedSMC(SISR(pmmh_builder, ZOO_N), ZOO_K)`` fit on ``device``
+    (context seed ``seed``, algorithm seed ``seed + 1``). Returns the
+    algorithm, the result and the wall seconds."""
+    from pyfilter_tpu_torch import inference as inf
+
+    filt_cls = counted or pt.SISR
+    gen = lambda s: torch.Generator(device=device).manual_seed(s)  # noqa: E731
+    alg = inf.TemperedSMC(filt_cls(lambda c: pmmh_builder(pt, c), ZOO_N, device=device), ZOO_K,
+                          context=inf.make_context(generator=gen(seed), device=device), generator=gen(seed + 1),
+                          device=device, **kwargs)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = alg.fit(y, logging=inf.logging.DefaultLogger())
+    return alg, res, time.perf_counter() - t0
+
+
+def zoo_if2(torch, pt, y, device: str, seed: int, counted=None, iterations: int = ZOO_IF2_ITERS):
+    """One ``IF2(SISR(pmmh_builder, ZOO_N), ZOO_K, iterations, ZOO_IF2_SIGMA,
+    ZOO_IF2_COOLING)`` fit on ``device`` (seeds as :func:`zoo_tempered`).
+    Returns the algorithm, the result and the wall seconds."""
+    from pyfilter_tpu_torch import inference as inf
+
+    filt_cls = counted or pt.SISR
+    gen = lambda s: torch.Generator(device=device).manual_seed(s)  # noqa: E731
+    alg = inf.IF2(filt_cls(lambda c: pmmh_builder(pt, c), ZOO_N, device=device), ZOO_K, num_iterations=iterations,
+                  sigma=ZOO_IF2_SIGMA, cooling=ZOO_IF2_COOLING,
+                  context=inf.make_context(generator=gen(seed), device=device), generator=gen(seed + 1),
+                  device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = alg.fit(y, logging=inf.logging.DefaultLogger())
+    return alg, res, time.perf_counter() - t0
+
+
+def _jax_spread_gate(label: str, got: dict, jax_fits: dict) -> None:
+    """Each reading of ``got`` within ZOO_JAX_TOL spreads between seeds of
+    the JAX package's fits (``jax_fits``: name -> (mean, sd)), the spread
+    scaled by sqrt(1 + 1 / ZOO_JAX_N)."""
+    for name, value in got.items():
+        mean, sd = jax_fits[name]
+        gap = (value - mean) / (sd * math.sqrt(1.0 + 1.0 / ZOO_JAX_N))
+        print(f"  {label} {name}: {value:.6f} against the JAX fits' {mean:.6f} (spread {sd:.6f}): {gap:+.3f} "
+              f"spreads (limit {ZOO_JAX_TOL})")
+        if not abs(gap) < ZOO_JAX_TOL:
+            raise AssertionError(f"phase 15: {label} {name} {value} lies {gap} JAX spreads from {mean}")
+
+
+def batch_zoo(torch, pt, expand, card, profile: bool = False) -> dict:
+    """Phase 15 (module docstring): returns the lane kernel's and the expand
+    kernel's launches by path and their largest differences from their plain
+    versions."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    y = pmmh_data(torch, pt)
+    exact = ar_grid_posterior(y)
+    counted = counted_sisr(pt)
+    out = {"lanes": {}, "k1": {}, "lanes_err": 0.0, "k1_err": 0.0}
+
+    # (a) TemperedSMC
+    _zero_counts(expand)
+    counted.fires = 0
+    alg, res, wall = zoo_tempered(torch, pt, y, "cuda", 40, counted=counted)
+    launches, fires = expand.fused_expand_lanes.launches, counted.fires
+    stages = len(res.lambdas)
+    steps = (1 + 2 * stages) * PMMH_T  # the initial pass, then two MH re-filters a stage
+    print(f"phase 15a: TemperedSMC(SISR({ZOO_N}), {ZOO_K}), T={PMMH_T}: {wall:.3f} s, {stages} stages, "
+          f"{wall / fires * 1e3:.4f} ms a SISR lane step; ladder {np.round(res.lambdas, 6).tolist()}; acceptance "
+          f"{np.round(res.acceptance_rates, 4).tolist()}; log evidence {res.log_evidence:.6f} (grid "
+          f"{exact['log_evidence']:.6f}); lane kernel launches {launches} for {fires} lane resample fires "
+          f"({steps} lane steps); card {card}")
+    if not (res.lambdas[-1] == 1.0 and (np.diff(res.lambdas) > 0).all()):
+        raise AssertionError(f"phase 15a: the ladder {res.lambdas.tolist()} does not rise strictly to 1")
+    if not launches == fires == steps or expand.fused_expand.launches:
+        raise AssertionError(f"phase 15a: lane kernel launched {launches} times for {fires} fires, {steps} steps")
+    for name in ("beta", "sigma"):
+        s = res.samples[name]
+        gap = (float(s.mean()) - exact[name][0]) / float(s.std())
+        print(f"  {name}: swarm mean {float(s.mean()):.6f} sd {float(s.std()):.6f}; exact posterior "
+              f"{exact[name][0]:.6f} sd {exact[name][1]:.6f}; gap {gap:+.4f} swarm sd (limit {ZOO_POST_SD})")
+        if not (np.isfinite(s).all() and abs(gap) < ZOO_POST_SD):
+            raise AssertionError(f"phase 15a: {name} posterior mean {gap} swarm sds off the exact posterior")
+    ev_gap = res.log_evidence - exact["log_evidence"]
+    if not abs(ev_gap) < ZOO_EVIDENCE_NATS:
+        raise AssertionError(f"phase 15a: log evidence {res.log_evidence} is {ev_gap} nats off the grid's")
+    _jax_spread_gate("15a", {"beta": float(res.samples["beta"].mean()), "sigma": float(res.samples["sigma"].mean()),
+                             "log_evidence": res.log_evidence}, ZOO_JAX["tempered"])
+    probs, values = counted.last
+    out["lanes_err"] = check_on_cloud(torch, expand, probs, values.unsqueeze(0),
+                                      f"phase 15a's last lane cloud (n={ZOO_N}, L={probs.shape[1]})")
+    out["lanes"]["phase 15a"] = launches
+    if profile:
+        ctx, filt = alg.context, alg.filter.initialize_model(alg.context)
+        theta = ctx.stack_parameters(constrained=False)
+        ll, lp = alg._lane_logliks(ctx, filt, theta, y)
+        centered = theta - theta.mean(dim=0)
+        chol = torch.linalg.cholesky(centered.T @ centered / (ZOO_K - 1) + 1e-8 * torch.eye(2, device="cuda"))
+        ops = profile_run(torch, "phase 15a, one stage's MH refresh (2 lane passes)",
+                          lambda: alg._mh_refresh(ctx, filt, y, theta, ll, lp, chol, 1.0, 2.38 / math.sqrt(2)))
+        print(f"  device operations per SISR lane step {ops / (2 * PMMH_T):.2f}")
+
+    # (b) IF2
+    _zero_counts(expand)
+    counted.fires = 0
+    alg, res, wall = zoo_if2(torch, pt, y, "cuda", 50, counted=counted, iterations=ZOO_IF2_ITERS)
+    launches, fires = expand.fused_expand_lanes.launches, counted.fires
+    steps = ZOO_IF2_ITERS * PMMH_T
+    lls = res.log_likelihoods
+    print(f"phase 15b: IF2(SISR({ZOO_N}), {ZOO_K}, {ZOO_IF2_ITERS} passes, sigma {ZOO_IF2_SIGMA}, cooling "
+          f"{ZOO_IF2_COOLING}), T={PMMH_T}: {wall:.3f} s, {wall / fires * 1e3:.4f} ms a SISR lane step; MLE beta "
+          f"{float(res.mle['beta']):.6f} sigma {float(res.mle['sigma']):.6f} (grid MLE {exact['mle']}); final swarm "
+          f"beta sd {float(res.swarm['beta'].std()):.6f}; pass log-likelihoods first 3 {np.round(lls[:3], 4).tolist()}"
+          f", last 3 {np.round(lls[-3:], 4).tolist()}; lane kernel launches {launches} for {fires} fires ({steps} "
+          f"lane steps); card {card}")
+    for name, tol in ZOO_MLE_TOL.items():
+        gap = float(res.mle[name]) - exact["mle"][name]
+        if not abs(gap) < tol:
+            raise AssertionError(f"phase 15b: IF2's {name} {float(res.mle[name])} is {gap} off the grid MLE")
+    if not (np.isfinite(lls).all() and lls[-3:].mean() > lls[:3].mean()):
+        raise AssertionError(f"phase 15b: pass log-likelihoods do not improve: {lls.tolist()}")
+    if not float(res.swarm["beta"].std()) < ZOO_SWARM_SD:
+        raise AssertionError(f"phase 15b: final swarm beta sd {float(res.swarm['beta'].std())}")
+    if not launches == fires == steps or expand.fused_expand.launches:
+        raise AssertionError(f"phase 15b: lane kernel launched {launches} times for {fires} fires, {steps} steps")
+    _jax_spread_gate("15b", {n: float(res.mle[n]) for n in ("beta", "sigma")}, ZOO_JAX["if2"])
+    probs, values = counted.last
+    out["lanes_err"] = max(out["lanes_err"], check_on_cloud(
+        torch, expand, probs, values.unsqueeze(0), f"phase 15b's last lane cloud (n={ZOO_N}, L={probs.shape[1]})"))
+    out["lanes"]["phase 15b"] = launches
+    theta = alg.context.stack_parameters(constrained=False)
+    sd = torch.full((2,), ZOO_IF2_SIGMA * ZOO_IF2_COOLING ** (ZOO_IF2_ITERS - 1), device="cuda")
+    syncs = count_syncs(torch, lambda: alg._one_pass(theta, y[:20], sd))
+    print(f"  host syncs a lane step by source (20 steps of one pass): "
+          f"{ {k: round(v / 20, 4) for k, v in syncs.items()} }; total {sum(syncs.values()) / 20:.4f}")
+    if profile:
+        ops = profile_run(torch, "phase 15b, one IF2 pass", lambda: alg._one_pass(theta, y, sd))
+        print(f"  device operations per lane step {ops / PMMH_T:.2f}")
+
+    # (c) PIT and CRPS of the fitted model on a second series
+    beta, sigma = float(res.mle["beta"]), float(res.mle["sigma"])
+    fitted = zoo_fitted(pt, beta, sigma, "cuda")
+    y_test = zoo_test_data(torch, pt)
+    gen = lambda s: torch.Generator(device="cuda").manual_seed(s)  # noqa: E731
+    filt = counted(fitted, ZOO_N, record_states=True, device="cuda")
+    _zero_counts(expand)
+    counted.fires = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fres = filt.batch_filter(gen(5), y_test)
+    u = pt.filters.predictive_pit(gen(6), fitted, fres, y_test).cpu().numpy()
+    c = pt.filters.crps(gen(7), fitted, fres, y_test).cpu().numpy()
+    wall = time.perf_counter() - t0
+    launches, fires = expand.fused_expand.launches, counted.fires
+    mu, sdp = kalman_predictive(y_test, beta, sigma)
+    exact_crps = float(gaussian_crps(y_test, mu, sdp).mean())
+    print(f"phase 15c: SISR(fitted, {ZOO_N}, record_states=True), PIT and CRPS over T={PMMH_T}: {wall:.3f} s; PIT "
+          f"mean {u.mean():.6f} var {u.var():.6f} (uniform 0.5, {1 / 12:.6f}); CRPS mean {c.mean():.6f}, closed form "
+          f"{exact_crps:.6f}; expand launches {launches} for {fires} resample fires; card {card}")
+    if not (u.shape == c.shape == (PMMH_T,) and ((0.0 <= u) & (u <= 1.0)).all() and np.isfinite(c).all()):
+        raise AssertionError("phase 15c: PIT outside [0, 1] or CRPS not finite")
+    if not (abs(u.mean() - 0.5) < ZOO_PIT_MEAN and abs(u.var() - 1.0 / 12.0) < ZOO_PIT_VAR):
+        raise AssertionError(f"phase 15c: PIT mean {u.mean()} var {u.var()}")
+    if not abs(c.mean() - exact_crps) < ZOO_CRPS:
+        raise AssertionError(f"phase 15c: CRPS mean {c.mean()} against the closed form's {exact_crps}")
+    if not launches == fires > 0 or expand.fused_expand_lanes.launches:
+        raise AssertionError(f"phase 15c: expand kernel launched {launches} times for {fires} fires")
+    probs, values = counted.last
+    out["k1_err"] = check_on_cloud(torch, expand, probs, last_cloud_planes(values),
+                                   f"phase 15c's last SISR cloud (n={ZOO_N})")
+    out["k1"]["phase 15c"] = launches
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def apf_bias(torch, pt, seeds: int) -> int:

@@ -40,6 +40,7 @@ from .filters.particle.proposals import (
     LocalLinearization,
     NestedProposal,
 )
+from .inference import NESS, NESSMC2, PMMH, SMC2, SMC2FW, make_context
 from .timeseries import joint_process
 from .utils import get_ess, log_likelihood, normalize
 
@@ -69,4 +70,10 @@ __all__ = [
     "normalize",
     "get_ess",
     "log_likelihood",
+    "make_context",
+    "SMC2",
+    "NESS",
+    "NESSMC2",
+    "SMC2FW",
+    "PMMH",
 ]

@@ -6,8 +6,9 @@ the port's objects from them — so both packages can start from one
 particle cloud (one lane or a lane batch), one set of model parameters
 (scalars or one per lane), one context's parameter values, and one recorded
 filter history (which the port's smoothers then run on), one fitted guide
-or maximum-likelihood point, and PaRIS's per-particle statistics (a pytree
-of arrays). Only numpy arrays,
+or maximum-likelihood point, PaRIS's per-particle statistics (a pytree
+of arrays), and any distribution or bijector by its family's name and
+parameters. Only numpy arrays,
 numpy scalars and Python numbers are accepted. It also builds the
 linear-Gaussian suite's 2-D models and the nonlinear benchmark model from
 their numpy parameters, so that both packages filter the same model.
@@ -20,7 +21,7 @@ import math
 import numpy as np
 import torch
 
-from . import examples
+from . import distributions, examples
 from .distributions import Normal
 from .filters.result import FilterHistory
 from .filters.state import ParticleFilterCorrection
@@ -225,3 +226,34 @@ def tree_from_numpy(tree, device=None):
 
     device = resolve_device(device)
     return tree_map(lambda leaf: _tensor("leaf", leaf, torch.float32, device), tree)
+
+
+#: constructor arguments that are Python integers, not tensors
+_STATIC_ARGS = {"event_ndim"}
+_BIJECTORS = ("Identity", "Exp", "Log", "Softplus", "Sigmoid", "Tanh", "Affine", "Power", "SinhArcsinh")
+
+
+def distribution_from_numpy(name: str, device=None, **params):
+    """The port's distribution of the family ``name`` (any name in
+    ``distributions.__all__`` with numeric parameters: ``"Normal"``,
+    ``"Beta"``, ``"Categorical"``, ...), its parameters given as numpy arrays
+    or numbers under the JAX constructor's keywords (``logits=`` or
+    ``probs=`` for the binary and count families), as float32 tensors on
+    ``device``."""
+    cls = getattr(distributions, name, None)
+    if not (isinstance(cls, type) and issubclass(cls, distributions.Distribution)):
+        raise ValueError(f"no distribution family named {name!r}")
+    device = resolve_device(device)
+    kwargs = {k: int(v) if k in _STATIC_ARGS else _tensor(k, v, torch.float32, device) for k, v in params.items()}
+    return cls(**kwargs)
+
+
+def bijector_from_numpy(name: str, device=None, **params):
+    """The port's bijector ``name`` (``"Identity"``, ``"Exp"``, ``"Log"``,
+    ``"Softplus"``, ``"Sigmoid"``, ``"Tanh"``, ``"Affine"``, ``"Power"``,
+    ``"SinhArcsinh"``), its parameters given as numpy arrays or numbers
+    under the JAX constructor's keywords, as float32 tensors on ``device``."""
+    if name not in _BIJECTORS:
+        raise ValueError(f"no bijector named {name!r}")
+    device = resolve_device(device)
+    return getattr(distributions, name)(**{k: _tensor(k, v, torch.float32, device) for k, v in params.items()})

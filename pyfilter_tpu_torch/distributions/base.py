@@ -1,8 +1,10 @@
 """Distribution base class.
 
-Counterpart of ``pyfilter_tpu/distributions/base.py``: ``sample``,
-``log_prob``, ``batch_shape`` / ``event_shape``, ``support``, ``expand`` /
-``to_event`` and ``equivalent_to`` (the prior check of the inference context). Parameters are
+Counterpart of ``pyfilter_tpu/distributions/base.py``: ``sample`` /
+``rsample``, ``log_prob`` / ``prob``, ``cdf`` / ``icdf`` (and ``has_icdf``),
+``entropy``, ``mean`` / ``variance`` / ``stddev``, ``batch_shape`` /
+``event_shape`` / ``shape``, ``support``, ``expand`` / ``to_event`` and
+``equivalent_to`` (the prior check of the inference context). Parameters are
 tensors, named in ``arg_names``; every draw takes an explicit
 ``torch.Generator`` on the parameters' device.
 """
@@ -21,6 +23,9 @@ class Distribution:
     #: names of the tensor parameters, in order
     arg_names: tuple = ()
 
+    #: whether ``icdf`` is closed-form (a quasi-random start inverts it)
+    has_icdf: bool = False
+
     @property
     def batch_shape(self) -> tuple:
         raise NotImplementedError
@@ -29,11 +34,42 @@ class Distribution:
     def event_shape(self) -> tuple:
         return ()
 
+    @property
+    def shape(self) -> tuple:
+        return tuple(self.batch_shape) + tuple(self.event_shape)
+
     def sample(self, generator: torch.Generator, sample_shape: Sequence[int] = ()) -> torch.Tensor:
         raise NotImplementedError
 
+    def rsample(self, generator: torch.Generator, sample_shape: Sequence[int] = ()) -> torch.Tensor:
+        return self.sample(generator, sample_shape)
+
     def log_prob(self, value: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
+
+    def prob(self, value: torch.Tensor) -> torch.Tensor:
+        return torch.exp(self.log_prob(value))
+
+    def cdf(self, value: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError(f"{type(self).__name__} does not implement cdf")
+
+    def icdf(self, q: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError(f"{type(self).__name__} does not implement icdf")
+
+    def entropy(self) -> torch.Tensor:
+        raise NotImplementedError(f"{type(self).__name__} does not implement entropy")
+
+    @property
+    def mean(self) -> torch.Tensor:
+        raise NotImplementedError
+
+    @property
+    def variance(self) -> torch.Tensor:
+        raise NotImplementedError
+
+    @property
+    def stddev(self) -> torch.Tensor:
+        return torch.sqrt(self.variance)
 
     @property
     def support(self) -> constraints.Constraint:

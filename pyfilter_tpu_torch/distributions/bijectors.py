@@ -1,7 +1,7 @@
 """Bijectors (invertible elementwise transforms): ``Affine``, ``SinhArcsinh``,
-their ``Chain``, ``Identity``, ``Exp``, ``Sigmoid``, the inverse of each
-(``.inv``) and ``biject_to`` (a constraint's bijector from the unconstrained
-reals).
+their ``Chain``, ``Identity``, ``Exp``, ``Log``, ``Softplus``, ``Sigmoid``,
+``Tanh``, ``Power``, the inverse of each (``.inv``) and ``biject_to`` (a
+constraint's bijector from the unconstrained reals).
 
 Counterpart of ``pyfilter_tpu/distributions/bijectors.py``. The sinh-arcsinh
 transform keeps the JAX package's own log/exp/sqrt formulas (``_asinh``,
@@ -82,6 +82,31 @@ class Exp(Bijector):
         return x
 
 
+class Log(Bijector):
+    def forward(self, x):
+        return torch.log(x)
+
+    def inverse(self, y):
+        return torch.exp(y)
+
+    def log_abs_det_jacobian(self, x, y):
+        return -torch.log(x)
+
+
+class Softplus(Bijector):
+    """``y = log(1 + exp(x))``; the inverse keeps the JAX package's
+    ``y + log(-expm1(-y))``, stable for large ``y``."""
+
+    def forward(self, x):
+        return F.softplus(x)
+
+    def inverse(self, y):
+        return y + torch.log(-torch.expm1(-y))
+
+    def log_abs_det_jacobian(self, x, y):
+        return -F.softplus(-x)
+
+
 class Affine(Bijector):
     """y = loc + scale * x."""
 
@@ -112,6 +137,37 @@ class Sigmoid(Bijector):
 
     def log_abs_det_jacobian(self, x, y):
         return -F.softplus(-x) - F.softplus(x)
+
+
+class Tanh(Bijector):
+    """``y = tanh(x)``; the jacobian in the JAX package's overflow-safe form
+    ``2 (log 2 - x - softplus(-2x))``."""
+
+    def forward(self, x):
+        return torch.tanh(x)
+
+    def inverse(self, y):
+        return torch.atanh(y)
+
+    def log_abs_det_jacobian(self, x, y):
+        return 2.0 * (math.log(2.0) - x - F.softplus(-2.0 * x))
+
+
+class Power(Bijector):
+    """``y = x ** exponent`` on ``x > 0``."""
+
+    def __init__(self, exponent):
+        self.exponent = exponent
+
+    def forward(self, x):
+        return torch.pow(x, self.exponent)
+
+    def inverse(self, y):
+        return torch.pow(y, 1.0 / self.exponent)
+
+    def log_abs_det_jacobian(self, x, y):
+        e = torch.as_tensor(self.exponent, dtype=x.dtype, device=x.device)
+        return torch.log(torch.abs(e)) + (e - 1.0) * torch.log(x)
 
 
 def _asinh(x):
@@ -197,13 +253,16 @@ class Chain(Bijector):
 
 def biject_to(constraint: constraints.Constraint) -> Bijector:
     """Bijector from the unconstrained reals onto the support of
-    ``constraint``: the identity for the reals, ``Exp`` for the positive
-    half-line, ``Sigmoid`` then ``Affine(low, high - low)`` for an interval
-    (the JAX package's choices)."""
+    ``constraint``: the identity for the reals, ``Exp`` for the positive and
+    non-negative half-lines, ``Exp`` then ``Affine(low, 1)`` for ``(low,
+    inf)``, ``Sigmoid`` then ``Affine(low, high - low)`` for an interval (the
+    JAX package's choices)."""
     if constraint is constraints.real or constraint is constraints.real_vector:
         return Identity()
-    if constraint is constraints.positive:
+    if constraint is constraints.positive or constraint is constraints.nonnegative:
         return Exp()
+    if isinstance(constraint, constraints.GreaterThan):
+        return Chain([Exp(), Affine(constraint.low, 1.0)])
     if isinstance(constraint, constraints.Interval):
         return Chain([Sigmoid(), Affine(constraint.low, constraint.high - constraint.low)])
     raise NotImplementedError(f"no bijector registered for constraint {constraint!r}")

@@ -29,6 +29,10 @@ class Independent(Distribution):
         return bs[len(bs) - self.reinterpreted_batch_ndims:] + tuple(self.base_dist.event_shape)
 
     @property
+    def has_icdf(self):
+        return self.base_dist.has_icdf
+
+    @property
     def support(self):
         return self.base_dist.support
 
@@ -52,6 +56,12 @@ class Independent(Distribution):
 
     def icdf(self, q):
         return self.base_dist.icdf(q)
+
+    def entropy(self):
+        ent = self.base_dist.entropy()
+        if self.reinterpreted_batch_ndims == 0:
+            return ent
+        return torch.sum(ent, dim=tuple(range(-self.reinterpreted_batch_ndims, 0)))
 
     @property
     def mean(self):

@@ -89,3 +89,8 @@ class MultivariateNormal(Distribution):
     def variance(self):
         var = torch.sum(torch.square(self.scale_tril), dim=-1)
         return var.expand(self.batch_shape + self.event_shape)
+
+    def entropy(self):
+        d = self.event_shape[0]
+        log_det = torch.sum(torch.log(torch.diagonal(self.scale_tril, dim1=-2, dim2=-1)), dim=-1)
+        return 0.5 * d * (1.0 + _LOG_2PI) + log_det

@@ -33,6 +33,10 @@ class TransformedDistribution(Distribution):
             return bs[len(bs) - extra:] + base_event
         return base_event
 
+    @property
+    def has_icdf(self):
+        return self.base_dist.has_icdf
+
     def sample(self, generator, sample_shape=()):
         return self.bijector.forward(self.base_dist.sample(generator, sample_shape))
 

@@ -11,6 +11,7 @@ from .linear import LinearGaussianObservations
 from .linearized import Linearized
 from .local_linearization import LocalLinearization
 from .nested import NestedProposal
+from .utils import find_mode, find_optimal_density, linear_marginal_density
 
 __all__ = [
     "Proposal",
@@ -23,5 +24,8 @@ __all__ = [
     "GaussianLinear",
     "LocalLinearization",
     "get_pre_weight_func",
+    "find_optimal_density",
+    "find_mode",
+    "linear_marginal_density",
     "utils",
 ]

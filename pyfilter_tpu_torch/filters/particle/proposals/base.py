@@ -57,3 +57,6 @@ class Proposal:
         """Importance weight ``log p(y|x') + log p(x'|x) - log q(x')``."""
         y_dist = model.build_density(x_new)
         return y_dist.log_prob(y) + x_dist.log_prob(x_new.value) - kernel.log_prob(x_new.value)
+
+    def copy(self) -> "Proposal":
+        return self

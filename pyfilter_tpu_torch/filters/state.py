@@ -78,6 +78,10 @@ class ParticleFilterCorrection(NamedTuple):
             var = torch.zeros_like(log_likelihood)
         return cls(x, log_weights, log_likelihood, prev_indices, mean, var)
 
+    @property
+    def timeseries_state(self) -> TimeseriesState:
+        return self.x
+
     def get_timeseries_state(self) -> TimeseriesState:
         return self.x
 

@@ -1,5 +1,6 @@
 """Particle MCMC: batch PMMH, its proposals and the transition SMC² shares."""
 
+from . import proposals
 from .pmmh import PMMH
 from .proposals import AdaptiveRandomWalk, BaseProposal, GradientBasedProposal, RandomWalk, SymmetricMH
 from .state import PMMHResult
@@ -16,4 +17,5 @@ __all__ = [
     "PMMHStep",
     "pmmh_accept",
     "run_pmmh",
+    "proposals",
 ]

@@ -13,7 +13,8 @@ from . import prior as prior_ops
 
 class PriorBoundParameter:
     """Named handle ``(context, name)``: ``value``, ``prior``,
-    ``get_unconstrained``, ``eval_prior`` and ``update``."""
+    ``get_constrained``, ``get_unconstrained``, ``eval_prior``,
+    ``inverse_sample`` and ``update``."""
 
     def __init__(self, context, name: str):
         self._context = context
@@ -27,11 +28,22 @@ class PriorBoundParameter:
     def value(self) -> torch.Tensor:
         return self._context.get_parameter(self.name)
 
+    def get_constrained(self) -> torch.Tensor:
+        return self.value
+
     def get_unconstrained(self) -> torch.Tensor:
         return prior_ops.get_unconstrained(self.prior, self.value)
 
     def eval_prior(self, constrained: bool = True) -> torch.Tensor:
         return prior_ops.eval_prior(self.prior, self.value, constrained=constrained)
+
+    def inverse_sample(self, probs, constrained: bool = True) -> torch.Tensor:
+        """The inverse cdf of the (un)constrained prior at ``probs``, returned
+        on the constrained space."""
+        drawn = prior_ops.inverse_sample(self.prior, probs, constrained=constrained)
+        if not constrained:
+            drawn = prior_ops.get_constrained(self.prior, drawn)
+        return drawn
 
     def update(self, value, constrained: bool = True) -> None:
         self._context.update_parameter(self.name, value, constrained=constrained)

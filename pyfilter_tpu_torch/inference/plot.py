@@ -1,7 +1,8 @@
-"""Posterior plotting: weighted univariate KDEs, one axis per parameter.
+"""Posterior plotting: weighted univariate KDEs, one axis per parameter, and
+PMMH trace plots.
 
 Counterpart of ``pyfilter_tpu/inference/plot.py`` (``weighted_gaussian_kde``,
-``mimic_arviz_posterior``): numpy on the host, ``matplotlib`` imported only
+``mimic_arviz_posterior``, ``plot_chains``): numpy on the host, ``matplotlib`` imported only
 when a figure is drawn. The port's context and state are read to the host
 once.
 """
@@ -54,5 +55,28 @@ def mimic_arviz_posterior(context, state, num_cols: int = 3, ax=None, **kwargs):
         axes[i].set_title(labels[i])
         axes[i].set_yticks([])
     for j in range(num_params, len(axes)):
+        axes[j].axis("off")
+    return fig, axes
+
+
+def plot_chains(result, num_cols: int = 3, burn_in: int = 0, ax=None, **kwargs):
+    """Trace plots of PMMH chains: one axis per parameter, one line per chain
+    (``result.as_arrays()``, ``(num_samples, num_chains, *event)`` a name)."""
+    import matplotlib.pyplot as plt
+
+    chains = result.as_arrays()
+    names = list(chains)
+    num_rows = (len(names) + num_cols - 1) // num_cols
+    fig = None
+    if ax is None:
+        fig, ax = plt.subplots(num_rows, num_cols, figsize=(4 * num_cols, 2.5 * num_rows))
+    axes = np.atleast_1d(np.asarray(ax)).ravel()
+
+    for i, name in enumerate(names):
+        arr = np.asarray(chains[name])[burn_in:]
+        if arr.shape[0] > 0:
+            axes[i].plot(arr.reshape(arr.shape[0], arr[0].size), alpha=0.7, **kwargs)
+        axes[i].set_title(name)
+    for j in range(len(names), len(axes)):
         axes[j].axis("off")
     return fig, axes

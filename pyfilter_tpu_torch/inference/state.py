@@ -141,3 +141,9 @@ class SMC2State(SequentialAlgorithmState):
     @property
     def parsed_data_host(self) -> np.ndarray:
         return np.stack(self.parsed_data, axis=0)
+
+    @property
+    def parsed_data_array(self) -> torch.Tensor:
+        """The observations seen so far as one host tensor (the filters take
+        their observations on the host)."""
+        return torch.from_numpy(self.parsed_data_host)

@@ -8,19 +8,24 @@ objects holding their parameter tensors; every draw takes an explicit
 
 from __future__ import annotations
 
+import copy
 from typing import Callable, Sequence
 
 import torch
 
 from ..distributions import Distribution, Independent, Normal
 from .affine import affine_transform
-from .state import TimeseriesState
+from .state import StateSpacePath, TimeseriesState
 
 
 class StructuralStochasticProcess:
     """Markov process: initial distribution + one-step transition densities."""
 
     event_ndim: int = 0
+
+    @property
+    def n_dim(self) -> int:
+        return self.event_ndim
 
     def initial_distribution(self) -> Distribution:
         raise NotImplementedError
@@ -50,6 +55,20 @@ class StructuralStochasticProcess:
         for _ in range(n):
             x = self.propagate(generator, x)
         return x
+
+    def sample_states(self, generator, num_steps: int, x_0: TimeseriesState | None = None) -> StateSpacePath:
+        """A trajectory of ``num_steps`` transitions (a Python loop over
+        time), from ``x_0`` or an initial draw."""
+        x = self.initial_sample(generator) if x_0 is None else x_0
+        times, values = [], []
+        for _ in range(num_steps):
+            x = self.propagate(generator, x)
+            times.append(x.time_index)
+            values.append(x.value)
+        return StateSpacePath(torch.tensor(times, dtype=torch.float32), torch.stack(values), None)
+
+    def expand_initial(self, generator, shape) -> TimeseriesState:
+        return self.initial_sample(generator, shape)
 
 
 class AffineProcess(StructuralStochasticProcess):
@@ -105,6 +124,12 @@ class AffineProcess(StructuralStochasticProcess):
             loc, scale = self.mean_scale(x)
             x = x.propagate_from(values=loc + scale * eps[i], time_increment=1.0)
         return x
+
+    def copy_with(self, parameters: tuple) -> "AffineProcess":
+        """The same process with new parameter tensors."""
+        new = copy.copy(self)
+        new.parameters = tuple(parameters)
+        return new
 
 
 class AffineEulerMaruyama(AffineProcess):

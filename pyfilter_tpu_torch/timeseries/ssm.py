@@ -54,6 +54,10 @@ class StateSpaceModel:
             self._event_shape = tuple(self.build_density(x).event_shape)
         return self._event_shape
 
+    @property
+    def n_dim(self) -> int:
+        return len(self.event_shape)
+
     def initial_sample(self, generator, shape=()) -> TimeseriesState:
         return self.hidden.initial_sample(generator, shape)
 

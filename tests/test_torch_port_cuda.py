@@ -480,12 +480,13 @@ def test_gradient_entry_points_refuse_without_a_card(monkeypatch):
     assert res.context.device.type == "cpu" and res.losses.shape == (1,)
 
 
-def _counted(fn):
-    """``fn()``'s result and the expand kernel's launches during it."""
-    before = expand.fused_expand.launches
+def _counted(fn, kernel=expand.fused_expand):
+    """``fn()``'s result and ``kernel``'s launches during it (the expand
+    kernel's by default)."""
+    before = kernel.launches
     out = fn()
     torch.cuda.synchronize()
-    return out, expand.fused_expand.launches - before
+    return out, kernel.launches - before
 
 
 @pytest.mark.cuda
@@ -585,3 +586,94 @@ def test_streaming_entry_points_refuse_without_a_card(monkeypatch):
             make()
     res = pt.inference.fit_mle_streaming(build, [0.1] * 5, lambda b: pt.SISR(b, 10, device="cpu"), window=5)
     assert res.context.device.type == "cpu" and res.theta_path.shape == (1, 2)
+
+
+#: (family, parameters, scipy law) of every sampler the distribution layer
+#: gained, at tests/test_distributions.py's parameters
+_SAMPLERS = [
+    ("Beta", dict(concentration1=2.0, concentration0=3.0), ("beta", (2.0, 3.0), {})),
+    ("StudentT", dict(df=6.0, loc=0.3, scale=1.5), ("t", (6.0,), dict(loc=0.3, scale=1.5))),
+    ("Laplace", dict(loc=0.4, scale=1.3), ("laplace", (0.4, 1.3), {})),
+    ("Weibull", dict(scale=2.0, concentration=1.5), ("weibull_min", (1.5,), dict(scale=2.0))),
+    ("HalfNormal", dict(scale=1.4), ("halfnorm", (), dict(scale=1.4))),
+    ("Gumbel", dict(loc=0.3, scale=1.2), ("gumbel_r", (0.3, 1.2), {})),
+    ("Logistic", dict(loc=-0.5, scale=0.9), ("logistic", (-0.5, 0.9), {})),
+    ("Chi2", dict(df=3.5), ("chi2", (3.5,), {})),
+    ("TruncatedNormal", dict(loc=0.5, scale=2.0, low=-1.0, high=3.0), ("truncnorm", (-0.75, 1.25),
+                                                                       dict(loc=0.5, scale=2.0))),
+    ("TruncatedNormal", dict(loc=0.0, scale=1.0, low=5.0, high=math.inf), ("truncnorm", (5.0, math.inf), {})),
+    ("Poisson", dict(rate=3.7), ("poisson", (3.7,), {})),
+    ("Bernoulli", dict(probs=0.3), ("bernoulli", (0.3,), {})),
+    ("Binomial", dict(total_count=12.0, probs=0.4), ("binom", (12, 0.4), {})),
+    ("NegativeBinomial", dict(total_count=5.0, probs=0.35), ("nbinom", (5, 0.65), {})),
+    ("Categorical", dict(probs=[0.2, 0.3, 0.5]), None),
+    ("Cauchy", dict(loc=-0.2, scale=0.8), None),
+    ("HalfCauchy", dict(scale=0.7), None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,params,law", _SAMPLERS, ids=[f"{s[0]}-{i}" for i, s in enumerate(_SAMPLERS)])
+def test_samplers_take_a_cuda_generator(cuda, name, params, law):
+    """Each sampler draws on the card from a CUDA generator: 200,000 draws
+    whose mean lies within 4 SEM (+1e-3) of the law's and whose variance
+    lies within 5% of it (the Categorical's frequencies within 0.01; the
+    Cauchy laws' medians, having no moments)."""
+    import numpy as np
+    from scipy import stats
+
+    d = pt.convert.distribution_from_numpy(name, device="cuda", **{k: np.asarray(v, np.float32)
+                                                                   for k, v in params.items()})
+    x = d.sample(torch.Generator(device=cuda).manual_seed(3), (200_000,))
+    assert x.device.type == "cuda"
+    x = x.double().cpu().numpy()
+    if name == "Categorical":
+        np.testing.assert_allclose(np.bincount(x.astype(int), minlength=3) / len(x), params["probs"], atol=0.01)
+        return
+    if law is None:
+        ref = stats.cauchy(-0.2, 0.8) if name == "Cauchy" else stats.halfcauchy(scale=0.7)
+        np.testing.assert_allclose(np.median(x), ref.median(), rtol=0.02, atol=0.01)
+        return
+    family, args, kwargs = law
+    ref = getattr(stats, family)(*args, **kwargs)
+    assert abs(x.mean() - ref.mean()) < 4 * ref.std() / math.sqrt(len(x)) + 1e-3, (x.mean(), ref.mean())
+    np.testing.assert_allclose(x.var(), ref.var(), rtol=0.05)
+
+
+@pytest.mark.cuda
+def test_tempered_smc_on_card_fires_the_lane_kernel(cuda):
+    """A short TemperedSMC fit on the card (phase 15's width over 30
+    observations): the ladder ends at 1, the lane kernel launches once per
+    SISR lane step (the initial pass and two MH re-filters a stage), and the
+    swarm lands in the context on the card."""
+    y = chip_smoke.pmmh_data(torch, pt)[:30]
+    counted = chip_smoke.counted_sisr(pt)
+    (alg, res, _), launches = _counted(lambda: chip_smoke.zoo_tempered(torch, pt, y, "cuda", 1, counted=counted),
+                                       expand.fused_expand_lanes)
+    assert res.lambdas[-1] == 1.0 and all(b > a for a, b in zip(res.lambdas, res.lambdas[1:]))
+    assert launches == counted.fires == (1 + 2 * len(res.lambdas)) * 30
+    assert alg.context.get_parameter("beta").device.type == "cuda"
+    assert all(math.isfinite(float(v.mean())) for v in res.samples.values())
+
+
+@pytest.mark.cuda
+def test_if2_and_predictive_diagnostics_on_card(cuda):
+    """Two IF2 passes on the card launch the lane kernel once per lane step;
+    PIT and CRPS of a recorded single-lane SISR run stay on the card and the
+    expand kernel launches once per resample fire."""
+    y = chip_smoke.pmmh_data(torch, pt)[:40]
+    counted = chip_smoke.counted_sisr(pt)
+    (alg, res, _), launches = _counted(lambda: chip_smoke.zoo_if2(torch, pt, y, "cuda", 2, counted=counted,
+                                                                   iterations=2), expand.fused_expand_lanes)
+    assert launches == counted.fires == 2 * 40 and res.log_likelihoods.shape == (2,)
+    model = chip_smoke.zoo_fitted(pt, float(res.mle["beta"]), float(res.mle["sigma"]), "cuda")
+    filt = counted(model, 300, record_states=True)
+    counted.fires = 0
+    before = expand.fused_expand.launches
+    fres = filt.batch_filter(torch.Generator(device=cuda).manual_seed(3), y)
+    torch.cuda.synchronize()
+    assert expand.fused_expand.launches - before == counted.fires > 0
+    u = pt.filters.predictive_pit(torch.Generator(device=cuda).manual_seed(4), model, fres, y)
+    c = pt.filters.crps(torch.Generator(device=cuda).manual_seed(5), model, fres, y)
+    assert u.device.type == c.device.type == "cuda" and u.shape == c.shape == (40,)
+    assert bool(((u >= 0) & (u <= 1)).all()) and bool((c > 0).all())
