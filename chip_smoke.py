@@ -10,6 +10,7 @@
     python3 chip_smoke.py --backward  # phases 1-3 and 13a only
     python3 chip_smoke.py --streaming # phases 1-3 and 14 only
     python3 chip_smoke.py --batch     # phases 1-3 and 15 only
+    python3 chip_smoke.py --inference # phases 1-3 and 16 only
     python3 chip_smoke.py --backward-ab TREE   # TREE's backward kernels against these, one card
 
 Phases, in order; any failure exits non-zero before the result line:
@@ -196,6 +197,47 @@ Phases, in order; any failure exits non-zero before the result line:
    CRPS under the fitted model's float64 Kalman predictive, the expand
    kernel once per resample fire and equal to its plain version on the last
    cloud. Prints each fit's wall, ms a lane step and the ladder.
+
+16. The inference layer's last modules (TF32 off). (a) Checkpoint and
+   resume: main path 2's SMC2 over phase 4's T = 200 observations with
+   ``MeanCollector``, ``ParameterPosterior`` and ``Standardizer``; after
+   CKPT_SPLIT observations ``{"algorithm": state.state_dict(), "context":
+   ctx.state_dict()}`` goes to an npz through ``io.save_state_dict`` (the
+   generator's state beside it), a fresh context and SMC2 at the
+   checkpoint's particle count load it and step the rest: every loaded
+   tensor on the card, the resumed fit equal bit for bit to the same
+   algorithm stepping on uninterrupted (weights, lane log-likelihoods, ESS,
+   rejuvenations, the three collected series of 200 rows), the last
+   posterior row equal to a float64 host mean within rel 1e-5, the
+   standardized residuals near N(0, 1) (CKPT_RESID), no host sync from the
+   collectors (the syncs an observation by source), the lane kernel once
+   per APF step and equal to its plain version on the last cloud.
+   (b) Waste-free SMC2 at the same size (num_steps=WF_STEPS), a warm-up and
+   WF_TIMED fits: finite weights, phase 6's bounds, each posterior mean
+   within WF_TOL_SD spreads between seeds of the JAX package's fits
+   (WF_JAX), the lane kernel once per APF step, forward at 1000 lanes and
+   every re-filter at 250, equal to its plain version on the last 250-lane
+   cloud; the wall, rejuvenations and re-filtered lane-steps per
+   rejuvenation against (a)'s standard kernel, host syncs an observation.
+   (c) The Storvik filter: examples/online_smoothing_ensembles.py part 1 at
+   full size over STORVIK_SEEDS seeds (tests/test_storvik.py:33's gates on
+   the first; the mean final estimates within STORVIK_TOL_SE standard
+   errors of as many CPU runs in worker processes), one pass at N = 1e5,
+   T = 400 (the same gates; the expand kernel once per resample fire with 9
+   value planes, equal to its plain version on the last fire's cloud; host
+   syncs a step by source), and the other three conjugate blocks at
+   tests/test_storvik.py's sizes under its gates (the Poisson-Gamma block
+   against its own posterior sd, STORVIK_POISSON_SD). (d) PGAS:
+   examples/gaussian_filters_and_gradients.py part 3 (T = 600, SISR(64),
+   PGAS_SAMPLES sweeps, cut from the example's 500; random walk 0.08): acceptance in (0.05,
+   0.95), the post-burn-in means within PGAS_TOL_SD posterior sds of the
+   exact grid posterior, a finite trajectory of T + 1 states, the expand
+   kernel once per resample fire of the initial FFBS filter and equal to
+   its plain version on its last cloud, host syncs a sweep by source, the
+   sweeps replayed as one CUDA graph each and PGAS_GRAPH_CHECK of them equal
+   bit for bit to eager sweeps from the same seeds; then
+   PGAS_CHAINS chains at the same size through ``summarize_chains``, their
+   initial filter's lane kernel likewise.
 
 ``--host-probe TREE`` times, with TREE's package and TREE's own phase-11
 fit (``pmmh_fit``), the host time of a lane resample-and-gather call at
@@ -490,6 +532,60 @@ ZOO_JAX = {"tempered": {"beta": (0.7293013408780098, 0.009679651573518775),
            "if2": {"beta": (0.7445487678050995, 0.00420867755960679),
                    "sigma": (0.29048461094498634, 0.00265811433308287)}}
 ZOO_JAX_TOL = 4.0
+# phase 16: the inference layer's last modules. (a) main path 2's SMC2 with
+# three collectors, checkpointed after CKPT_SPLIT observations and resumed
+# on a fresh context and algorithm; the standardized residuals' mean and
+# variance within CKPT_RESID of N(0, 1)'s: 3.5 sampling sds of a mean and of
+# a variance of 200 standard normals (1/sqrt(200), sqrt(2/200)). The port's
+# CPU fits at this configuration (seeds 0-3; tests/test_torch_port_collectors.py
+# run as a script; PERF.md) read means -0.065 to -0.082 and variances 0.925
+# to 0.939. (b) waste-free SMC2 at the same size, num_steps=3 (1000
+# is divisible by 4, not by 3), WF_TIMED timed fits; each posterior mean
+# within WF_TOL_SD spreads between seeds of the JAX package's fits of the
+# same configuration (WF_JAX, ``tests/test_torch_port_waste_free.py`` run as
+# a script), the spread scaled by sqrt(1 + 1 / WF_JAX_N).
+CKPT_SPLIT = 100
+CKPT_RESID = (0.25, 0.35)
+WF_STEPS, WF_TIMED = 3, 2
+WF_JAX_N = 8
+WF_JAX = {"kappa": (0.10852862552263931, 0.01070245107004423), "gamma": (0.9397081328607423, 0.02500945395143216),
+          "sigma": (0.09293299657281284, 0.0062125567196743324), "mu": (0.06123521340776737, 0.013713202227169912),
+          "nu": (-0.039729711714373825, 0.007807627659816548), "tau": (0.994053185790545, 0.01629171811363192)}
+WF_TOL_SD = 4.0
+# (c) the Storvik filter: examples/online_smoothing_ensembles.py part 1 at
+# full size (AR(0.3, 0.6, 0.5) observed with noise 0.15, N = 4000, T = 1500),
+# then tests/test_storvik.py:20's data at the JAX package's note's size
+# (N = 1e5, T = 400), then the other three conjugate blocks at that file's
+# sizes; the final means within that file's limits; the mean over
+# STORVIK_SEEDS card seeds of the example's final means within STORVIK_TOL_SE
+# standard errors of as many CPU runs (worker processes)
+STORVIK_EX = {"alpha": 0.3, "beta": 0.6, "sigma": 0.5, "obs": 0.15, "n": 4000, "t": 1500}
+STORVIK_TEST = {"alpha": 0.2, "beta": 0.7, "sigma": 0.4, "obs": 0.25, "n": 100_000, "t": 400}
+STORVIK_LIMITS = (0.1, 0.1, 0.08)
+STORVIK_SEEDS, STORVIK_TOL_SE = 4, 4.0
+# the other blocks' truths (tests/test_storvik.py:112-174). The Poisson-Gamma
+# block's lambda is held within STORVIK_POISSON_SD sds of the filter's own
+# final posterior: that file's 0.5 limit is about one such sd at this size
+# (on the port's data, seeds 14-16, the JAX package's filter reads 5.45,
+# 3.69 and 6.79 and the port's 6.22, 3.61 and 6.25; PERF.md)
+STORVIK_LAMBDA, STORVIK_POISSON_SD = 5.0, 3.0
+STORVIK_VAR_A, STORVIK_VAR_SIGMA = [[0.8, 0.1], [0.0, 0.7]], [0.3, 0.4]
+# (d) PGAS: examples/gaussian_filters_and_gradients.py part 3 at full size:
+# AR(0.2, beta, sigma) observed with noise 0.3 (beta ~ U(0, 1), sigma ~
+# LogNormal(-1, 1)), T = 600, SISR(64), PGAS_SAMPLES sweeps, random walk
+# 0.08; then PGAS_CHAINS chains at the same size. The post-burn-in (a
+# quarter) means within PGAS_TOL_SD posterior sds of the exact grid
+# posterior's. Eight JAX fits of this configuration on the CPU (seeds 10-80;
+# ``tests/test_torch_port_pgas.py`` run as a script; PERF.md) gave gaps with a
+# spread of 0.159 sd for beta and 0.197 for sigma (largest 0.297): the limit
+# is 4x the larger spread. The example's 500 sweeps are cut to 250 (the
+# whole script passed 1000 s; at 500 the JAX fits' spreads were 0.117 and
+# 0.160).
+PGAS_TRUE, PGAS_ALPHA, PGAS_OBS = {"beta": 0.7, "sigma": 0.4}, 0.2, 0.3
+PGAS_N, PGAS_T, PGAS_SAMPLES, PGAS_SCALE, PGAS_CHAINS = 64, 600, 250, 0.08, 4
+PGAS_TOL_SD = 0.8
+# sweeps of the check that the CUDA graph's sweeps are the eager sweeps
+PGAS_GRAPH_CHECK = 6
 
 
 # the backward kernels' tiling, where their edge cases lie: the single-lane
@@ -744,7 +840,7 @@ def main(argv) -> int:
 
     refs, cpu = None, None
     if argv[:1] not in (["--backward-ab"], ["--oracle"], ["--backward"], ["--gradients"], ["--streaming"],
-                        ["--batch"]):
+                        ["--batch"], ["--inference"]):
         # the CPU references of phases 4, 6 and 9 run in worker processes while the card runs
         refs = ProcessPoolExecutor(CPU_REF_WORKERS, mp_context=multiprocessing.get_context("spawn"))
     try:
@@ -759,7 +855,7 @@ def main(argv) -> int:
 
 def card_phases(torch, pt, _build, expand, copy_counts, argv, cpu) -> int:
     """Phases 1-3, then the mode ``argv`` asks for: one of the partial runs,
-    or phases 4-15 (:func:`full_run`) with ``cpu``, the futures of the CPU
+    or phases 4-16 (:func:`full_run`) with ``cpu``, the futures of the CPU
     references."""
     # -- 1. device --------------------------------------------------------
     card = card_line()
@@ -796,11 +892,14 @@ def card_phases(torch, pt, _build, expand, copy_counts, argv, cpu) -> int:
     if argv[:1] == ["--batch"]:
         batch_zoo(torch, pt, expand, card, profile="--profile" in argv)
         return 0
+    if argv[:1] == ["--inference"]:
+        inference_layer(torch, pt, expand, card)
+        return 0
     return full_run(torch, pt, expand, copy_counts, card, max_err, lanes_err, argv, cpu)
 
 
 def full_run(torch, pt, expand, copy_counts, card, max_err, lanes_err, argv, cpu) -> int:
-    """Phases 4-15 (module docstring), after the kernels' checks; ``cpu``
+    """Phases 4-16 (module docstring), after the kernels' checks; ``cpu``
     holds the futures of the CPU references of phases 4, 6 and 9."""
     import numpy as np
 
@@ -930,12 +1029,17 @@ def full_run(torch, pt, expand, copy_counts, card, max_err, lanes_err, argv, cpu
     # -- 15. the batch-inference zoo: TemperedSMC, IF2, PIT and CRPS --------------------
     zoo = batch_zoo(torch, pt, expand, card, profile="--profile" in argv)
 
+    # -- 16. the inference layer: checkpoint and resume, waste-free SMC2, Storvik, PGAS --
+    infl = inference_layer(torch, pt, expand, card)
+
     k1_paths = {"phase 4": launches, "phase 7": flag_launches, "phase 8": ffbsi_launches, "phase 12": oracle_k1,
-                **{path: c["k1"] for path, c in grads["paths"].items() if c["k1"]}, **stream["paths"], **zoo["k1"]}
+                **{path: c["k1"] for path, c in grads["paths"].items() if c["k1"]}, **stream["paths"], **zoo["k1"],
+                **infl["k1"]}
     lane_paths = {"phase 5": lanes["launches"], "phase 6": smc2_launches, "phase 8": lane_launches,
                   "phase 9 NESS": ness_launches, "phase 9 hybrids": hybrid_launches, "phase 10": nb_launches,
                   "phase 11": pmmh_launches, "phase 12": oracle_lanes,
-                  **{path: c["lanes"] for path, c in grads["paths"].items() if c["lanes"]}, **zoo["lanes"]}
+                  **{path: c["lanes"] for path, c in grads["paths"].items() if c["lanes"]}, **zoo["lanes"],
+                  **infl["lanes"]}
 
     kernels = [{
         "name": "expand",
@@ -944,7 +1048,8 @@ def full_run(torch, pt, expand, copy_counts, card, max_err, lanes_err, argv, cpu
         "replaces": "pyfilter_tpu/ops/expand.py:110",
         "launches": sum(k1_paths.values()),
         "launches_by_path": k1_paths,
-        "max_abs_err": max(max_err, err, flag_err, ffbsi_err, oracle_err, stream["err"], zoo["k1_err"]),
+        "max_abs_err": max(max_err, err, flag_err, ffbsi_err, oracle_err, stream["err"], zoo["k1_err"],
+                           infl["k1_err"]),
         "ms": k_ms,
         "plain_ms": p_ms,
         "bound_ms": bound_ms,
@@ -958,7 +1063,7 @@ def full_run(torch, pt, expand, copy_counts, card, max_err, lanes_err, argv, cpu
         "launches": sum(lane_paths.values()),
         "launches_by_path": lane_paths,
         "max_abs_err": max(lanes_err, lanes["err"], lane_run_err, ness_err, nb_err, pmmh_err, oracle_lane_err,
-                           zoo["lanes_err"]),
+                           zoo["lanes_err"], infl["lanes_err"]),
         "ms": lanes["ms"],
         "plain_ms": lanes["plain_ms"],
         "bound_ms": lanes["bound_ms"],
@@ -1756,10 +1861,42 @@ def pmmh_data(torch, pt):
     return model.sample_states(torch.Generator().manual_seed(0), PMMH_T).get_paths()[1].numpy()
 
 
-def ar_grid_posterior(y, jacobian: bool = True) -> dict:
-    """The exact posterior mean and sd of (beta, sigma) for phase 11's model,
+def pgas_builder(pt, ctx):
+    """``examples/gaussian_filters_and_gradients.py`` part 3's model: AR(1)
+    with alpha PGAS_ALPHA, beta ~ Uniform(0, 1), sigma ~ LogNormal(-1, 1),
+    observed with noise PGAS_OBS."""
+    def const(v):
+        return pt.timeseries.models.parameter(v, ctx.device)
+
+    beta = ctx.named_parameter("beta", pt.distributions.Uniform(const(0.0), const(1.0)))
+    sigma = ctx.named_parameter("sigma", pt.distributions.LogNormal(const(-1.0), const(1.0)))
+    return pt.timeseries.LinearStateSpaceModel(
+        pt.timeseries.models.AR(PGAS_ALPHA, beta, sigma, device=ctx.device), (1.0, PGAS_OBS))
+
+
+def pgas_data(torch, pt):
+    """Phase 16d's observations: PGAS_T steps of the true AR model, simulated
+    by the port on the CPU (seed 9)."""
+    model = pt.timeseries.LinearStateSpaceModel(
+        pt.timeseries.models.AR(PGAS_ALPHA, PGAS_TRUE["beta"], PGAS_TRUE["sigma"], device="cpu"), (1.0, PGAS_OBS))
+    return model.sample_states(torch.Generator().manual_seed(9), PGAS_T).get_paths()[1].numpy()
+
+
+def storvik_data(torch, pt, cfg: dict, seed: int):
+    """``cfg["t"]`` observations of AR(alpha, beta, sigma) observed with noise
+    ``cfg["obs"]``, simulated by the port on the CPU from ``seed``."""
+    model = pt.timeseries.LinearStateSpaceModel(
+        pt.timeseries.models.AR(cfg["alpha"], cfg["beta"], cfg["sigma"], device="cpu"), (1.0, cfg["obs"]))
+    return model.sample_states(torch.Generator().manual_seed(seed), cfg["t"]).get_paths()[1].numpy()
+
+
+def ar_grid_posterior(y, jacobian: bool = True, alpha: float = 0.0, obs: float = PMMH_OBS,
+                      sigma_prior: tuple = (-1.0, 0.5)) -> dict:
+    """The exact posterior mean and sd of (beta, sigma) for phase 11's model
+    (or, with ``alpha``, ``obs`` and ``sigma_prior``, phase 16d's: AR(alpha,
+    beta, sigma) observed with noise ``obs``, sigma ~ LogNormal(*sigma_prior)),
     on a grid in float64: each point's Kalman log-likelihood (``x_0 ~
-    N(0, sigma^2)``, predict, then update on ``y_t``, as the port's filter
+    N(alpha, sigma^2)``, predict, then update on ``y_t``, as the port's filter
     steps) plus the log-prior. With ``jacobian=False``, the posterior a chain
     reaches when its unconstrained target omits the bijections' Jacobian.
     Also, under ``"log_evidence"``, the log of the integral of likelihood
@@ -1771,16 +1908,17 @@ def ar_grid_posterior(y, jacobian: bool = True) -> dict:
     beta = np.linspace(0.0005, 0.9995, 500)[:, None]
     log_sigma = np.linspace(math.log(0.05), math.log(1.0), 500)[None, :]
     sigma = np.exp(log_sigma)
-    m, p = np.zeros_like(beta * sigma), np.broadcast_to(sigma**2, (beta * sigma).shape).copy()
+    m, p = np.full_like(beta * sigma, alpha), np.broadcast_to(sigma**2, (beta * sigma).shape).copy()
     ll = np.zeros_like(m)
     for yt in np.asarray(y, np.float64):
-        m, p = beta * m, beta**2 * p + sigma**2
-        s = p + PMMH_OBS**2
+        m, p = alpha + beta * m, beta**2 * p + sigma**2
+        s = p + obs**2
         ll -= 0.5 * (np.log(2 * math.pi * s) + (yt - m) ** 2 / s)
         gain = p / s
         m, p = m + gain * (yt - m), (1.0 - gain) * p
-    # beta ~ U(0, 1) has density 1; sigma ~ LogNormal(-1, 0.5)
-    log_sigma_prior = -0.5 * ((log_sigma + 1.0) / 0.5) ** 2 - log_sigma - math.log(0.5 * math.sqrt(2 * math.pi))
+    # beta ~ U(0, 1) has density 1; sigma ~ LogNormal(loc, scale)
+    loc, scale = sigma_prior
+    log_sigma_prior = -0.5 * ((log_sigma - loc) / scale) ** 2 - log_sigma - math.log(scale * math.sqrt(2 * math.pi))
     logpost = ll + log_sigma_prior
     # the grid is uniform in beta and in log sigma: a cell is d_beta wide and
     # sigma * d_log_sigma tall
@@ -3886,6 +4024,612 @@ def batch_zoo(torch, pt, expand, card, profile: bool = False) -> dict:
     out["k1"]["phase 15c"] = launches
     print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+def counted_apf(pt):
+    """An APF class whose lane resamples, over every copy of its filters,
+    add to its ``widths`` (lanes -> resamples) and keep the last cloud of
+    each width (``last[lanes]``: the log-weights and the values)."""
+    import collections
+
+    class Counted(pt.APF):
+        widths, last = collections.Counter(), {}
+
+        def _fused_resample(self, generator, weights, values, normalized=False):
+            lanes = self.batch_shape[0] if self.batch_shape else 1
+            type(self).widths[lanes] += 1
+            type(self).last[lanes] = (weights, values)
+            return super()._fused_resample(generator, weights, values, normalized=normalized)
+
+    return Counted
+
+
+def counted_storvik(pt):
+    """A StorvikFilter class counting its fused resample fires over every
+    instance (``fires``) and keeping the last fire's log-weights and values
+    (``last``)."""
+    class Counted(pt.inference.StorvikFilter):
+        fires, last = 0, None
+
+        def _resample(self, generator, log_weights, values, stats):
+            if self._use_fused_resample(values):
+                type(self).fires += 1
+                type(self).last = (log_weights, (values, *stats))
+            return super()._resample(generator, log_weights, values, stats)
+
+    return Counted
+
+
+def tensors_off(torch, obj, device: str) -> list:
+    """The tensors inside ``obj`` (states, corrections, dicts, lists, plain
+    objects) that do not lie on ``device``, by path."""
+    off = []
+
+    def walk(x, path):
+        if isinstance(x, torch.Tensor):
+            if x.device.type != device:
+                off.append((path, str(x.device)))
+        elif isinstance(x, dict):
+            for k, v in x.items():
+                walk(v, f"{path}.{k}")
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(v, f"{path}[{i}]")
+        elif hasattr(x, "__dict__") and not isinstance(x, type):
+            for k, v in vars(x).items():
+                walk(v, f"{path}.{k}")
+
+    walk(obj, "")
+    return off
+
+
+def ckpt_algorithm(torch, pt, device: str, seed: int, filter_class=None):
+    """Phase 16a's algorithm: main path 2's SMC2 (APF SMC2_N x SMC2_K,
+    threshold SMC2_THRESHOLD, SMC2_STEPS PMMH steps) on ``device``, its
+    context and generator from ``seed``, with the three collectors. The APF
+    records its moments (the mean collector reads them); the state keeps no
+    moment history."""
+    from pyfilter_tpu_torch import inference as inf
+
+    def gen(s):
+        return torch.Generator(device=device).manual_seed(s)
+
+    ctx = inf.make_context(generator=gen(seed), device=device)
+    filt = (filter_class or pt.APF)(pt.examples.stochastic_volatility_builder, SMC2_N, device=device)
+    alg = inf.SMC2(filt, SMC2_K, threshold=SMC2_THRESHOLD, num_steps=SMC2_STEPS, context=ctx,
+                   generator=gen(seed + 1), record_moments=False, device=device)
+    for collector in (inf.sequential.MeanCollector(), inf.sequential.ParameterPosterior(),
+                      inf.sequential.Standardizer()):
+        alg.register_callback(collector)
+    return ctx, alg
+
+
+def resume_from(torch, pt, path: str, device: str, seed: int, n_particles: int):
+    """A fresh context and phase 16a algorithm (``seed``) at
+    ``n_particles`` state particles, with the checkpoint at ``path`` (and
+    the generator state beside it) loaded: the context, the algorithm and
+    its state."""
+    import numpy as np
+
+    ctx, alg = ckpt_algorithm(torch, pt, device, seed)
+    alg.filter = alg.filter.replace(n_particles=n_particles)
+    state = alg.initialize()
+    loaded = pt.io.load_state_dict(path)
+    ctx.load_state_dict(loaded["context"])
+    state.load_state_dict(loaded["algorithm"])
+    alg.filter = alg.filter.initialize_model(ctx)
+    alg.generator.set_state(torch.from_numpy(np.load(path[: -len(".npz")] + ".generator.npy")))
+    return ctx, alg, state
+
+
+def checkpoint(pt, path: str, alg, ctx, state) -> None:
+    """Write ``{"algorithm": ..., "context": ...}`` to ``path`` (an npz) and
+    the algorithm's generator state beside it (this script's doing: the
+    port checkpoints the state and the context, not the generator)."""
+    import numpy as np
+
+    pt.io.save_state_dict(path, {"algorithm": state.state_dict(), "context": ctx.state_dict()})
+    np.save(path[: -len(".npz")] + ".generator.npy", alg.generator.get_state().numpy())
+
+
+def checkpoint_resume(torch, pt, expand, card, y) -> dict:
+    """Phase 16a (module docstring): returns the lane kernel's launches over
+    the resumed steps, its difference from its plain version on the last
+    cloud, and the standard kernel's re-filtered lane-steps per
+    rejuvenation (for 16b)."""
+    import tempfile
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    counted = counted_apf(pt)
+    counted.widths.clear()
+    ctx, alg = ckpt_algorithm(torch, pt, "cuda", 60, counted)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = alg.fit(y[:CKPT_SPLIT])
+    torch.cuda.synchronize()
+    wall_first = time.perf_counter() - t0
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_"), "smc2.npz")
+    checkpoint(pt, path, alg, ctx, state)
+    n_resume, rejuv_first = alg.filter.n_particles, alg.kernel.n_rejuvenations
+
+    # the uninterrupted fit: the same algorithm stepping on from the same
+    # generator state
+    for yt in y[CKPT_SPLIT:]:
+        state = alg.step(yt, state)
+    torch.cuda.synchronize()
+    rejuv = alg.kernel.n_rejuvenations
+    lane_steps = sum(lanes * n for lanes, n in counted.widths.items())
+    std_per_rejuv = (lane_steps - SMC2_K * len(y)) / max(rejuv, 1)
+
+    # the resumed fit
+    ctx2, alg2, state2 = resume_from(torch, pt, path, "cuda", 70, n_resume)
+    off = tensors_off(torch, (state2, ctx2.parameters, alg2.filter.model), "cuda")
+    if off:
+        raise AssertionError(f"phase 16a: loaded tensors off the card: {off[:5]}")
+    _zero_counts(expand)
+    pt.APF.corrections = 0
+    held = [state2]
+
+    def resume():
+        for yt in y[CKPT_SPLIT:]:
+            held[0] = alg2.step(yt, held[0])
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    syncs = count_syncs(torch, resume)
+    torch.cuda.synchronize()
+    wall_resumed = time.perf_counter() - t0
+    state2 = held[0]
+    launches, steps = expand.fused_expand_lanes.launches, pt.APF.corrections
+    n_rest = len(y) - CKPT_SPLIT
+    print(f"phase 16a: SMC2(APF {SMC2_N} x {SMC2_K}, threshold {SMC2_THRESHOLD}, num_steps={SMC2_STEPS}) with "
+          f"MeanCollector, ParameterPosterior and Standardizer: fit of the first {CKPT_SPLIT} observations "
+          f"{wall_first:.3f} s ({rejuv_first} rejuvenations, {n_resume} state particles at the checkpoint); resumed on "
+          f"a fresh context and algorithm, {n_rest} more observations {wall_resumed:.3f} s under the sync counter "
+          f"({alg2.kernel.n_rejuvenations} rejuvenations); lane kernel launches {launches} for {steps} APF steps; "
+          f"card {card}")
+    print(f"  host syncs an observation of the resumed fit by source: "
+          f"{ {k: round(v / n_rest, 4) for k, v in syncs.items()} }")
+    if any("collectors.py" in k for k in syncs):
+        raise AssertionError(f"phase 16a: the collectors read the host: {syncs}")
+    if not launches == steps > 0 or expand.fused_expand.launches:
+        raise AssertionError(f"phase 16a: lane kernel launched {launches} times for {steps} APF steps")
+
+    # the resumed fit against the uninterrupted one, bit for bit
+    pairs = {"w": (state.w, state2.w),
+             "lane log-likelihoods": (state.filter_state.log_likelihood, state2.filter_state.log_likelihood),
+             "ess": (torch.stack(state.ess), torch.stack(state2.ess)),
+             **{name: (torch.stack(state.collected[name]), torch.stack(state2.collected[name]))
+                for name in ("filter_means", "parameter_means", "standardized")}}
+    for name, (a, b) in pairs.items():
+        if not torch.equal(a, b):
+            diff = float((a - b).abs().max()) if a.shape == b.shape else f"shapes {tuple(a.shape)} {tuple(b.shape)}"
+            raise AssertionError(f"phase 16a: the resumed fit's {name} differs from the uninterrupted fit's: {diff}")
+    if not (alg2.kernel.n_rejuvenations + rejuv_first == rejuv and state2.current_iteration == len(y)):
+        raise AssertionError(f"phase 16a: rejuvenations {rejuv_first} + {alg2.kernel.n_rejuvenations} != {rejuv}")
+    for name in ("filter_means", "parameter_means", "standardized"):
+        if len(state2.collected[name]) != len(y):
+            raise AssertionError(f"phase 16a: {name} has {len(state2.collected[name])} rows, not {len(y)}")
+    print(f"  resumed == uninterrupted, bit for bit (torch.equal): weights, lane log-likelihoods, {len(state2.ess)} "
+          f"ESS values, rejuvenations ({rejuv}), and the three collected series of {len(y)} rows each")
+
+    # the last parameter-posterior row against a float64 host mean
+    w = state2.normalized_weights().double().cpu().numpy()
+    host = w @ ctx2.stack_parameters(constrained=True).double().cpu().numpy()
+    last = state2.collected["parameter_means"][-1].double().cpu().numpy()
+    rel = float(np.max(np.abs(last - host) / np.abs(host)))
+    resid = torch.stack(state2.collected["standardized"]).double().cpu().numpy()
+    print(f"  last ParameterPosterior row {last.tolist()}; float64 host mean {host.tolist()}: rel {rel:.3g} "
+          f"(limit 1e-5); standardized residuals mean {resid.mean():.6f} var {resid.var():.6f} (limits "
+          f"{CKPT_RESID[0]}, 1 +- {CKPT_RESID[1]})")
+    if not rel < 1e-5:
+        raise AssertionError(f"phase 16a: the last posterior row is rel {rel} off the host mean")
+    if not (np.isfinite(resid).all() and abs(resid.mean()) < CKPT_RESID[0] and abs(resid.var() - 1.0) < CKPT_RESID[1]):
+        raise AssertionError(f"phase 16a: standardized residuals mean {resid.mean()} var {resid.var()}")
+
+    latest = state2.filter_state.latest_state
+    pre = alg2.filter.proposal.pre_weight(alg2.filter.model, torch.tensor(float(y[-1]), device="cuda"), latest.x)
+    err = check_on_cloud(torch, expand, pt.normalize(pre + latest.log_weights), torch.stack([latest.x.value, pre]),
+                         f"phase 16a's last APF cloud (n={alg2.filter.n_particles}, L={SMC2_K})")
+    print(f"phase 16a: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "err": err, "std_per_rejuv": std_per_rejuv, "rejuv": rejuv,
+            "walls": (wall_first, wall_resumed)}
+
+
+def wf_fit(torch, pt, y, device: str, seed: int, filter_class=None):
+    """One fit of phase 16b's waste-free SMC2 on ``device`` (context and
+    generator from ``seed``): the algorithm, its state, the posterior mean
+    by name and the wall seconds."""
+    from pyfilter_tpu_torch import inference as inf
+
+    def gen(s):
+        return torch.Generator(device=device).manual_seed(s)
+
+    ctx = inf.make_context(generator=gen(seed), device=device)
+    filt = (filter_class or pt.APF)(pt.examples.stochastic_volatility_builder, SMC2_N, record_moments=False,
+                                     device=device)
+    alg = inf.SMC2(filt, SMC2_K, num_steps=WF_STEPS, waste_free=True, context=ctx, generator=gen(seed + 1),
+                   record_moments=False, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = alg.fit(y)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mean = state.normalized_weights() @ ctx.stack_parameters(constrained=True)
+    return alg, state, dict(zip(ctx.parameters, mean.tolist())), wall
+
+
+def waste_free_phase(torch, pt, expand, card, y, std_per_rejuv: float) -> dict:
+    """Phase 16b (module docstring)."""
+    t_phase = time.perf_counter()
+    counted = counted_apf(pt)
+    wf_fit(torch, pt, y, "cuda", 0, counted)  # warm-up
+    m = SMC2_K // (WF_STEPS + 1)
+    out = {"launches": 0, "err": 0.0}
+    for rep in range(WF_TIMED):
+        _zero_counts(expand)
+        pt.APF.corrections = 0
+        counted.widths.clear()
+        counted.last.clear()
+        alg, state, mean, wall = wf_fit(torch, pt, y, "cuda", 100 + 10 * rep, counted)
+        k = alg.kernel
+        launches, steps = expand.fused_expand_lanes.launches, pt.APF.corrections
+        widths = dict(counted.widths)
+        refilter = sum(lanes * n for lanes, n in widths.items()) - SMC2_K * len(y)
+        syncs = alg.n_host_syncs + k.n_host_syncs
+        print(f"phase 16b: waste-free SMC2(APF {SMC2_N} x {SMC2_K}, num_steps={WF_STEPS}) fit {rep}: {wall:.3f} s; "
+              f"rejuvenations {k.n_rejuvenations}, PMMH transitions {k.n_transitions}, doublings {k.n_doublings}; "
+              f"lane resamples by width {widths}; re-filtered lane-steps per rejuvenation "
+              f"{refilter / max(k.n_rejuvenations, 1):.1f} against the standard kernel's {std_per_rejuv:.1f} (16a, "
+              f"{SMC2_STEPS} steps at {SMC2_K} lanes; the prediction: 1/4 of the lanes x {WF_STEPS}/{SMC2_STEPS} "
+              f"transitions = {WF_STEPS / (4 * SMC2_STEPS):.3f} of it at equal history lengths); host syncs "
+              f"{syncs} ({syncs / len(y):.3f} an observation); lane kernel launches {launches} for {steps} APF "
+              f"steps; card {card}")
+        print(f"  posterior mean {mean}")
+        if not bool(torch.isfinite(state.w).all()):
+            raise AssertionError("phase 16b: non-finite weights")
+        if not (0.3 < mean["gamma"] < 3.0 and 0.5 < mean["tau"] < 2.0):
+            raise AssertionError(f"phase 16b: posterior means out of phase 6's bounds: {mean}")
+        if not launches == steps > 0 or expand.fused_expand.launches:
+            raise AssertionError(f"phase 16b: lane kernel launched {launches} times for {steps} APF steps")
+        if not (widths.get(m, 0) > 0 and set(widths) <= {m, SMC2_K}):
+            raise AssertionError(f"phase 16b: lane widths {widths}: the re-filters must run at {m} lanes")
+        if not (widths[SMC2_K] > len(y) if k.n_doublings else widths[SMC2_K] == len(y)):
+            raise AssertionError(f"phase 16b: {widths[SMC2_K]} resamples at {SMC2_K} lanes for {len(y)} forward "
+                                 f"steps and {k.n_doublings} doublings")
+        gaps = {n: (mean[n] - WF_JAX[n][0]) / (WF_JAX[n][1] * math.sqrt(1.0 + 1.0 / WF_JAX_N)) for n in mean}
+        print(f"  (card - JAX fits' mean) / their spread between seeds: "
+              f"{ {n: round(g, 3) for n, g in gaps.items()} } (limit {WF_TOL_SD})")
+        if not all(abs(g) < WF_TOL_SD for g in gaps.values()):
+            raise AssertionError(f"phase 16b: the waste-free posterior is off the JAX fits': {gaps}")
+        out["launches"] += launches
+    weights, values = counted.last[m]
+    out["err"] = check_on_cloud(torch, expand, pt.normalize(weights), torch.stack(list(values)),
+                                f"phase 16b's last {m}-lane re-filter cloud (n={weights.shape[0]}, L={m})")
+    print(f"phase 16b: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def storvik_example_fit(torch, pt, device: str, seed: int, filter_class=None):
+    """Phase 16c's example run (STORVIK_EX: data seed 0) on ``device``,
+    drawing from ``seed``: the filter, the result and the wall seconds."""
+    cfg = STORVIK_EX
+    y = storvik_data(torch, pt, cfg, 0)
+    conj = pt.inference.NIGAutoregression(obs_scale=cfg["obs"], v0=4.0, a0=2.0, b0=0.5, device=device)
+    filt = (filter_class or pt.inference.StorvikFilter)(conj, cfg["n"], device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = filt.fit(torch.Generator(device=device).manual_seed(seed), y)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return filt, res, time.perf_counter() - t0
+
+
+def storvik_block_data(torch, pt, name: str):
+    """tests/test_storvik.py's data for the Poisson-Gamma block (T = 400,
+    lambda STORVIK_LAMBDA over AR(0, 0.9, 0.3), seed 14) or the vector AR
+    block (T = 500, STORVIK_VAR_A, noise STORVIK_VAR_SIGMA, observed with
+    noise 0.1, seed 16), simulated by the port on the CPU."""
+    if name == "poisson":
+        conj = pt.inference.PoissonGammaCounts(pt.timeseries.models.AR(0.0, 0.9, 0.3, device="cpu"), a0=2.0, b0=0.5)
+        model, seed, t = conj.build_model((torch.tensor(STORVIK_LAMBDA),)), 14, 400
+    else:
+        conj = pt.inference.NIGVectorAutoregression(2, obs_scale=0.1, v0=4.0, a0=2.0, b0=0.3, device="cpu")
+        model = conj.build_model((torch.tensor(STORVIK_VAR_A), torch.zeros(2), torch.tensor(STORVIK_VAR_SIGMA)))
+        seed, t = 16, 500
+    return model.sample_states(torch.Generator().manual_seed(seed), t).get_paths()[1].numpy()
+
+
+def storvik_final(res) -> list:
+    """A NIG AR block's final (alpha, beta, sigma) means (sigma as the root
+    of the mean of sigma^2)."""
+    a, b, s2 = (float(m[-1]) for m in res.param_means)
+    return [a, b, math.sqrt(s2)]
+
+
+def storvik_cpu_fit(seed: int) -> list:
+    """Phase 16c's CPU reference (a worker process): the example run through
+    the plain versions, its final means."""
+    torch, pt = _cpu_worker(2)
+    return storvik_final(storvik_example_fit(torch, pt, "cpu", seed)[1])
+
+
+def storvik_gates(res, cfg: dict, label: str) -> None:
+    """tests/test_storvik.py:33's gates: the final means within
+    STORVIK_LIMITS of the truth, the late error (the last 40 steps) below
+    0.7 x the early one (steps 20-59), a finite log-likelihood, ESS > 1."""
+    import numpy as np
+
+    a, b, s2 = (m.double().cpu().numpy() for m in res.param_means)
+    final = [a[-1], b[-1], math.sqrt(s2[-1])]
+    truth = [cfg["alpha"], cfg["beta"], cfg["sigma"]]
+    err = np.abs(a - truth[0]) + np.abs(b - truth[1]) + np.abs(np.sqrt(s2) - truth[2])
+    early, late = float(err[20:60].mean()), float(err[-40:].mean())
+    ll, ess_min = float(res.log_likelihood), float(res.ess.min())
+    print(f"  {label}: final alpha {final[0]:.4f} beta {final[1]:.4f} sigma {final[2]:.4f} (truth {truth}); early "
+          f"error {early:.4f}, late {late:.4f}; log-likelihood {ll:.3f}; least ESS {ess_min:.2f}")
+    if not all(abs(f - t) < lim for f, t, lim in zip(final, truth, STORVIK_LIMITS)):
+        raise AssertionError(f"phase 16c: {label}: final means {final} off the truth {truth}")
+    if not (late < 0.7 * early and math.isfinite(ll) and ess_min > 1.0):
+        raise AssertionError(f"phase 16c: {label}: early {early}, late {late}, ll {ll}, ESS {ess_min}")
+
+
+def storvik_phase(torch, pt, expand, card, cpu_jobs) -> dict:
+    """Phase 16c (module docstring); ``cpu_jobs``: the futures of the CPU
+    example runs. Returns the expand kernel's launches and its difference
+    from its plain version on the last fire's cloud."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    counted = counted_storvik(pt)
+    storvik_example_fit(torch, pt, "cuda", 99, counted)  # warm-up
+    out = {"launches": 0, "err": 0.0}
+
+    # the example at full size, over STORVIK_SEEDS seeds
+    finals = []
+    for seed in range(1, STORVIK_SEEDS + 1):
+        _zero_counts(expand)
+        counted.fires = 0
+        filt, res, wall = storvik_example_fit(torch, pt, "cuda", seed, counted)
+        launches, fires = expand.fused_expand.launches, counted.fires
+        finals.append(storvik_final(res))
+        cfg = STORVIK_EX
+        print(f"phase 16c: Storvik NIGAutoregression, N={cfg['n']}, T={cfg['t']} (the example's part 1), seed {seed}: "
+              f"{wall:.3f} s, {wall / cfg['t'] * 1e3:.4f} ms a step; host syncs {filt.n_host_syncs / cfg['t']:.3f} a "
+              f"step; resample fires {fires}, expand launches {launches}; card {card}")
+        if seed == 1:
+            storvik_gates(res, cfg, "the example")
+        if not launches == fires > 0 or expand.fused_expand_lanes.launches:
+            raise AssertionError(f"phase 16c: expand kernel launched {launches} times for {fires} fires")
+        out["launches"] += launches
+    cpu = np.asarray([job.result() for job in cpu_jobs])
+    card_f = np.asarray(finals)
+    se = np.sqrt(card_f.var(axis=0, ddof=1) / len(card_f) + cpu.var(axis=0, ddof=1) / len(cpu))
+    gaps = (card_f.mean(axis=0) - cpu.mean(axis=0)) / se
+    print(f"  final (alpha, beta, sigma) over {len(card_f)} card seeds: mean {card_f.mean(axis=0).tolist()}, sd "
+          f"{card_f.std(axis=0, ddof=1).tolist()}; {len(cpu)} CPU runs (plain versions, worker processes): mean "
+          f"{cpu.mean(axis=0).tolist()}, sd {cpu.std(axis=0, ddof=1).tolist()}; gaps {gaps.round(3).tolist()} "
+          f"standard errors (limit {STORVIK_TOL_SE})")
+    if not (np.abs(gaps) < STORVIK_TOL_SE).all():
+        raise AssertionError(f"phase 16c: the card's Storvik means are {gaps} SE off the CPU runs'")
+
+    # tests/test_storvik.py:20's data at the size of the JAX package's note
+    cfg = STORVIK_TEST
+    y = storvik_data(torch, pt, cfg, 0)
+    conj = pt.inference.NIGAutoregression(obs_scale=cfg["obs"], v0=4.0, a0=2.0, b0=0.5, device="cuda")
+    filt = counted(conj, cfg["n"], device="cuda")
+    _zero_counts(expand)
+    counted.fires = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = filt.fit(torch.Generator(device="cuda").manual_seed(1), y)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, fires = expand.fused_expand.launches, counted.fires
+    syncs = count_syncs(torch, lambda: counted(conj, cfg["n"], device="cuda").fit(
+        torch.Generator(device="cuda").manual_seed(2), y[:20]))
+    weights, values = counted.last
+    planes = torch.cat([v.reshape(v.shape[0], -1).T for v in values])
+    print(f"phase 16c: Storvik NIGAutoregression, N={cfg['n']}, T={cfg['t']} (tests/test_storvik.py:20's data): "
+          f"{wall:.3f} s, {wall / cfg['t'] * 1e3:.4f} ms a step; resample fires {fires}, expand launches {launches} "
+          f"with {planes.shape[0]} value planes; host syncs a step by source (20 steps) "
+          f"{ {k: round(v / 20, 4) for k, v in syncs.items()} }; card {card}")
+    storvik_gates(res, cfg, "N=1e5")
+    if not (launches == fires > 0 and planes.shape[0] == 9) or expand.fused_expand_lanes.launches:
+        raise AssertionError(f"phase 16c: expand kernel launched {launches} times for {fires} fires, "
+                             f"{planes.shape[0]} planes")
+    out["launches"] += launches
+    out["err"] = check_on_cloud(torch, expand, pt.normalize(weights), planes,
+                                f"phase 16c's last Storvik fire (n={cfg['n']}, 9 planes)")
+
+    # the other three blocks at tests/test_storvik.py:112-174's sizes
+    gen = lambda s: torch.Generator(device="cuda").manual_seed(s)  # noqa: E731
+    base = dict(STORVIK_TEST, n=3000, t=500)
+    conj = pt.inference.NIGARUnknownObsVariance(obs_coeff=1.0, v0=4.0, a0=2.0, b0=0.5, c0=2.0, d0=0.1, device="cuda")
+    res = pt.inference.StorvikFilter(conj, 3000, device="cuda").fit(gen(11), storvik_data(torch, pt, base, 10))
+    a, b, s2, sy2 = (float(m[-1]) for m in res.param_means)
+    got, truth = [a, b, math.sqrt(s2), math.sqrt(sy2)], [base["alpha"], base["beta"], base["sigma"], base["obs"]]
+    print(f"  NIGARUnknownObsVariance (N=3000, T=500): alpha, beta, sigma, s {got} (truth {truth}, limits 0.12, "
+          f"0.12, 0.1, 0.1)")
+    if not (all(abs(g - t) < lim for g, t, lim in zip(got, truth, (0.12, 0.12, 0.1, 0.1)))
+            and math.isfinite(float(res.log_likelihood))):
+        raise AssertionError(f"phase 16c: NIGARUnknownObsVariance {got} off {truth}")
+
+    conj = pt.inference.PoissonGammaCounts(pt.timeseries.models.AR(0.0, 0.9, 0.3, device="cuda"), a0=2.0, b0=0.5)
+    res = pt.inference.StorvikFilter(conj, 2000, device="cuda").fit(gen(15), storvik_block_data(torch, pt, "poisson"))
+    lam = res.param_means[0].double().cpu().numpy()
+    a_post, b_post = conj._posterior(res.stats)
+    w = pt.normalize(res.log_weights).double()
+    mean_i, var_i = (a_post / b_post).double(), (a_post / b_post**2).double()
+    post_sd = math.sqrt(float(w @ (var_i + mean_i**2)) - float(w @ mean_i) ** 2)
+    print(f"  PoissonGammaCounts (N=2000, T=400): lambda {lam[-1]:.4f} (truth {STORVIK_LAMBDA}; at step 30 "
+          f"{lam[30]:.4f}); the final posterior's sd {post_sd:.4f}: {abs(lam[-1] - STORVIK_LAMBDA) / post_sd:.3f} sds "
+          f"off (limit {STORVIK_POISSON_SD})")
+    if not (abs(lam[-1] - STORVIK_LAMBDA) < STORVIK_POISSON_SD * post_sd and math.isfinite(float(res.log_likelihood))):
+        raise AssertionError(f"phase 16c: PoissonGammaCounts lambda {lam[-1]} off {STORVIK_LAMBDA}")
+
+    conj = pt.inference.NIGVectorAutoregression(2, obs_scale=0.1, v0=4.0, a0=2.0, b0=0.3, device="cuda")
+    a_true = torch.tensor(STORVIK_VAR_A, device="cuda")
+    sig_true = torch.tensor(STORVIK_VAR_SIGMA, device="cuda")
+    t0 = time.perf_counter()
+    res = pt.inference.StorvikFilter(conj, 2000, device="cuda").fit(gen(17), storvik_block_data(torch, pt, "var"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    a_m, b_m, s2_m = (m[-1] for m in res.param_means)
+    errs = [float((a_m - a_true).abs().max()), float(b_m.abs().max()), float((s2_m.sqrt() - sig_true).abs().max())]
+    print(f"  NIGVectorAutoregression (d=2, N=2000, T=500): {wall:.3f} s; largest errors A {errs[0]:.4f}, b "
+          f"{errs[1]:.4f}, sigma {errs[2]:.4f} (limits 0.12, 0.12, 0.1)")
+    if not (all(e < lim for e, lim in zip(errs, (0.12, 0.12, 0.1))) and math.isfinite(float(res.log_likelihood))):
+        raise AssertionError(f"phase 16c: NIGVectorAutoregression errors {errs}")
+    print(f"phase 16c: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def eager_pgas(pt):
+    """A PGAS class whose fit steps its sweeps eagerly, one by one (the
+    reference the CUDA graph's replays are held against)."""
+    class Eager(pt.inference.PGAS):
+        def _graphed_sweep(self, sweep, theta, trajectory):
+            return sweep
+
+    return Eager
+
+
+def pgas_fit(torch, pt, y, device: str, seed: int, chains: int = 1, samples: int | None = None, sisr_class=None,
+             pgas_class=None):
+    """Phase 16d's PGAS (``pgas_class``, PGAS by default; ``samples``
+    sweeps, PGAS_SAMPLES by default; ``chains`` chains) on ``device``, its
+    context and generator from ``seed``: the algorithm, the result and the
+    wall seconds."""
+    from pyfilter_tpu_torch import inference as inf
+
+    def gen(s):
+        return torch.Generator(device=device).manual_seed(s)
+
+    filt = (sisr_class or pt.SISR)(lambda ctx: pgas_builder(pt, ctx), PGAS_N, device=device)
+    alg = (pgas_class or inf.PGAS)(filt, PGAS_SAMPLES if samples is None else samples, rw_scale=PGAS_SCALE,
+                                   num_chains=chains, context=inf.make_context(generator=gen(seed), device=device),
+                                   generator=gen(seed + 1), device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = alg.fit(y)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return alg, res, time.perf_counter() - t0
+
+
+def pgas_phase(torch, pt, expand, card) -> dict:
+    """Phase 16d (module docstring): returns the expand kernel's launches on
+    the initial FFBS filter and the lane kernel's on the chains' one."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    y = pgas_data(torch, pt)
+    exact = ar_grid_posterior(y, alpha=PGAS_ALPHA, obs=PGAS_OBS, sigma_prior=(-1.0, 1.0))
+    counted = counted_sisr(pt)
+    pgas_fit(torch, pt, y[:50], "cuda", 1, samples=5)  # warm-up
+    out = {}
+    _zero_counts(expand)
+    counted.fires = 0
+    alg, res, wall = pgas_fit(torch, pt, y, "cuda", 3, sisr_class=counted)
+    launches, fires = expand.fused_expand.launches, counted.fires
+    burn = PGAS_SAMPLES // 4
+    print(f"phase 16d: PGAS(SISR({PGAS_N}), {PGAS_SAMPLES} sweeps, rw_scale {PGAS_SCALE}), T={PGAS_T}, the sweeps a "
+          f"CUDA graph: {wall:.3f} s, {wall / PGAS_SAMPLES * 1e3:.3f} ms a sweep; acceptance {res.acceptance_rate:.4f}; the initial FFBS "
+          f"filter's resample fires {fires}, expand launches {launches}; card {card}")
+    for name in ("beta", "sigma"):
+        s = res.samples[name][burn:]
+        gap = (float(s.mean()) - exact[name][0]) / exact[name][1]
+        print(f"  {name}: post-burn-in mean {float(s.mean()):.6f} sd {float(s.std()):.6f}; exact posterior "
+              f"{exact[name][0]:.6f} sd {exact[name][1]:.6f}; gap {gap:+.4f} posterior sd (limit {PGAS_TOL_SD})")
+        if not (np.isfinite(s).all() and abs(gap) < PGAS_TOL_SD):
+            raise AssertionError(f"phase 16d: {name}'s posterior mean is {gap} sds off the exact posterior")
+    if not 0.05 < res.acceptance_rate < 0.95:
+        raise AssertionError(f"phase 16d: acceptance {res.acceptance_rate}")
+    if not (res.trajectory.shape == (1, PGAS_T + 1) and np.isfinite(res.trajectory).all()):
+        raise AssertionError(f"phase 16d: trajectory {res.trajectory.shape}, "
+                             f"finite {np.isfinite(res.trajectory).all()}")
+    if not launches == fires > 0 or expand.fused_expand_lanes.launches:
+        raise AssertionError(f"phase 16d: expand kernel launched {launches} times for {fires} fires")
+    out["k1"] = launches
+    probs, values = counted.last
+    out["k1_err"] = check_on_cloud(torch, expand, probs, last_cloud_planes(values),
+                                   f"phase 16d's last cloud of the initial FFBS filter (n={PGAS_N})")
+    ctx = alg.context
+    theta = ctx.stack_parameters(constrained=False).reshape(1, -1)
+    traj = torch.as_tensor(res.trajectory[0], device="cuda")
+    times = torch.arange(traj.shape[0], dtype=torch.float32, device="cuda")
+    y_dev = torch.as_tensor(y, device="cuda")
+    syncs = count_syncs(torch, lambda: [alg.sweep(theta, traj, y, times, y_dev) for _ in range(3)])
+    print(f"  host syncs an eager sweep by source (3 sweeps): { {k: round(v / 3, 4) for k, v in syncs.items()} }")
+    if not alg.graphed:
+        raise AssertionError("phase 16d: the sweeps did not replay as a CUDA graph")
+    # the graph's sweeps against the eager sweeps from the same seeds
+    short = [pgas_fit(torch, pt, y, "cuda", 7, samples=PGAS_GRAPH_CHECK, pgas_class=cls)
+             for cls in (eager_pgas(pt), None)]
+    (eager_alg, eager, eager_wall), (graph_alg, graphed, graph_wall) = short
+    if eager_alg.graphed or not graph_alg.graphed:
+        raise AssertionError("phase 16d: the eager reference replayed a graph, or the fit did not")
+    same = all(np.array_equal(eager.samples[n], graphed.samples[n]) for n in eager.samples) and np.array_equal(
+        eager.trajectory, graphed.trajectory)
+    print(f"  {PGAS_GRAPH_CHECK} sweeps eager {eager_wall:.3f} s, as a CUDA graph {graph_wall:.3f} s (the initial "
+          f"FFBS pass and the capture included): samples and trajectory equal bit for bit: {same}")
+    if not same:
+        raise AssertionError("phase 16d: the graph's sweeps differ from the eager sweeps")
+
+    _zero_counts(expand)
+    counted.fires = 0
+    alg, res, wall = pgas_fit(torch, pt, y, "cuda", 5, chains=PGAS_CHAINS, sisr_class=counted)
+    lane_launches, lane_fires = expand.fused_expand_lanes.launches, counted.fires
+    summary = pt.inference.summarize_chains(res)
+    print(f"phase 16d: PGAS with {PGAS_CHAINS} chains at the same size: {wall:.3f} s, "
+          f"{wall / PGAS_SAMPLES * 1e3:.3f} ms "
+          f"a sweep of every chain; acceptance {res.acceptance_rate:.4f}; samples {res.samples['beta'].shape}; "
+          f"summarize_chains {summary}; the initial filter's lane resample fires {lane_fires}, lane kernel launches "
+          f"{lane_launches}")
+    for name, st in summary.items():
+        if not (np.isfinite(st["rhat"]).all() and np.isfinite(st["ess"]).all()):
+            raise AssertionError(f"phase 16d: {name}'s chain summary is not finite: {st}")
+    if not (res.samples["beta"].shape == (PGAS_SAMPLES, PGAS_CHAINS) and res.trajectory.shape == (PGAS_CHAINS,
+                                                                                                  PGAS_T + 1)):
+        raise AssertionError(f"phase 16d: chains' shapes {res.samples['beta'].shape}, {res.trajectory.shape}")
+    if not lane_launches == lane_fires > 0 or expand.fused_expand.launches:
+        raise AssertionError(f"phase 16d: lane kernel launched {lane_launches} times for {lane_fires} fires")
+    out["lanes"] = lane_launches
+    probs, values = counted.last
+    out["lanes_err"] = check_on_cloud(torch, expand, probs, values.unsqueeze(0),
+                                      f"phase 16d's last lane cloud of the chains' filter (n={PGAS_N}, "
+                                      f"L={PGAS_CHAINS})")
+    print(f"phase 16d: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def inference_layer(torch, pt, expand, card) -> dict:
+    """Phase 16 (module docstring): returns the expand kernel's and the lane
+    kernel's launches by path and their largest differences from their
+    plain versions."""
+    t_phase = time.perf_counter()
+    pool = ProcessPoolExecutor(CPU_REF_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        cpu_jobs = [pool.submit(storvik_cpu_fit, seed) for seed in range(1, STORVIK_SEEDS + 1)]
+        y = simulate_obs(N_OBS)
+        ckpt = checkpoint_resume(torch, pt, expand, card, y)
+        wf = waste_free_phase(torch, pt, expand, card, y, ckpt["std_per_rejuv"])
+        storvik = storvik_phase(torch, pt, expand, card, cpu_jobs)
+        pgas = pgas_phase(torch, pt, expand, card)
+    finally:
+        pool.shutdown(cancel_futures=True)
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return {"k1": {"phase 16c": storvik["launches"], "phase 16d": pgas["k1"]},
+            "lanes": {"phase 16a": ckpt["launches"], "phase 16b": wf["launches"], "phase 16d": pgas["lanes"]},
+            "k1_err": max(storvik["err"], pgas["k1_err"]),
+            "lanes_err": max(ckpt["err"], wf["err"], pgas["lanes_err"])}
 
 
 def apf_bias(torch, pt, seeds: int) -> int:

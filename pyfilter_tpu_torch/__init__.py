@@ -18,7 +18,9 @@ smoothing; PaRIS online smoothing, the online score and streaming maximum
 likelihood; the single-step API (``step``, ``filter(...,
 return_intermediaries=True)``, ``batch_filter_masked``); the systematic,
 stratified, multinomial, residual, Metropolis and rejection resamplers; SMC² over a lane-batched APF, with a quasi-random
-(Sobol) start and the adaptive distance stop; batch PMMH with random-walk
+(Sobol) start, the adaptive distance stop and waste-free rejuvenation,
+checkpointed and resumed through ``state_dict`` and ``io``, with collectors;
+the Storvik filter with its four conjugate blocks; PGAS; batch PMMH with random-walk
 and adaptive random-walk proposals; NESS, FixedWidthNESS and their SMC²
 hybrids with the KDE jitter kernels; gradients through the filter (the
 differentiable SISR and APF, whose resample kernels have hand-written
@@ -30,7 +32,7 @@ Verhulst, sine-diffusion, Lorenz-63 and nutria models.
 
 __version__ = "0.1.0"
 
-from . import convert, distributions, examples, filters, inference, ops, resampling, timeseries, utils
+from . import convert, distributions, examples, filters, inference, io, ops, resampling, timeseries, utils
 from .filters import APF, GPF, SISR, FilterHistory, FilterResult, ParticleFilter
 from .filters.particle.proposals import (
     GaussianLinear,
@@ -50,6 +52,7 @@ __all__ = [
     "examples",
     "filters",
     "inference",
+    "io",
     "resampling",
     "ops",
     "timeseries",

@@ -1,13 +1,15 @@
 """Parameter inference: the context (plain and quasi-random), priors, batch
-PMMH and its proposals, density-tempered SMC, IF2, SMC², NESS and their hybrids, variational inference
-and maximum likelihood through the filter, the online score and streaming
-maximum likelihood, and chain diagnostics (counterpart of
-``pyfilter_tpu/inference``, the subset those paths run)."""
+PMMH and its proposals, PGAS, density-tempered SMC, IF2, SMC² (waste-free or
+not), NESS and their hybrids, the collectors, the Storvik filter,
+checkpointing through ``state_dict``, variational inference and maximum
+likelihood through the filter, the online score and streaming maximum
+likelihood, and chain diagnostics (counterpart of ``pyfilter_tpu/inference``,
+a module for each of its modules)."""
 
 from . import batch, diagnostics, logging, plot, prior, qmc, score, sequential, variational
 from .base import BaseAlgorithm
 from .batch import IF2, IF2Result, TemperedSMC, TemperedSMCResult
-from .batch.mcmc import PMMH, AdaptiveRandomWalk, GradientBasedProposal, PMMHResult, RandomWalk, SymmetricMH, run_pmmh
+from .batch.mcmc import PGAS, PMMH, AdaptiveRandomWalk, GradientBasedProposal, PMMHResult, RandomWalk, SymmetricMH, run_pmmh
 from .diagnostics import effective_sample_size, potential_scale_reduction, summarize_chains
 from .context import InferenceContext, NotSamePriorError, ParameterDoesNotExist, QuasiInferenceContext, make_context
 from .parameter import PriorBoundParameter
@@ -19,8 +21,14 @@ from .sequential import (
     BaseOnlineAlgorithm,
     CombinedSequentialParticleAlgorithm,
     FixedWidthNESS,
+    NIGARUnknownObsVariance,
+    NIGAutoregression,
+    NIGVectorAutoregression,
     ParticleMetropolisHastings,
+    PoissonGammaCounts,
     SequentialParticleAlgorithm,
+    StorvikFilter,
+    StorvikResult,
     TooManyIncreases,
 )
 from .state import (
@@ -48,6 +56,7 @@ __all__ = [
     "diagnostics",
     "BaseAlgorithm",
     "PMMH",
+    "PGAS",
     "PMMHResult",
     "IF2",
     "IF2Result",
@@ -68,6 +77,12 @@ __all__ = [
     "PriorBoundParameter",
     "SMC2",
     "NESS",
+    "StorvikFilter",
+    "StorvikResult",
+    "NIGAutoregression",
+    "NIGARUnknownObsVariance",
+    "NIGVectorAutoregression",
+    "PoissonGammaCounts",
     "FixedWidthNESS",
     "NESSMC2",
     "SMC2FW",

@@ -1,14 +1,16 @@
 """Inference context: the named parameter and prior store.
 
-Counterpart of ``pyfilter_tpu/inference/context.py`` (without
-``state_dict``). Model builders call ``context.named_parameter(name,
-prior)``; the first call samples the parameter's lanes from the prior with
+Counterpart of ``pyfilter_tpu/inference/context.py``. Model builders call
+``context.named_parameter(name, prior)``; the first call samples the parameter's lanes from the prior with
 the context's ``torch.Generator``, on the context's ``device``. ``resample``,
 ``exchange`` and ``unstack_parameters`` return new contexts; algorithms
 ``absorb`` them into the context the user holds, so that handle always shows
 the current posterior. :class:`QuasiInferenceContext` re-initializes the
 parameters from scrambled Sobol points; its clones carry no engine, as in the
-JAX package.
+JAX package. ``state_dict`` writes the values and the priors' leaves as numpy
+arrays under the JAX package's keys, so a checkpoint of either package loads
+into the other's context; ``load_state_dict`` refuses one whose priors
+disagree with this context's and puts the values on this context's device.
 """
 
 from __future__ import annotations
@@ -19,9 +21,11 @@ from collections import OrderedDict
 from contextlib import contextmanager
 from typing import Dict, Iterable, Tuple
 
+import numpy as np
 import torch
 
-from ..distributions import Distribution
+from ..distributions import Distribution, Independent, TransformedDistribution
+from ..distributions.bijectors import Bijector
 from ..utils import resolve_device
 from . import prior as prior_ops
 from .parameter import PriorBoundParameter
@@ -42,6 +46,24 @@ class BatchShapeNotSet(Exception):
 
 class BatchShapeAlreadySet(Exception):
     pass
+
+
+def _prior_leaves(obj) -> list:
+    """A prior's parameter tensors in the JAX package's pytree order: a
+    distribution's ``arg_names`` in order (a wrapped distribution's base,
+    then its bijector), a bijector's parameters in the order it holds
+    them, each leaf as a numpy array."""
+    if isinstance(obj, (Independent, TransformedDistribution)):
+        parts = [obj.base_dist] + ([obj.bijector] if isinstance(obj, TransformedDistribution) else [])
+    elif isinstance(obj, Distribution):
+        parts = [getattr(obj, name) for name in obj.arg_names]
+    elif isinstance(obj, Bijector):
+        parts = [v for k, v in vars(obj).items() if k != "event_dim"]
+    elif isinstance(obj, (list, tuple)):
+        parts = list(obj)
+    else:
+        return [obj.detach().cpu().numpy() if isinstance(obj, torch.Tensor) else np.asarray(obj)]
+    return [leaf for part in parts for leaf in _prior_leaves(part)]
 
 
 class InferenceContext:
@@ -211,6 +233,35 @@ class InferenceContext:
             new._value_dict[name] = torch.where(m, other.get_parameter(name), v)
         return new
 
+    # -- transforms --------------------------------------------------------------------
+    def apply_fun(self, f) -> "InferenceContext":
+        """A new context (:meth:`make_new`) holding ``f`` of every parameter
+        value under the same priors; its batch shape is the one ``f``
+        leaves, which must agree across parameters."""
+        new_values = OrderedDict((k, f(v)) for k, v in self._value_dict.items())
+        batch_shapes = set()
+        for k, v in new_values.items():
+            shape = tuple(torch.as_tensor(v).shape)
+            batch_shapes.add(shape[: len(shape) - len(self._shape_dict[k])])
+        if len(batch_shapes) != 1:
+            raise ValueError(f"the parameter transform produced mismatched batch shapes: {sorted(batch_shapes)}")
+        new = self.make_new()
+        new.set_batch_shape(batch_shapes.pop())
+        for k, prior in self._prior_dict.items():
+            new._prior_dict[k] = prior
+            new._value_dict[k] = torch.as_tensor(new_values[k], device=self.device)
+            new._shape_dict[k] = self._shape_dict[k]
+            new._unconstrained_shape_dict[k] = self._unconstrained_shape_dict[k]
+        return new
+
+    def copy(self) -> "InferenceContext":
+        return self.apply_fun(lambda v: v)
+
+    def make_new(self) -> "InferenceContext":
+        """An empty context of this kind on this device, sharing the
+        generator."""
+        return InferenceContext(generator=self.generator, device=self.device)
+
     def absorb(self, other: "InferenceContext") -> "InferenceContext":
         """Adopt ``other``'s values in place (the same registry)."""
         if set(other._prior_dict) != set(self._prior_dict):
@@ -226,6 +277,30 @@ class InferenceContext:
             yield self
         finally:
             self._verify_prior = True
+
+    # -- checkpointing -----------------------------------------------------------------
+    def state_dict(self) -> dict:
+        """``{"parameters": {name: values}, "prior": {name: [leaves]}}`` as
+        numpy arrays (:func:`_prior_leaves`)."""
+        res = OrderedDict()
+        res["parameters"] = {k: v.detach().cpu().numpy() for k, v in self._value_dict.items()}
+        res["prior"] = {k: _prior_leaves(v) for k, v in self._prior_dict.items()}
+        return res
+
+    def load_state_dict(self, state_dict: dict):
+        """Adopt a state dict's values, on this context's device. Raises
+        ``ValueError`` when its parameters or any prior's leaves differ
+        from this context's."""
+        if set(self._value_dict) != set(state_dict["parameters"]):
+            raise ValueError("parameter sets differ between context and state dict")
+        for k, prior in self._prior_dict.items():
+            mine, theirs = _prior_leaves(prior), state_dict["prior"][k]
+            if len(mine) != len(theirs) or not all(
+                    np.shape(a) == np.shape(b) and np.allclose(a, b) for a, b in zip(mine, theirs)):
+                raise ValueError(f"checkpoint prior for '{k}' disagrees with this context's prior")
+        for k in self._prior_dict:
+            value = np.asarray(state_dict["parameters"][k])
+            self._value_dict[k] = torch.tensor(value, device=self.device).to(self._value_dict[k].dtype)
 
 
 class QuasiInferenceContext(InferenceContext):
@@ -260,6 +335,9 @@ class QuasiInferenceContext(InferenceContext):
         new = super()._clone_registry()
         new.quasi_engine = None
         return new
+
+    def make_new(self) -> "QuasiInferenceContext":
+        return QuasiInferenceContext(generator=self.generator, device=self.device, randomize=self._randomize)
 
 
 def make_context(use_quasi: bool = False, randomize: bool = True, generator: torch.Generator | None = None,

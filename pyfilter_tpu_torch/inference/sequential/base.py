@@ -6,11 +6,17 @@ all parameter lanes per observation, with the rejuvenation trigger read on
 the host at each (one device-to-host sync per observation). The JAX
 package's chunked scans, and the chunked hybrid ``fit`` built on them, exist
 only to spare XLA recompiles and TPU round trips, and are not ported.
+
+Callbacks (:meth:`SequentialParticleAlgorithm.register_callback`, such as
+the collectors of :mod:`.collectors`) run after each observation's move and
+before the iteration count moves on. In the JAX package a registered
+callback forces the per-step loop instead of the chunked scan; the port's
+``fit`` is always the per-step loop, so there is nothing to switch.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict, List
 
 import numpy as np
 import torch
@@ -36,6 +42,7 @@ class SequentialParticleAlgorithm(BaseAlgorithm):
         self.record_moments = record_moments
         #: device-to-host reads of trigger values since the count was set to 0
         self.n_host_syncs = 0
+        self._callbacks: List[Callable] = []
 
     @property
     def particles(self) -> tuple:
@@ -53,19 +60,39 @@ class SequentialParticleAlgorithm(BaseAlgorithm):
             zeros, RunningFilterResult(init_state, zeros.clone(), record_moments=self.record_moments)
         )
 
+    def register_callback(self, callback):
+        """Call ``callback(algorithm, y, state)`` after every observation's
+        move, ``y`` on the device (once per callback, however often it is
+        registered)."""
+        if callback is None or callback in self._callbacks:
+            return
+        self._callbacks.append(callback)
+
     def step(self, y, state: SequentialAlgorithmState) -> SequentialAlgorithmState:
-        result = self._step(y, state)
+        """One observation's move (``y`` on the host), then the callbacks,
+        which get the observation on the device: the one copy the filter
+        move also reads."""
+        y = np.asarray(y, dtype=np.float32)
+        y_dev = torch.as_tensor(y, device=self.device)
+        result = self._step(y, y_dev, state)
+        for cb in self._callbacks:
+            cb(self, y_dev, result)
         result.bump_iteration()
         return result
 
-    def _step(self, y, state):
+    def _step(self, y, y_dev, state):
         raise NotImplementedError
 
-    def _filter_step(self, y, state: SequentialAlgorithmState):
-        """One filter move over all lanes (``y`` on the host), appended into
-        the state."""
-        correction = self._filter.filter(
-            self.generator, y, state.filter_state.latest_state, first_step=state.current_iteration == 0
+    def _active_filter(self):
+        """The filter that made the last move (a callback's model)."""
+        return self._filter
+
+    def _filter_step(self, y, y_dev, state: SequentialAlgorithmState):
+        """One filter move over all lanes (``y`` on the host, ``y_dev`` its
+        copy on the device), appended into the state."""
+        correction = self._filter._filter(
+            self.generator, y_dev, self._filter._nan_row(np.isnan(y)), state.filter_state.latest_state,
+            first_step=state.current_iteration == 0,
         )
         state.append(correction)
         return state
@@ -140,15 +167,18 @@ class CombinedSequentialParticleAlgorithm(SequentialParticleAlgorithm):
     def do_on_switch(self, first, second, state):
         raise NotImplementedError
 
+    def _active_filter(self):
+        return (self._second if self._is_switched else self._first)._active_filter()
+
     def initialize(self):
         return self._first.initialize()
 
-    def _step(self, y, state):
+    def _step(self, y, y_dev, state):
         if not self._is_switched:
             if state.current_iteration <= self._when_to_switch:
-                return self._first._step(y, state)
+                return self._first._step(y, y_dev, state)
             self._is_switched = True
             state = self.do_on_switch(self._first, self._second, state)
             self._second.context = self._first.context
             self._second.filter = self._first.filter
-        return self._second._step(y, state)
+        return self._second._step(y, y_dev, state)

@@ -10,6 +10,14 @@ once per transition. With ``distance_threshold`` the transitions also stop
 early once the cloud's distance from where the rejuvenation started settles
 (the JAX package's adaptive stop, after nchopin/particles): one more host
 read per transition.
+
+``waste_free`` is Dau & Chopin's (2022) waste-free rejuvenation: resample
+K / (num_steps + 1) chain roots (``systematic_m``), move only those through
+the transitions, on M-lane views of the context and the filter, and keep
+every chain state as the new K-lane swarm — the same swarm from num_steps + 1
+times fewer re-filtered lanes per transition. The JAX package runs it only
+in its fused tier; the port's eager path keeps that tier's one condition
+that is not about XLA: a filter that records no history.
 """
 
 from __future__ import annotations
@@ -18,7 +26,8 @@ from typing import NamedTuple
 
 import torch
 
-from ....resampling import systematic
+from ....filters.state import ParticleFilterCorrection
+from ....resampling import systematic, systematic_m
 from ...batch.mcmc.proposals import BaseProposal, SymmetricMH
 from ...batch.mcmc.utils import run_pmmh
 from ...state import RunningFilterResult, SMC2State
@@ -43,6 +52,7 @@ class ParticleMetropolisHastings:
         acceptance_threshold: float = 0.2,
         max_increases: int = 5,
         resampler=systematic,
+        waste_free: bool = False,
     ):
         self._n_steps = int(num_steps)
         self._proposal = proposal or SymmetricMH()
@@ -51,6 +61,9 @@ class ParticleMetropolisHastings:
         self._max_increases = int(max_increases)
         self._increases = 0
         self._resampler = resampler
+        self.waste_free = bool(waste_free)
+        if self.waste_free and distance_threshold is not None:
+            raise ValueError("waste_free is incompatible with distance_threshold")
         #: device-to-host reads (acceptance rates, distances) since the count
         #: was set to 0
         self.n_host_syncs = 0
@@ -69,6 +82,8 @@ class ParticleMetropolisHastings:
     def update(self, generator, context, filter_, state: SMC2State) -> MHUpdate:
         self.n_rejuvenations += 1
         y = state.parsed_data_host
+        if self.waste_free:
+            return self._waste_free_update(generator, context, filter_, state, y)
         indices = self._resampler(generator, state.normalized_weights(), normalized=True)
         # the proposal is fitted on the cloud BEFORE the lane resample
         dist = self._proposal.build(context, state, filter_, y, generator)
@@ -104,6 +119,65 @@ class ParticleMetropolisHastings:
 
         state.w = state.w.new_zeros(state.w.shape)
         return MHUpdate(context, filter_.initialize_model(context), state)
+
+    def _waste_free_update(self, generator, context, filter_, state: SMC2State, y) -> MHUpdate:
+        """The waste-free rejuvenation (module docstring). The draws, in
+        order: the roots' uniform, the proposal's fit, then each transition's
+        (``run_pmmh``). After an abort the remaining chain positions repeat
+        the last state, as the JAX package's pass-through steps do, and the
+        swarm is doubled and re-filtered at K lanes."""
+        if filter_.record_states or filter_.record_intermediary:
+            raise ValueError("waste_free rejuvenation requires a non-recording filter")
+        k_total, chain_len = int(state.w.shape[0]), self._n_steps + 1
+        if k_total % chain_len:
+            raise ValueError(
+                f"waste_free needs the parameter-particle count ({k_total}) divisible by num_steps + 1 ({chain_len})"
+            )
+        m = k_total // chain_len
+        roots = systematic_m(generator, state.normalized_weights(), m, normalized=True)
+        # the proposal is fitted on the whole K-lane cloud before the resample
+        dist = self._proposal.build(context, state, filter_, y, generator)
+        ctx_m = context.resample(roots)
+        ctx_m.batch_shape = (m,)
+        filt_m = filter_.set_batch_shape((m,))
+        idx = roots.long()
+        fs = RunningFilterResult(state.filter_state.latest_state.resample(roots),
+                                 state.filter_state.log_likelihood.index_select(0, idx), record_moments=False)
+        state_m = SMC2State(state.w.new_zeros((m,)), fs, parsed_data=state.parsed_data)
+        size = () if tuple(dist.batch_shape) else (m,)
+        thetas, latests, lls = [ctx_m.stack_parameters(constrained=False)], [fs.latest_state], [fs.log_likelihood]
+
+        acceptance_rate, aborted = 0.0, False
+        for i in range(self._n_steps):
+            step = run_pmmh(generator, ctx_m, state_m, self._proposal, dist, filt_m, y, size=size)
+            ctx_m = step.context
+            state_m.filter_state = step.filter_state
+            self.n_transitions += 1
+            thetas.append(ctx_m.stack_parameters(constrained=False))
+            latests.append(step.filter_state.latest_state)
+            lls.append(step.filter_state.log_likelihood)
+            rate = float(step.accepted.float().mean())  # the transition's host sync
+            self.n_host_syncs += 1
+            acceptance_rate = (rate + i * acceptance_rate) / (i + 1)
+            if acceptance_rate < self._acceptance_threshold:
+                aborted = True
+                break
+        pad = chain_len - len(thetas)
+        thetas, latests, lls = thetas + thetas[-1:] * pad, latests + latests[-1:] * pad, lls + lls[-1:] * pad
+
+        # every chain state, root first: lane j * M + r is root r after j moves
+        indices = roots.repeat(chain_len)
+        new_context = context.unstack_parameters(torch.cat(thetas, dim=0), constrained=False)
+        new_fs = RunningFilterResult(ParticleFilterCorrection.lane_concat(latests), torch.cat(lls, dim=0),
+                                     state.filter_state.record_moments)
+        lane = indices.long()
+        new_fs.filter_means = [v.index_select(0, lane) for v in state.filter_state.filter_means]
+        new_fs.filter_variances = [v.index_select(0, lane) for v in state.filter_state.filter_variances]
+        state.filter_state = new_fs
+        if aborted:
+            return self._increase_states(generator, new_context, filter_, state)
+        state.w = state.w.new_zeros(state.w.shape)
+        return MHUpdate(new_context, filter_.initialize_model(new_context), state)
 
     def _increase_states(self, generator, context, filter_, state: SMC2State) -> MHUpdate:
         """Double the state-particle count and re-filter the whole history;

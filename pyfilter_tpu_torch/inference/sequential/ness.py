@@ -29,10 +29,10 @@ class BaseOnlineAlgorithm(SequentialParticleAlgorithm):
     def do_update_particles(self, state: SequentialAlgorithmState) -> bool:
         raise NotImplementedError
 
-    def _step(self, y, state):
+    def _step(self, y, y_dev, state):
         if self.do_update_particles(state):
             state = self._do_rejuvenate(state)
-        return self._filter_step(y, state)
+        return self._filter_step(y, y_dev, state)
 
 
 class NESS(BaseOnlineAlgorithm):

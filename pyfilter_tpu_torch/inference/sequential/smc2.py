@@ -32,12 +32,17 @@ class SMC2(SequentialParticleAlgorithm):
         generator=None,
         num_steps: int = 1,
         distance_threshold: float = None,
+        waste_free: bool = False,
         **kwargs,
     ):
+        """``waste_free``: the waste-free rejuvenation (``kernels/mh.py``);
+        ``particles`` must then be divisible by ``num_steps + 1``."""
         super().__init__(filter_, particles, context=context, generator=generator, **kwargs)
         self._threshold = threshold if isinstance(threshold, Thresholder) else ConstantThreshold(threshold)
+        if waste_free and particles % (num_steps + 1):
+            raise ValueError(f"waste_free needs particles ({particles}) divisible by num_steps + 1 ({num_steps + 1})")
         self._kernel = ParticleMetropolisHastings(proposal=kernel, max_increases=max_increases, num_steps=num_steps,
-                                                  distance_threshold=distance_threshold)
+                                                  distance_threshold=distance_threshold, waste_free=waste_free)
 
     @property
     def kernel(self) -> ParticleMetropolisHastings:
@@ -47,12 +52,12 @@ class SMC2(SequentialParticleAlgorithm):
         state = super().initialize()
         return SMC2State(state.w, state.filter_state)
 
-    def _step(self, y, state: SMC2State) -> SMC2State:
+    def _step(self, y, y_dev, state: SMC2State) -> SMC2State:
         """Append the observation, filter, accumulate the lane weights, and
         rejuvenate when the parameter ESS falls below the threshold or a
         weight is not finite."""
         state.append_data(y)
-        state = self._filter_step(y, state)
+        state = self._filter_step(y, y_dev, state)
         ess, nonfinite = self._read_trigger(state)
         threshold = np.float32(self._threshold.get_threshold(state.current_iteration) * self.num_particles)
         if nonfinite or ess < threshold:

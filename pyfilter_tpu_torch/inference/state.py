@@ -1,8 +1,10 @@
 """Algorithm state containers.
 
-Counterpart of ``pyfilter_tpu/inference/state.py`` (without ``state_dict``):
-host-level objects holding tensors, updated per observation by the
-algorithms.
+Counterpart of ``pyfilter_tpu/inference/state.py``: host-level objects
+holding tensors, updated per observation by the algorithms. ``state_dict``
+writes the JAX package's nested keys with numpy arrays, so a state dict of
+either package loads into the other; ``load_state_dict`` puts every tensor
+back on the state's own device.
 """
 
 from __future__ import annotations
@@ -14,7 +16,41 @@ import numpy as np
 import torch
 
 from ..filters.state import ParticleFilterCorrection
+from ..timeseries import TimeseriesState
 from ..utils import get_ess, normalize
+
+
+def _to_numpy(value) -> np.ndarray:
+    """A tensor (on any device), a number or an array as a numpy array."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
+
+
+def _correction_leaves(correction: ParticleFilterCorrection) -> list:
+    """The correction's leaves in the JAX package's pytree order: the
+    state's ``time_index`` and ``value``, then ``log_weights``,
+    ``log_likelihood``, ``prev_indices``, ``mean`` and ``variance`` (its
+    ``ParticleFilterCorrection`` is a NamedTuple whose ``TimeseriesState``
+    flattens to ``(time_index, value)``)."""
+    x = correction.x
+    time_index = x.time_index if isinstance(x.time_index, torch.Tensor) else np.float32(x.time_index)
+    return [time_index, x.value, *correction[1:]]
+
+
+def _correction_from_leaves(leaves, like: ParticleFilterCorrection) -> ParticleFilterCorrection:
+    """The inverse of :func:`_correction_leaves`: numpy (or tensor) leaves as
+    a correction on ``like``'s device with ``like``'s event rank and leaf
+    dtypes."""
+    if len(leaves) != 7:
+        raise ValueError(f"a correction has 7 leaves, the state dict {len(leaves)}")
+    device = like.x.value.device
+    time_index = _to_numpy(leaves[0])
+    tensors = [torch.tensor(_to_numpy(leaf), device=device).to(ref.dtype)
+               for leaf, ref in zip(leaves[1:], (like.x.value, *like[1:]))]
+    x = TimeseriesState(float(time_index) if time_index.ndim == 0 else torch.as_tensor(time_index, device=device),
+                        tensors[0], like.x.event_ndim)
+    return ParticleFilterCorrection(x, *tensors[1:])
 
 
 class RunningFilterResult:
@@ -77,6 +113,27 @@ class RunningFilterResult:
             new.filter_variances = list(result.filter_variances)
         return new
 
+    def state_dict(self) -> dict:
+        """The running log-likelihood and the latest correction's leaves
+        (:func:`_correction_leaves`), as numpy arrays."""
+        return {
+            "log_likelihood": _to_numpy(self.log_likelihood),
+            "latest_state_leaves": [_to_numpy(leaf) for leaf in _correction_leaves(self.latest_state)],
+        }
+
+    def load_state_dict(self, state_dict: dict):
+        """Adopt a state dict's log-likelihood and latest correction, on this
+        record's device; a cloud of another shape raises."""
+        loaded = _correction_from_leaves(state_dict["latest_state_leaves"], self.latest_state)
+        if loaded.x.value.shape != self.latest_state.x.value.shape:
+            raise ValueError(
+                f"Seems like you're loading a different shape: "
+                f"{tuple(self.latest_state.x.value.shape)} != {tuple(loaded.x.value.shape)}"
+            )
+        self.log_likelihood = torch.tensor(_to_numpy(state_dict["log_likelihood"]),
+                                              device=self.log_likelihood.device).to(self.log_likelihood.dtype)
+        self.latest_state = loaded
+
 
 class AlgorithmState:
     """Base state class."""
@@ -126,6 +183,34 @@ class SequentialAlgorithmState(FilterAlgorithmState):
     def replicate(self, filter_state) -> "SequentialAlgorithmState":
         return SequentialAlgorithmState(torch.zeros_like(self.w), filter_state)
 
+    def state_dict(self) -> dict:
+        """``w``, the ESS history, the iteration and the filter record as
+        numpy arrays under the JAX package's keys; with collectors
+        registered, also their series under ``"collected"`` (a key the JAX
+        package neither writes nor reads)."""
+        res = {
+            "w": _to_numpy(self.w),
+            "ess": [_to_numpy(e) for e in self.ess],
+            "current_iteration": self.current_iteration,
+            "filter_state": self.filter_state.state_dict(),
+        }
+        collected = getattr(self, "collected", None)
+        if collected:
+            res["collected"] = {name: [_to_numpy(v) for v in rows] for name, rows in collected.items()}
+        return res
+
+    def load_state_dict(self, state_dict: dict):
+        """Adopt a state dict (of either package), every tensor on this
+        state's device."""
+        device = self.w.device
+        self.w = torch.tensor(_to_numpy(state_dict["w"]), device=device).to(self.w.dtype)
+        self.ess = [torch.tensor(_to_numpy(e), device=device) for e in state_dict["ess"]]
+        self.current_iteration = int(state_dict["current_iteration"])
+        self.filter_state.load_state_dict(state_dict["filter_state"])
+        if "collected" in state_dict:
+            self.collected = {name: [torch.tensor(_to_numpy(v), device=device) for v in rows]
+                              for name, rows in state_dict["collected"].items()}
+
 
 class SMC2State(SequentialAlgorithmState):
     """Adds the observations seen so far, kept on the host: SMC²'s
@@ -147,3 +232,12 @@ class SMC2State(SequentialAlgorithmState):
         """The observations seen so far as one host tensor (the filters take
         their observations on the host)."""
         return torch.from_numpy(self.parsed_data_host)
+
+    def state_dict(self) -> dict:
+        res = super().state_dict()
+        res["parsed_data"] = [np.asarray(y) for y in self.parsed_data]
+        return res
+
+    def load_state_dict(self, state_dict: dict):
+        super().load_state_dict(state_dict)
+        self.parsed_data = [np.asarray(y) for y in state_dict["parsed_data"]]

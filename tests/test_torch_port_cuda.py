@@ -677,3 +677,108 @@ def test_if2_and_predictive_diagnostics_on_card(cuda):
     c = pt.filters.crps(torch.Generator(device=cuda).manual_seed(5), model, fres, y)
     assert u.device.type == c.device.type == "cuda" and u.shape == c.shape == (40,)
     assert bool(((u >= 0) & (u <= 1)).all()) and bool((c > 0).all())
+
+
+@pytest.mark.cuda
+def test_storvik_fire_on_card_resamples_nine_planes(cuda):
+    """Every step of a Storvik pass (``ess_threshold=1.1``) fires the expand
+    kernel once, with the state and the eight planes of the NIG AR block's
+    statistics; the kernel equals its plain version on the last fire's
+    cloud, and the result stays on the card."""
+    counted = chip_smoke.counted_storvik(pt)
+    cfg = dict(chip_smoke.STORVIK_TEST, n=4096, t=30)
+    y = chip_smoke.storvik_data(torch, pt, cfg, 0)
+    conj = pt.inference.NIGAutoregression(obs_scale=cfg["obs"], v0=4.0, a0=2.0, b0=0.5)
+    res, launches = _counted(lambda: counted(conj, cfg["n"], ess_threshold=1.1).fit(
+        torch.Generator(device=cuda).manual_seed(1), y), expand.fused_expand)
+    assert launches == counted.fires == 30
+    weights, values = counted.last
+    planes = torch.cat([v.reshape(v.shape[0], -1).T for v in values]).contiguous()
+    assert planes.shape == (9, 4096)
+    probs, u = pt.normalize(weights), torch.rand((), device=cuda)
+    out, idx = expand.fused_expand(probs, u, planes)
+    ref_out, ref_idx = expand._expand_probs_plain(probs, u, planes)
+    assert torch.equal(idx, ref_idx) and torch.equal(out, ref_out)
+    assert res.values.device.type == "cuda" and all(bool(torch.isfinite(m).all()) for m in res.param_means)
+
+
+@pytest.mark.cuda
+def test_waste_free_refilter_on_card_runs_250_lanes(cuda):
+    """Waste-free SMC2 at phase 16b's width over 30 observations: the lane
+    kernel launches once per APF step, the forward steps at 1000 lanes and
+    every re-filter at 250, and equals its plain version on the last
+    250-lane cloud."""
+    counted = chip_smoke.counted_apf(pt)
+    counted.widths.clear()
+    counted.last.clear()
+    y = chip_smoke.simulate_obs(30)
+    before = pt.APF.corrections
+    (alg, state, mean, _), launches = _counted(lambda: chip_smoke.wf_fit(torch, pt, y, "cuda", 1, counted),
+                                               expand.fused_expand_lanes)
+    assert launches == pt.APF.corrections - before
+    assert alg.kernel.n_rejuvenations > 0 and set(counted.widths) == {1000, 250} and counted.widths[1000] == 30
+    weights, values = counted.last[250]
+    probs, planes = pt.normalize(weights).contiguous(), torch.stack(list(values)).contiguous()
+    u = torch.rand(250, device=cuda)
+    out, idx = expand.fused_expand_lanes(probs, u, planes)
+    ref_out, ref_idx = expand._expand_lanes_probs_plain(probs, u, planes)
+    assert torch.equal(idx, ref_idx) and torch.equal(out, ref_out)
+    assert bool(torch.isfinite(state.w).all()) and alg.context.get_parameter("gamma").device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_checkpoint_resume_on_card_keeps_every_tensor_on_the_card(cuda, tmp_path):
+    """A checkpoint of phase 16a's algorithm after 20 observations loads into
+    a fresh one on the card: every tensor of the state and the context on
+    the card, and 10 more steps equal to the same algorithm stepping on."""
+    y = chip_smoke.simulate_obs(30)
+    ctx, alg = chip_smoke.ckpt_algorithm(torch, pt, "cuda", 3)
+    state = alg.fit(y[:20])
+    path = str(tmp_path / "smc2.npz")
+    chip_smoke.checkpoint(pt, path, alg, ctx, state)
+    ctx2, alg2, state2 = chip_smoke.resume_from(torch, pt, path, "cuda", 4, alg.filter.n_particles)
+    assert not chip_smoke.tensors_off(torch, (state2, ctx2.parameters), "cuda")
+    for yt in y[20:]:
+        state = alg.step(yt, state)
+        state2 = alg2.step(yt, state2)
+    assert torch.equal(state.w, state2.w)
+    assert torch.equal(torch.stack(state.collected["parameter_means"]),
+                       torch.stack(state2.collected["parameter_means"]))
+
+
+@pytest.mark.cuda
+def test_pgas_graph_replays_the_eager_sweeps_on_card(cuda):
+    """PGAS on the card replays its sweeps as a CUDA graph; from the same
+    seeds the chain equals the eager sweeps' bit for bit."""
+    import numpy as np
+
+    y = chip_smoke.pgas_data(torch, pt)[:60]
+    runs = []
+    for cls, graph in ((chip_smoke.eager_pgas(pt), False), (pt.inference.PGAS, True)):
+        gen = lambda s: torch.Generator(device=cuda).manual_seed(s)  # noqa: E731
+        alg = cls(pt.SISR(lambda c: chip_smoke.pgas_builder(pt, c), 64), 8, rw_scale=0.08,
+                  context=pt.inference.make_context(generator=gen(3)), generator=gen(4))
+        runs.append(alg.fit(y))
+        assert alg.graphed == graph
+    for name in runs[0].samples:
+        assert np.array_equal(runs[0].samples[name], runs[1].samples[name])
+    assert np.array_equal(runs[0].trajectory, runs[1].trajectory)
+
+
+def test_inference_entry_points_refuse_without_a_card(monkeypatch):
+    """Without a card the conjugate blocks, the Storvik filter and PGAS on the
+    default device raise; with ``device="cpu"`` they run."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (
+        lambda: pt.inference.NIGAutoregression(),
+        lambda: pt.inference.NIGARUnknownObsVariance(),
+        lambda: pt.inference.NIGVectorAutoregression(2),
+        lambda: pt.inference.PoissonGammaCounts(pt.timeseries.models.AR(0.0, 0.9, 0.3)),
+        lambda: pt.inference.StorvikFilter(pt.inference.NIGAutoregression(device="cpu"), 10),
+        lambda: pt.inference.PGAS(pt.SISR(lambda c: chip_smoke.pgas_builder(pt, c), 8), 2),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    res = pt.inference.StorvikFilter(pt.inference.NIGAutoregression(device="cpu"), 16, device="cpu").fit(
+        torch.Generator().manual_seed(0), [0.1, 0.2, 0.3])
+    assert res.values.device.type == "cpu" and res.param_means[0].shape == (3,)

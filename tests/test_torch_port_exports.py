@@ -19,7 +19,6 @@ import pyfilter_tpu_torch
 
 _GAUSSIAN = "ROADMAP Queue 1 item 3 (the Gaussian family)"
 _BEYOND = "ROADMAP Queue 1 item 4 (methods beyond the reference)"
-_INFERENCE = "ROADMAP Queue 1 item 2 (the rest of inference)"
 
 #: (module path below the package, name) -> why the port does not have it yet
 NOT_PORTED = {
@@ -28,7 +27,6 @@ NOT_PORTED = {
         "GaussianSumFilter", "InteractingMultipleModel", "MarkovSwitchingModel", "EnsembleKalmanFilter",
         "EnsembleTransformKalmanFilter", "Localization", "GaussianMarginalFilter")},
     **{("", n): _BEYOND for n in ("BlockParticleFilter", "RaoBlackwellizedPF", "SQMC")},
-    ("", "io"): "ROADMAP Queue 1 item 5",
     ("", "parallel"): "ROADMAP Queue 1 item 6",
     ("", "enable_compile_cache"): "not queued: it exists only for XLA",
     ("", "interop"): "not queued: the numpyro bridge (no numpyro or pyro to bridge to)",
@@ -42,16 +40,6 @@ NOT_PORTED = {
     **{("filters.particle", n): _BEYOND for n in (
         "SQMC", "SQMCState", "VarianceEstimate", "eve_indices", "lag_ancestor_indices", "log_likelihood_variance",
         "filter_mean_variance")},
-    **{("inference", n): _BEYOND for n in (
-        "StorvikFilter", "StorvikResult", "NIGAutoregression", "NIGARUnknownObsVariance",
-        "NIGVectorAutoregression", "PoissonGammaCounts")},
-    ("inference", "PGAS"): _INFERENCE,
-    **{("inference.sequential", n): _BEYOND for n in (
-        "StorvikFilter", "StorvikResult", "NIGAutoregression", "NIGARUnknownObsVariance",
-        "NIGVectorAutoregression", "PoissonGammaCounts")},
-    **{("inference.sequential", n): _INFERENCE for n in (
-        "Collector", "MeanCollector", "Standardizer", "ParameterPosterior", "collectors")},
-    **{("inference.batch.mcmc", n): _INFERENCE for n in ("PGAS", "PGASResult", "csmc_sweep")},
     **{("ops", n): _BEYOND + ": ops/hilbert.py with SQMC" for n in ("hilbert_argsort", "hilbert_keys")},
 }
 #: JAX packages the port has no counterpart of yet
@@ -102,6 +90,12 @@ def test_the_list_names_only_jax_exports():
     ("linear_marginal_density", "filters.particle.proposals"),
     ("TemperedSMC", "inference"), ("TemperedSMCResult", "inference"), ("IF2", "inference"),
     ("IF2Result", "inference"), ("crps", "filters"), ("predictive_pit", "filters"),
+    ("io", ""), ("PGAS", "inference"), ("PGAS", "inference.batch.mcmc"), ("PGASResult", "inference.batch.mcmc"),
+    ("csmc_sweep", "inference.batch.mcmc"), ("collectors", "inference.sequential"),
+    *[(n, "inference.sequential") for n in ("Collector", "MeanCollector", "Standardizer", "ParameterPosterior")],
+    *[(n, where) for where in ("inference", "inference.sequential") for n in (
+        "StorvikFilter", "StorvikResult", "NIGAutoregression", "NIGARUnknownObsVariance", "NIGVectorAutoregression",
+        "PoissonGammaCounts")],
 ])
 def test_named_exports_are_the_port_objects(name, where):
     """The names this port's exports gained are the port's own objects (the
@@ -109,6 +103,6 @@ def test_named_exports_are_the_port_objects(name, where):
     tmod = importlib.import_module("pyfilter_tpu_torch" + ("." + where if where else ""))
     obj = getattr(tmod, name)
     assert name in tmod.__all__
-    assert obj.__module__.startswith("pyfilter_tpu_torch")
+    assert (getattr(obj, "__module__", None) or obj.__name__).startswith("pyfilter_tpu_torch")
     if name in ("Prediction", "Correction"):
         assert obj is getattr(tmod, f"ParticleFilter{name}")

@@ -277,23 +277,24 @@ N, K, T, STEPS, DISTANCE = 32, 16, 8, 5, 0.25
 OES = 5
 
 
-def _apf_draws(key, n_steps):
+def _apf_draws(key, n_steps, lanes=K, n=N):
     """The standard normals and per-lane uniforms a JAX APF
-    ``batch_filter_masked`` on the stochastic-volatility model draws from
-    ``key``, in the order the port's APF takes them: the initial cloud, then
-    per step the sub-steps' increments (one batched draw, none at the first
-    step), the resampling uniforms and the bootstrap proposal's normals."""
+    ``batch_filter_masked`` of ``n`` particles over ``lanes`` lanes of the
+    stochastic-volatility model draws from ``key``, in the order the port's
+    APF takes them: the initial cloud, then per step the sub-steps'
+    increments (one batched draw, none at the first step), the resampling
+    uniforms and the bootstrap proposal's normals."""
     k_init, k_first, k_scan = jax.random.split(key, 3)
-    normals = [np.asarray(jax.random.normal(k_init, (N, K), jnp.float32))]
+    normals = [np.asarray(jax.random.normal(k_init, (n, lanes), jnp.float32))]
     uniforms = []
     for t, k in enumerate([k_first] + list(jax.random.split(k_scan, n_steps - 1))):
         n_sub = 0 if t == 0 else OES - 1
         keys = jax.random.split(k, n_sub + 2)
         if n_sub:
-            normals.append(np.asarray(jax.random.normal(keys[1], (n_sub, N, K), jnp.float32)))
+            normals.append(np.asarray(jax.random.normal(keys[1], (n_sub, n, lanes), jnp.float32)))
         k_resample, k_prop = jax.random.split(keys[-1])
-        uniforms.append(np.asarray(jax.random.uniform(k_resample, (K,), jnp.float32)))
-        normals.append(np.asarray(jax.random.normal(k_prop, (N, K), jnp.float32)))
+        uniforms.append(np.asarray(jax.random.uniform(k_resample, (lanes,), jnp.float32)))
+        normals.append(np.asarray(jax.random.normal(k_prop, (n, lanes), jnp.float32)))
     return normals, uniforms
 
 
