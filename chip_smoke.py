@@ -11,6 +11,7 @@
     python3 chip_smoke.py --streaming # phases 1-3 and 14 only
     python3 chip_smoke.py --batch     # phases 1-3 and 15 only
     python3 chip_smoke.py --inference # phases 1-3 and 16 only
+    python3 chip_smoke.py --gaussian  # phases 1-3 and 17 only (17b at the example's 400 samples)
     python3 chip_smoke.py --backward-ab TREE   # TREE's backward kernels against these, one card
 
 Phases, in order; any failure exits non-zero before the result line:
@@ -238,6 +239,39 @@ Phases, in order; any failure exits non-zero before the result line:
    bit for bit to eager sweeps from the same seeds; then
    PGAS_CHAINS chains at the same size through ``summarize_chains``, their
    initial filter's lane kernel likewise.
+
+17. The Gaussian filter family and the Rao-Blackwellized PF (TF32 off; a
+   deterministic filter's ``filter`` step is held to 0 host syncs by the
+   sync-debug counter, SYNC_STEPS steps each of the Kalman filter, EKF,
+   IEKF, UKF, CKF, GSF and IMM). (a) ``examples/gaussian_filters_and_
+   gradients.py`` part 1 at full size (the sine diffusion, gamma 0.4, T =
+   300 observations simulated on the CPU): the EKF, IEKF (3 iterations), UKF
+   and CKF, each log-likelihood and the filter means within GAUSS_REL of the
+   port's CPU run on the same observations (relative to the largest value),
+   the UKF-RTS smoother likewise and below the filter's RMSE; ``APF(1000,
+   LinearGaussianObservations)``: its log-likelihood within 4 spreads of
+   GAUSS_APF_CPU CPU runs, the expand kernel once per APF step and equal to
+   its plain version on the last cloud. (b) ``examples/streaming_and_
+   switching.py`` part 2: ``PMMH(GaussianMarginalFilter(build_switching,
+   kind="imm"), IMM_SAMPLES, num_chains=4)`` on its T = 400 series (the
+   example's 400 samples under ``--gaussian``); the posterior mean of p_stay
+   within IMM_TOL_SD posterior sds of the exact grid posterior (one
+   IMM_GRID-lane marginal pass through the same adapter); one pass replayed
+   from the adapter's CUDA graph equal bit for bit to the eager pass; the
+   Kim smoother's regime accuracy at least the filter's. (c) Part 3: the
+   Gaussian-sum smoother (T = 60, 4 components, spread 0.7): weights and
+   smoothed component means within GAUSS_REL of the CPU run, the components
+   ordered by their means (the split's eigenvector sign is free). (d)
+   ``examples/online_smoothing_ensembles.py`` part 3 at full size (d = 512,
+   M = 40, T = 12): the unlocalized EnKF, the LETKF and the localized EnKF
+   under ``tests/test_etkf.py:117``'s criteria. (e) ``RaoBlackwellizedPF`` on
+   ``tests/test_rbpf.py:110``'s joint 2-D model at N = 1e5, T = 200: one run
+   with ``ess_threshold=1.1`` (a fire every step), RBPF_SEEDS at the default
+   threshold, their mean log-likelihood against the float64 Kalman oracle
+   by that test's rule (4 SE + 0.3); the expand kernel once per fire, one
+   host read a step (the ESS gate), the kernel equal to its plain version on
+   the last cloud's 3 planes (value, mean, covariance), and a fire's time
+   in situ.
 
 ``--host-probe TREE`` times, with TREE's package and TREE's own phase-11
 fit (``pmmh_fit``), the host time of a lane resample-and-gather call at
@@ -840,7 +874,7 @@ def main(argv) -> int:
 
     refs, cpu = None, None
     if argv[:1] not in (["--backward-ab"], ["--oracle"], ["--backward"], ["--gradients"], ["--streaming"],
-                        ["--batch"], ["--inference"]):
+                        ["--batch"], ["--inference"], ["--gaussian"]):
         # the CPU references of phases 4, 6 and 9 run in worker processes while the card runs
         refs = ProcessPoolExecutor(CPU_REF_WORKERS, mp_context=multiprocessing.get_context("spawn"))
     try:
@@ -855,7 +889,7 @@ def main(argv) -> int:
 
 def card_phases(torch, pt, _build, expand, copy_counts, argv, cpu) -> int:
     """Phases 1-3, then the mode ``argv`` asks for: one of the partial runs,
-    or phases 4-16 (:func:`full_run`) with ``cpu``, the futures of the CPU
+    or phases 4-17 (:func:`full_run`) with ``cpu``, the futures of the CPU
     references."""
     # -- 1. device --------------------------------------------------------
     card = card_line()
@@ -895,11 +929,14 @@ def card_phases(torch, pt, _build, expand, copy_counts, argv, cpu) -> int:
     if argv[:1] == ["--inference"]:
         inference_layer(torch, pt, expand, card)
         return 0
+    if argv[:1] == ["--gaussian"]:
+        gaussian_family(torch, pt, expand, card, samples=IMM_EXAMPLE_SAMPLES)
+        return 0
     return full_run(torch, pt, expand, copy_counts, card, max_err, lanes_err, argv, cpu)
 
 
 def full_run(torch, pt, expand, copy_counts, card, max_err, lanes_err, argv, cpu) -> int:
-    """Phases 4-16 (module docstring), after the kernels' checks; ``cpu``
+    """Phases 4-17 (module docstring), after the kernels' checks; ``cpu``
     holds the futures of the CPU references of phases 4, 6 and 9."""
     import numpy as np
 
@@ -1032,9 +1069,12 @@ def full_run(torch, pt, expand, copy_counts, card, max_err, lanes_err, argv, cpu
     # -- 16. the inference layer: checkpoint and resume, waste-free SMC2, Storvik, PGAS --
     infl = inference_layer(torch, pt, expand, card)
 
+    # -- 17. the Gaussian filter family and the Rao-Blackwellized PF ---------------------
+    gauss = gaussian_family(torch, pt, expand, card)
+
     k1_paths = {"phase 4": launches, "phase 7": flag_launches, "phase 8": ffbsi_launches, "phase 12": oracle_k1,
                 **{path: c["k1"] for path, c in grads["paths"].items() if c["k1"]}, **stream["paths"], **zoo["k1"],
-                **infl["k1"]}
+                **infl["k1"], **gauss["k1"]}
     lane_paths = {"phase 5": lanes["launches"], "phase 6": smc2_launches, "phase 8": lane_launches,
                   "phase 9 NESS": ness_launches, "phase 9 hybrids": hybrid_launches, "phase 10": nb_launches,
                   "phase 11": pmmh_launches, "phase 12": oracle_lanes,
@@ -1049,7 +1089,7 @@ def full_run(torch, pt, expand, copy_counts, card, max_err, lanes_err, argv, cpu
         "launches": sum(k1_paths.values()),
         "launches_by_path": k1_paths,
         "max_abs_err": max(max_err, err, flag_err, ffbsi_err, oracle_err, stream["err"], zoo["k1_err"],
-                           infl["k1_err"]),
+                           infl["k1_err"], gauss["k1_err"]),
         "ms": k_ms,
         "plain_ms": p_ms,
         "bound_ms": bound_ms,
@@ -4630,6 +4670,496 @@ def inference_layer(torch, pt, expand, card) -> dict:
             "lanes": {"phase 16a": ckpt["launches"], "phase 16b": wf["launches"], "phase 16d": pgas["lanes"]},
             "k1_err": max(storvik["err"], pgas["k1_err"]),
             "lanes_err": max(ckpt["err"], wf["err"], pgas["lanes_err"])}
+
+
+# -- phase 17: the Gaussian filter family and the Rao-Blackwellized PF -----------------------------
+
+GAUSS_T = 300  # examples/gaussian_filters_and_gradients.py part 1 at full size
+GAUSS_GAMMA = 0.4
+GAUSS_APF_N = 1000
+GAUSS_APF_CPU = 4  # CPU runs of the APF the card's run is held against
+GAUSS_REL = 1e-4  # the deterministic filters against the port's CPU run (relative to the largest value)
+SYNC_STEPS = 5  # filter steps whose host syncs are counted
+IMM_T, IMM_BLOCK = 400, 50  # examples/streaming_and_switching.py part 2
+IMM_SAMPLES = 150  # the full run's PMMH samples (the example's 400, cut; --gaussian runs 400)
+IMM_EXAMPLE_SAMPLES = 400
+IMM_CHAINS, IMM_SCALE = 4, 0.15
+IMM_GRID = 256  # lanes of the exact grid posterior's marginal pass
+IMM_TOL_SD = 0.65
+GSF_T, GSF_K, GSF_SPREAD = 60, 4, 0.7  # part 3
+RING = {"d": 512, "m": 40, "t": 12, "radius": 4.0}  # examples/online_smoothing_ensembles.py part 3
+RB = {"an": 0.0, "bn": 0.9, "sn": 0.3, "al": 0.2, "bl": 0.7, "sl": 0.4, "obs": 0.25}  # tests/test_rbpf.py:110
+RBPF_N, RBPF_T, RBPF_SEEDS = 100_000, 200, 4
+
+
+def rel_err(a, b) -> float:
+    """``max |a - b| / max |b|``: the difference relative to the values' scale."""
+    import numpy as np
+
+    a, b = (np.asarray(v.detach().double().cpu() if hasattr(v, "detach") else v, np.float64) for v in (a, b))
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def step_syncs(torch, filt, y_dev, state, generator=None) -> dict:
+    """The host syncs of SYNC_STEPS ``filter`` steps of ``filt`` on the card
+    from ``state`` (sync-debug counter, by source)."""
+    def run():
+        s = state
+        for t in range(SYNC_STEPS):
+            s = filt.filter(y_dev[t], s) if generator is None else filt.filter(generator, y_dev[t], s)
+
+    # the process's first switch of the sync-debug mode reports a sync of its
+    # own (torch/cuda/__init__.py, in set_sync_debug_mode): let an empty count take it
+    count_syncs(torch, lambda: None)
+    return count_syncs(torch, run)
+
+
+def timed(torch, fn):
+    """``fn()`` and its wall seconds on the card (synchronized)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def gauss_part1(torch, pt, expand, card) -> dict:
+    """Phase 17a (module docstring). Returns the expand kernel's launches and
+    its difference from its plain version on the APF's last cloud."""
+    import numpy as np
+
+    from pyfilter_tpu_torch.filters.particle.proposals import LinearGaussianObservations
+
+    t_phase = time.perf_counter()
+    cpu_model = pt.examples.sine_diffusion_model(gamma=GAUSS_GAMMA, device="cpu")
+    x, y = cpu_model.sample_states(torch.Generator().manual_seed(0), GAUSS_T).get_paths()
+    x, y = x.numpy(), y.numpy()
+    model = pt.examples.sine_diffusion_model(gamma=GAUSS_GAMMA)
+    y_dev = torch.tensor(y, device="cuda")
+    filters = {"EKF": lambda m, d: pt.ExtendedKalmanFilter(m, device=d),
+               "IEKF(3)": lambda m, d: pt.ExtendedKalmanFilter(m, iterations=3, device=d),
+               "UKF": lambda m, d: pt.UnscentedKalmanFilter(m, device=d),
+               "CKF": lambda m, d: pt.CubatureKalmanFilter(m, device=d)}
+    rmse = {}
+    for name, make in filters.items():
+        filt = make(model, "cuda")
+        filt.batch_filter(y)  # warm-up
+        res, wall = timed(torch, lambda: filt.batch_filter(y))
+        ref = make(cpu_model, "cpu").batch_filter(y)
+        ll_rel, m_rel = rel_err(res.log_likelihood, ref.log_likelihood), rel_err(res.filter_means, ref.filter_means)
+        syncs = step_syncs(torch, filt, y_dev, filt.initialize())
+        rmse[name] = float(np.sqrt(np.mean((res.filter_means.cpu().numpy()[:, 0] - x) ** 2)))
+        print(f"phase 17a: {name} on the sine diffusion (T={GAUSS_T}): log-likelihood {float(res.log_likelihood)}, "
+              f"RMSE {rmse[name]:.6f}; {wall * 1e3:.3f} ms a pass, {wall / GAUSS_T * 1e3:.4f} ms a step; host syncs "
+              f"in {SYNC_STEPS} steps {syncs or 0}; against the port on the CPU: log-likelihood rel {ll_rel:.3g}, "
+              f"means rel {m_rel:.3g} (limit {GAUSS_REL}); card {card}")
+        if not (ll_rel < GAUSS_REL and m_rel < GAUSS_REL and math.isfinite(float(res.log_likelihood))):
+            raise AssertionError(f"phase 17a: {name} off the CPU run: {ll_rel}, {m_rel}")
+        if syncs:
+            raise AssertionError(f"phase 17a: a {name} step made host syncs: {syncs}")
+
+    ukf = pt.UnscentedKalmanFilter(model)
+    (sm_means, _), wall = timed(torch, lambda: ukf.smooth(y))
+    ref_means, _ = pt.UnscentedKalmanFilter(cpu_model, device="cpu").smooth(y)
+    sm_rmse = float(np.sqrt(np.mean((sm_means.cpu().numpy()[:, 0] - x) ** 2)))
+    sm_rel = rel_err(sm_means, ref_means)
+    print(f"  UKF-RTS: smoothed RMSE {sm_rmse:.6f} (filtered {rmse['UKF']:.6f}); {wall * 1e3:.3f} ms; means against "
+          f"the CPU rel {sm_rel:.3g} (limit {GAUSS_REL})")
+    if not (sm_rel < GAUSS_REL and sm_rmse < rmse["UKF"]):
+        raise AssertionError(f"phase 17a: UKF-RTS rel {sm_rel}, RMSE {sm_rmse} against filtered {rmse['UKF']}")
+
+    def apf(device, seed):
+        filt = pt.APF(model if device == "cuda" else cpu_model, GAUSS_APF_N, proposal=LinearGaussianObservations(),
+                      device=device)
+        return filt.batch_filter(torch.Generator(device=device).manual_seed(seed), y)
+
+    apf("cuda", 99)  # warm-up
+    _zero_counts(expand)
+    res, wall = timed(torch, lambda: apf("cuda", 1))
+    launches = expand.fused_expand.launches
+    cpu_lls = np.asarray([float(apf("cpu", seed).log_likelihood) for seed in range(10, 10 + GAUSS_APF_CPU)])
+    ll = float(res.log_likelihood)
+    spread = float(cpu_lls.std(ddof=1))
+    apf_rmse = float(np.sqrt(np.mean((res.filter_means.cpu().numpy() - x) ** 2)))
+    print(f"  APF({GAUSS_APF_N}, LinearGaussianObservations): log-likelihood {ll}, RMSE {apf_rmse:.6f}; "
+          f"{wall * 1e3:.3f} ms; expand launches {launches} for {GAUSS_T} APF steps; {GAUSS_APF_CPU} CPU runs "
+          f"{cpu_lls.tolist()}: gap {ll - cpu_lls.mean():.4f}, {abs(ll - cpu_lls.mean()) / spread:.3f} of their "
+          f"spread {spread:.4f} (limit 4)")
+    if not (abs(ll - cpu_lls.mean()) < 4 * spread and launches == GAUSS_T) or expand.fused_expand_lanes.launches:
+        raise AssertionError(f"phase 17a: APF log-likelihood {ll} against {cpu_lls}, {launches} launches")
+    state = res.latest_state
+    err = check_on_cloud(torch, expand, pt.normalize(state.log_weights), state.x.value.reshape(1, -1),
+                         f"phase 17a's last APF cloud (n={GAUSS_APF_N})")
+    print(f"phase 17a: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "err": err}
+
+
+def switching_data():
+    """``examples/streaming_and_switching.py`` part 2's series (numpy seed 3):
+    an AR(0.9) whose noise sd switches between 0.1 and 1.0 every IMM_BLOCK
+    steps, observed with noise 0.1. Returns ``(y, regime)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    regime = (np.arange(IMM_T) // IMM_BLOCK) % 2
+    x = np.zeros(IMM_T, np.float32)
+    prev = 0.0
+    for t in range(IMM_T):
+        prev = 0.9 * prev + (0.1, 1.0)[regime[t]] * rng.normal()
+        x[t] = prev
+    return x + 0.1 * rng.normal(size=IMM_T).astype(np.float32), regime
+
+
+def switching_regimes(pt, device):
+    """The example's two regimes: AR(0, 0.9, 0.1) and AR(0, 0.9, 1.0), observed
+    with noise 0.1."""
+    return tuple(pt.timeseries.LinearStateSpaceModel(pt.timeseries.models.AR(0.0, 0.9, s, device=device), (1.0, 0.1))
+                 for s in (0.1, 1.0))
+
+
+def switching_builder(pt, ctx):
+    """The example's builder: ``p_stay ~ Uniform(0.5, 0.999)``, the (2, 2)
+    transition matrix ``p_stay I + (1 - p_stay) (1 - I)``."""
+    import torch
+
+    const = lambda v: pt.timeseries.models.parameter(v, ctx.device)  # noqa: E731
+    p = ctx.named_parameter("p_stay", pt.distributions.Uniform(const(0.5), const(0.999)))[..., None, None]
+    eye = torch.eye(2, device=ctx.device)
+    return pt.MarkovSwitchingModel(switching_regimes(pt, ctx.device), p * eye + (1.0 - p) * (1.0 - eye))
+
+
+def eager_marginal(pt):
+    """A GaussianMarginalFilter class that runs every pass eagerly (the
+    reference the CUDA graph's replays are held against)."""
+    class Eager(pt.GaussianMarginalFilter):
+        def _graphed_pass(self, key, run, inputs):
+            return run(*inputs)
+
+    return Eager
+
+
+def counted_marginal(pt):
+    """A GaussianMarginalFilter class counting, over every copy, its passes by
+    route (``eager``: run eagerly, capture warm-ups included; ``replays``)."""
+    class Counted(pt.GaussianMarginalFilter):
+        eager, replays = 0, 0
+
+        def _graphed_pass(self, key, run, inputs):
+            replay = callable(self._graphs.get(key))
+            type(self).replays += replay
+            type(self).eager += not replay
+            return super()._graphed_pass(key, run, inputs)
+
+    return Counted
+
+
+def gauss_switching(torch, pt, card, samples: int) -> None:
+    """Phase 17b (module docstring)."""
+    import numpy as np
+
+    from pyfilter_tpu_torch import inference as inf
+
+    t_phase = time.perf_counter()
+    y, regime = switching_data()
+    gen = lambda s: torch.Generator(device="cuda").manual_seed(s)  # noqa: E731
+    counted = counted_marginal(pt)
+    alg = inf.PMMH(counted(lambda c: switching_builder(pt, c), kind="imm"), samples, num_chains=IMM_CHAINS,
+                   proposal=inf.RandomWalk(IMM_SCALE), initializer="seed",
+                   context=inf.make_context(generator=gen(4), device="cuda"), generator=gen(5), device="cuda")
+    state, wall = timed(torch, lambda: alg.fit(y, logging=inf.logging.DefaultLogger()))
+    chains = state.as_arrays()["p_stay"]
+    burn = samples // 3
+    post = chains[1 + burn:].reshape(-1)
+    accept = (np.diff(chains, axis=0) != 0).mean(axis=0)
+    print(f"phase 17b: PMMH(GaussianMarginalFilter(kind='imm'), {samples}, num_chains={IMM_CHAINS}, "
+          f"RandomWalk({IMM_SCALE}), initializer='seed') over T={IMM_T}: {wall:.3f} s, {wall / samples * 1e3:.3f} ms "
+          f"a sample; {counted.eager} eager passes (the seed pass, the first pass, the capture's warm-up), "
+          f"{counted.replays} CUDA-graph replays; acceptance per chain {accept.round(3).tolist()}; p_stay "
+          f"{post.mean():.5f} +- {post.std():.5f} (true per-step stay ~{1 - 1 / IMM_BLOCK:.3f}); card {card}")
+
+    # one pass at the fit's last parameters: the graph's replay against the eager pass, bit for bit
+    filt = alg._filter
+    graphed, g_wall = timed(torch, lambda: filt.batch_filter(None, y))
+    eager, e_wall = timed(torch, lambda: eager_marginal(pt)(filt.model_builder, kind="imm").set_batch_shape(
+        (IMM_CHAINS,)).initialize_model(alg.context).batch_filter(None, y))
+    same = torch.equal(graphed.log_likelihood, eager.log_likelihood) and torch.equal(graphed.aux, eager.aux)
+    print(f"  one {IMM_CHAINS}-lane IMM pass: graph replay {g_wall * 1e3:.3f} ms, eager {e_wall * 1e3:.3f} ms "
+          f"({e_wall / IMM_T / IMM_CHAINS * 1e3:.4f} ms of host a lane step); bit-equal: {same}")
+    if not same:
+        raise AssertionError("phase 17b: the CUDA graph's pass differs from the eager pass")
+
+    # the exact posterior: one IMM_GRID-lane marginal pass over p_stay on a grid (a flat prior)
+    grid = np.linspace(0.5, 0.999, IMM_GRID)
+    ctx = inf.make_context(generator=gen(6), device="cuda")
+    ctx.set_batch_shape((IMM_GRID,))
+    switching_builder(pt, ctx)
+    ctx.update_parameter("p_stay", torch.tensor(grid, dtype=torch.float32, device="cuda"))
+    lls, grid_wall = timed(torch, lambda: pt.GaussianMarginalFilter(
+        lambda c: switching_builder(pt, c), kind="imm").set_batch_shape((IMM_GRID,)).initialize_model(ctx)
+        .batch_filter(None, y).log_likelihood.double().cpu().numpy())
+    w = np.exp(lls - lls.max())
+    w /= w.sum()
+    g_mean = float(w @ grid)
+    g_sd = float(np.sqrt(w @ (grid - g_mean) ** 2))
+    gap = abs(float(post.mean()) - g_mean) / g_sd
+    print(f"  exact grid posterior ({IMM_GRID} lanes in one marginal pass, {grid_wall:.3f} s): p_stay {g_mean:.5f} +- "
+          f"{g_sd:.5f}; the chains' mean {gap:.3f} posterior sds off (limit {IMM_TOL_SD})")
+    if not (gap < IMM_TOL_SD and np.isfinite(chains).all()):
+        raise AssertionError(f"phase 17b: p_stay {post.mean()} is {gap} sds off the grid's {g_mean}")
+
+    # the Kim smoother at the posterior mean
+    p_hat = float(post.mean())
+    trans = np.array([[p_hat, 1 - p_hat], [1 - p_hat, p_hat]], np.float32)
+    imm = pt.InteractingMultipleModel(list(switching_regimes(pt, "cuda")), trans)
+    filt_res, f_wall = timed(torch, lambda: imm.batch_filter(y))
+    (_, _, lp_s, _), s_wall = timed(torch, lambda: imm.smooth(y))
+    acc_f = float(np.mean(np.argmax(filt_res.aux.cpu().numpy(), axis=1) == regime))
+    acc_s = float(np.mean(np.argmax(lp_s.cpu().numpy(), axis=1) == regime))
+    y_dev = torch.tensor(y[:, None], device="cuda")
+    syncs = {"IMM": step_syncs(torch, imm, y_dev, imm.initialize())}
+    kalman = pt.KalmanFilter(switching_regimes(pt, "cuda")[0])
+    syncs["Kalman"] = step_syncs(torch, kalman, y_dev, kalman.initialize())
+    print(f"  IMM at p_stay {p_hat:.4f}: regime accuracy filtered {acc_f:.4f} -> Kim-smoothed {acc_s:.4f}; filter "
+          f"{f_wall * 1e3:.3f} ms ({f_wall / IMM_T * 1e3:.4f} ms a step), smoother {s_wall * 1e3:.3f} ms; host syncs "
+          f"in {SYNC_STEPS} steps {syncs}")
+    if not acc_s >= acc_f or any(syncs.values()):
+        raise AssertionError(f"phase 17b: smoothed accuracy {acc_s} < filtered {acc_f}, or syncs {syncs}")
+    print(f"phase 17b: {time.perf_counter() - t_phase:.1f} s")
+
+
+def quadratic_model(pt, device):
+    """``examples/streaming_and_switching.py`` part 3's model: a random walk
+    (sd 0.05, initial sd sqrt 2) observed as ``x^2 + 0.2 v``."""
+    import torch
+
+    const = lambda v: pt.timeseries.models.parameter(v, device)  # noqa: E731
+    rw = pt.timeseries.AffineProcess(lambda x, s: (x.value, s), (const(0.05),),
+                                     pt.distributions.Normal(const(0.0), const(1.0)),
+                                     lambda s: pt.distributions.Normal(torch.zeros_like(s), math.sqrt(2.0) + 0 * s))
+    return pt.timeseries.StateSpaceModel(rw, lambda x, sc: pt.distributions.Normal(x.value**2, sc), (const(0.2),))
+
+
+def gauss_sum(torch, pt, card) -> None:
+    """Phase 17c (module docstring)."""
+    t_phase = time.perf_counter()
+    _, y = quadratic_model(pt, "cpu").sample_states(torch.Generator().manual_seed(5), GSF_T).get_paths()
+    y = y.numpy()
+
+    def run(device):
+        gsf = pt.GaussianSumFilter(quadratic_model(pt, device), n_components=GSF_K, spread=GSF_SPREAD, device=device)
+        return gsf.smooth(y)
+
+    (_, _, (m_k, _, log_w)), wall = timed(torch, lambda: run("cuda"))
+    _, _, (ref_m, _, ref_w) = run("cpu")
+    # the split's eigenvector sign is free: compare the components ordered by their first smoothed mean
+    order, ref_order = torch.argsort(m_k[:, 0, 0].cpu()), torch.argsort(ref_m[:, 0, 0])
+    w_rel = rel_err(log_w.exp().cpu()[order], ref_w.exp()[ref_order])
+    m_rel = rel_err(m_k.cpu()[order], ref_m[ref_order])
+    gsf = pt.GaussianSumFilter(quadratic_model(pt, "cuda"), n_components=GSF_K, spread=GSF_SPREAD)
+    syncs = step_syncs(torch, gsf, torch.tensor(y[:, None], device="cuda"), gsf.initialize())
+    print(f"phase 17c: Gaussian-sum smoother, K={GSF_K}, spread {GSF_SPREAD}, T={GSF_T}: {wall * 1e3:.3f} ms; weights "
+          f"{log_w.exp().cpu().numpy().round(4).tolist()}; smoothed component means at t=30 "
+          f"{m_k[:, 30, 0].cpu().numpy().round(4).tolist()}; against the CPU run (components ordered by their means): "
+          f"weights rel {w_rel:.3g}, means rel {m_rel:.3g} (limit {GAUSS_REL}); host syncs in {SYNC_STEPS} filter "
+          f"steps {syncs or 0}; card {card}")
+    if not (w_rel < GAUSS_REL and m_rel < GAUSS_REL) or syncs:
+        raise AssertionError(f"phase 17c: GSF smoother off the CPU run: {w_rel}, {m_rel}; syncs {syncs}")
+    print(f"phase 17c: {time.perf_counter() - t_phase:.1f} s")
+
+
+def ring_model(pt, d: int, device, q_std=0.3, obs_std=0.25, decay=0.95, mix=0.2):
+    """``examples/online_smoothing_ensembles.py``'s locally coupled ring
+    diffusion, observed elementwise."""
+    import torch
+
+    def mean_scale(x, decay_, mix_, q_):
+        v = x.value
+        neigh = 0.5 * (torch.roll(v, 1, dims=-1) + torch.roll(v, -1, dims=-1))
+        return decay_ * ((1.0 - mix_) * v + mix_ * neigh), q_
+
+    const = lambda v: pt.timeseries.models.parameter(v, device)  # noqa: E731
+    unit = pt.distributions.Normal(torch.zeros(d, device=device), torch.ones(d, device=device)).to_event(1)
+    hidden = pt.timeseries.AffineProcess(mean_scale, (const(decay), const(mix), const(q_std)), unit,
+                                         lambda *_: unit)
+    return pt.timeseries.LinearStateSpaceModel(hidden, (1.0, obs_std), event_shape=(d,))
+
+
+def ring_localization(pt, d: int, radius: float, device):
+    import torch
+
+    idx = torch.arange(d, dtype=torch.float32, device=device)
+
+    def ring_metric(a, b):
+        diff = torch.abs(a - b).sum(-1)
+        return torch.minimum(diff, d - diff)
+
+    return pt.Localization.from_coords(idx, radius=radius, metric=ring_metric)
+
+
+def gauss_ensembles(torch, pt, card) -> None:
+    """Phase 17d (module docstring)."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    d, m_size, t_steps = RING["d"], RING["m"], RING["t"]
+    x, y = ring_model(pt, d, "cpu").sample_states(torch.Generator().manual_seed(5), t_steps).get_paths()
+    x, y = x.numpy(), y.numpy()
+    model = ring_model(pt, d, "cuda")
+    loc = ring_localization(pt, d, RING["radius"], "cuda")
+    runs = {"EnKF": pt.EnsembleKalmanFilter(model, m_size),
+            "LETKF": pt.EnsembleTransformKalmanFilter(model, m_size, localization=loc, inflation=1.05),
+            "localized EnKF": pt.EnsembleKalmanFilter(model, m_size, localization=loc, inflation=1.05)}
+    rmse = {}
+    for name, filt in runs.items():
+        filt.batch_filter(torch.Generator(device="cuda").manual_seed(9), y)  # warm-up
+        res, wall = timed(torch, lambda: filt.batch_filter(torch.Generator(device="cuda").manual_seed(6), y))
+        means = res.filter_means.cpu().numpy()
+        rmse[name] = float(np.sqrt(np.mean((means[-4:] - x[-4:]) ** 2)))
+        print(f"phase 17d: {name} d={d}, M={m_size}, T={t_steps}: last-4 RMSE {rmse[name]:.5f}; "
+              f"{wall / t_steps * 1e3:.4f} ms a step; card {card}")
+    a, b = rmse["LETKF"] / rmse["EnKF"], rmse["localized EnKF"] / rmse["EnKF"]
+    print(f"  LETKF / EnKF {a:.4f} (limit 0.6), localized EnKF / EnKF {b:.4f} (limit 0.75), LETKF {rmse['LETKF']:.4f} "
+          f"(limit 0.5): tests/test_etkf.py:117's criteria")
+    if not (a < 0.6 and b < 0.75 and rmse["LETKF"] < 2.0 * 0.25):
+        raise AssertionError(f"phase 17d: {rmse}")
+    print(f"phase 17d: {time.perf_counter() - t_phase:.1f} s")
+
+
+def rbpf_parts(pt, device):
+    """``tests/test_rbpf.py:110``'s joint 2-D model as a nonlinear AR(1)
+    block and a linear AR(1) block, ``y = n + l + v``."""
+    import torch
+
+    # the constant blocks made on the device once: a tensor built from a
+    # Python list inside a callable would copy from the host every step
+    c = lambda v: torch.tensor(v, dtype=torch.float32, device=device)  # noqa: E731
+    f, b, q, h, r = c([[RB["bl"]]]), c([RB["al"]]), c([[RB["sl"] ** 2]]), c([[1.0]]), c([[RB["obs"] ** 2]])
+    lin = pt.filters.LinearSubstructure(
+        trans_matrix=lambda n: f, trans_offset=lambda n: b, trans_cov=lambda n: q, obs_matrix=lambda n: h,
+        obs_offset=lambda n: torch.atleast_1d(n.value), obs_cov=lambda n: r, init_mean=b, init_cov=q)
+    return pt.timeseries.models.AR(RB["an"], RB["bn"], RB["sn"], device=device), lin
+
+
+def rbpf_data(n_obs: int, seed: int = 2):
+    """``n_obs`` observations of the joint model (numpy, float64), both blocks
+    started from their AR laws' ``N(alpha, sigma)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n, l_ = rng.normal(RB["an"], RB["sn"]), rng.normal(RB["al"], RB["sl"])
+    y = np.empty(n_obs)
+    for t in range(n_obs):
+        n = RB["an"] + RB["bn"] * n + RB["sn"] * rng.normal()
+        l_ = RB["al"] + RB["bl"] * l_ + RB["sl"] * rng.normal()
+        y[t] = n + l_ + RB["obs"] * rng.normal()
+    return y.astype(np.float32)
+
+
+def rbpf_exact_ll(y) -> float:
+    """The float64 2-D Kalman log-likelihood of the joint model
+    (``tests/test_rbpf.py``'s ``exact_2d_loglik``)."""
+    import numpy as np
+
+    a_mat, b_vec = np.diag([RB["bn"], RB["bl"]]), np.array([RB["an"], RB["al"]])
+    q, h, r = np.diag([RB["sn"] ** 2, RB["sl"] ** 2]), np.array([[1.0, 1.0]]), RB["obs"] ** 2
+    m, p, ll = b_vec.copy(), q.copy(), 0.0
+    for y_t in np.asarray(y, np.float64):
+        m, p = a_mat @ m + b_vec, a_mat @ p @ a_mat.T + q
+        s = float((h @ p @ h.T)[0, 0]) + r
+        innov = y_t - float((h @ m)[0])
+        ll += -0.5 * (innov**2 / s + math.log(s) + math.log(2 * math.pi))
+        k = (p @ h.T)[:, 0] / s
+        m, p = m + k * innov, p - np.outer(k, h @ p)
+    return ll
+
+
+def gauss_rbpf(torch, pt, expand, card) -> dict:
+    """Phase 17e (module docstring). Returns the expand kernel's launches, its
+    difference from its plain version on the last cloud, and its timing
+    fields on that cloud."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    y = rbpf_data(RBPF_T)
+    exact = rbpf_exact_ll(y)
+    nonlinear, lin = rbpf_parts(pt, "cuda")
+    gen = lambda s: torch.Generator(device="cuda").manual_seed(s)  # noqa: E731
+    pt.RaoBlackwellizedPF(nonlinear, lin, RBPF_N).batch_filter(gen(99), y)  # warm-up
+    launches = 0
+
+    # a fire every step
+    rb = pt.RaoBlackwellizedPF(nonlinear, lin, RBPF_N, ess_threshold=1.1)
+    _zero_counts(expand)
+    res, wall = timed(torch, lambda: rb.batch_filter(gen(0), y))
+    launches += expand.fused_expand.launches
+    print(f"phase 17e: RaoBlackwellizedPF N={RBPF_N}, T={RBPF_T}, ess_threshold=1.1: log-likelihood "
+          f"{float(res.log_likelihood)}; {wall:.3f} s, {wall / RBPF_T * 1e3:.4f} ms a step; resample fires "
+          f"{rb.n_resamples}, expand launches {expand.fused_expand.launches}; card {card}")
+    if not (expand.fused_expand.launches == rb.n_resamples == RBPF_T) or expand.fused_expand_lanes.launches:
+        raise AssertionError(f"phase 17e: {expand.fused_expand.launches} launches for {rb.n_resamples} fires")
+
+    lls = []
+    for seed in range(1, RBPF_SEEDS + 1):
+        rb = pt.RaoBlackwellizedPF(nonlinear, lin, RBPF_N)
+        _zero_counts(expand)
+        res, wall = timed(torch, lambda: rb.batch_filter(gen(seed), y))
+        lls.append(float(res.log_likelihood))
+        print(f"phase 17e: RaoBlackwellizedPF N={RBPF_N}, T={RBPF_T}, seed {seed}: log-likelihood {lls[-1]}; "
+              f"{wall:.3f} s, {wall / RBPF_T * 1e3:.4f} ms a step; resample fires {rb.n_resamples}, expand launches "
+              f"{expand.fused_expand.launches}; card {card}")
+        if not expand.fused_expand.launches == rb.n_resamples > 0:
+            raise AssertionError(f"phase 17e: {expand.fused_expand.launches} launches for {rb.n_resamples} fires")
+        launches += expand.fused_expand.launches
+    lls = np.asarray(lls)
+    limit = 4 * lls.std(ddof=1) / math.sqrt(len(lls)) + 0.3
+    print(f"  mean log-likelihood {lls.mean()} over {len(lls)} seeds, exact (float64 Kalman) {exact}: gap "
+          f"{abs(lls.mean() - exact):.4f} (limit {limit:.4f}: 4 SE + 0.3, tests/test_rbpf.py's rule)")
+    if not abs(lls.mean() - exact) < limit:
+        raise AssertionError(f"phase 17e: RBPF mean log-likelihood {lls.mean()} off the exact {exact}")
+    count_syncs(torch, lambda: None)  # the process's first switch of the mode reports a sync of its own
+    syncs = count_syncs(torch, lambda: pt.RaoBlackwellizedPF(nonlinear, lin, RBPF_N).batch_filter(gen(7), y))
+    n_syncs = sum(syncs.values())
+    print(f"  host syncs of a {RBPF_T}-step pass (sync-debug counter): {n_syncs}, {n_syncs / RBPF_T:.3f} a step; by "
+          f"source {syncs} (limit {RBPF_T + 2}: the ESS gate's one a step, the pass's copy of the observations and "
+          f"its read of their all-NaN rows)")
+    if n_syncs != RBPF_T + 2:
+        raise AssertionError(f"phase 17e: {n_syncs} host syncs in {RBPF_T} RBPF steps: {syncs}")
+
+    # K1 on the last cloud: (n, m, P) as 3 planes, in situ
+    state = res.latest_state
+    probs = pt.normalize(state.log_weights)
+    planes = torch.cat([v.reshape(RBPF_N, -1).T for v in (state.n.value, state.m, state.p)]).contiguous()
+    err = check_on_cloud(torch, expand, probs, planes, f"phase 17e's last RBPF cloud (n={RBPF_N}, 3 planes)")
+    u = torch.rand((), device="cuda")
+    grid = torch.arange(RBPF_N, dtype=torch.int32, device="cuda")
+    k_ms = time_cold(torch, lambda: expand.fused_expand(probs, u, planes))
+    p_ms = time_cold(torch, lambda: expand._expand_probs_plain(probs, u, planes))
+    l_ms = time_cold(torch, lambda: library_chain(torch, probs, u, planes, grid))
+    n, d = RBPF_N, planes.shape[0]
+    bound_ms = (4 * n + 4 + 4 * d * n + 4 * d * n + 4 * n) / HBM_BYTES_PER_S * 1e3
+    print(f"  a fire's resample + gather in situ (n={n}, d={d}, L2 flushed): kernel {k_ms} ms, plain {p_ms} ms, library "
+          f"chain {l_ms} ms, bound {bound_ms} ms (bytes); card {card}")
+    print(f"phase 17e: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "err": err}
+
+
+def gaussian_family(torch, pt, expand, card, samples: int = IMM_SAMPLES) -> dict:
+    """Phase 17 (module docstring): returns the expand kernel's launches by
+    path and its largest difference from its plain version."""
+    t_phase = time.perf_counter()
+    times = {}
+    for label, fn in (("17a", lambda: gauss_part1(torch, pt, expand, card)),
+                      ("17b", lambda: gauss_switching(torch, pt, card, samples)),
+                      ("17c", lambda: gauss_sum(torch, pt, card)),
+                      ("17d", lambda: gauss_ensembles(torch, pt, card)),
+                      ("17e", lambda: gauss_rbpf(torch, pt, expand, card))):
+        t0 = time.perf_counter()
+        times[label] = (fn(), time.perf_counter() - t0)
+    part1, rbpf = times["17a"][0], times["17e"][0]
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s "
+          f"({', '.join(f'{k} {v[1]:.1f} s' for k, v in times.items())})")
+    return {"k1": {"phase 17a": part1["launches"], "phase 17e": rbpf["launches"]},
+            "k1_err": max(part1["err"], rbpf["err"])}
 
 
 def apf_bias(torch, pt, seeds: int) -> int:

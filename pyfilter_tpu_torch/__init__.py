@@ -20,7 +20,11 @@ return_intermediaries=True)``, ``batch_filter_masked``); the systematic,
 stratified, multinomial, residual, Metropolis and rejection resamplers; SMC² over a lane-batched APF, with a quasi-random
 (Sobol) start, the adaptive distance stop and waste-free rejuvenation,
 checkpointed and resumed through ``state_dict`` and ``io``, with collectors;
-the Storvik filter with its four conjugate blocks; PGAS; batch PMMH with random-walk
+the Storvik filter with its four conjugate blocks; PGAS; the Gaussian
+filter family (the Kalman filter and RTS smoother, EKF and IEKF, UKF and CKF,
+EnKF, ETKF and LETKF with their ensemble smoothers, the Gaussian-sum filter,
+the IMM with the Kim smoother, and the marginal-likelihood adapter for
+PMMH and TemperedSMC); the Rao-Blackwellized PF; batch PMMH with random-walk
 and adaptive random-walk proposals; NESS, FixedWidthNESS and their SMC²
 hybrids with the KDE jitter kernels; gradients through the filter (the
 differentiable SISR and APF, whose resample kernels have hand-written
@@ -33,7 +37,26 @@ Verhulst, sine-diffusion, Lorenz-63 and nutria models.
 __version__ = "0.1.0"
 
 from . import convert, distributions, examples, filters, inference, io, ops, resampling, timeseries, utils
-from .filters import APF, GPF, SISR, FilterHistory, FilterResult, ParticleFilter
+from .filters import (
+    APF,
+    GPF,
+    SISR,
+    CubatureKalmanFilter,
+    EnsembleKalmanFilter,
+    EnsembleTransformKalmanFilter,
+    ExtendedKalmanFilter,
+    FilterHistory,
+    FilterResult,
+    GaussianMarginalFilter,
+    GaussianSumFilter,
+    InteractingMultipleModel,
+    KalmanFilter,
+    Localization,
+    MarkovSwitchingModel,
+    ParticleFilter,
+    RaoBlackwellizedPF,
+    UnscentedKalmanFilter,
+)
 from .filters.particle.proposals import (
     GaussianLinear,
     GaussianLinearized,
@@ -60,6 +83,18 @@ __all__ = [
     "SISR",
     "APF",
     "GPF",
+    "KalmanFilter",
+    "ExtendedKalmanFilter",
+    "UnscentedKalmanFilter",
+    "CubatureKalmanFilter",
+    "GaussianSumFilter",
+    "InteractingMultipleModel",
+    "MarkovSwitchingModel",
+    "EnsembleKalmanFilter",
+    "EnsembleTransformKalmanFilter",
+    "Localization",
+    "GaussianMarginalFilter",
+    "RaoBlackwellizedPF",
     "Linearized",
     "NestedProposal",
     "GaussianProposal",

@@ -11,7 +11,10 @@ of arrays), and any distribution or bijector by its family's name and
 parameters. Only numpy arrays,
 numpy scalars and Python numbers are accepted. It also builds the
 linear-Gaussian suite's 2-D models and the nonlinear benchmark model from
-their numpy parameters, so that both packages filter the same model.
+their numpy parameters, so that both packages filter the same model, and
+the Gaussian family's model pieces: a Markov-switching model over the
+port's regime models, a Rao-Blackwellized PF's linear substructure, and a
+localization from coordinates or distances.
 """
 
 from __future__ import annotations
@@ -257,3 +260,56 @@ def bijector_from_numpy(name: str, device=None, **params):
         raise ValueError(f"no bijector named {name!r}")
     device = resolve_device(device)
     return getattr(distributions, name)(**{k: _tensor(k, v, torch.float32, device) for k, v in params.items()})
+
+
+def markov_switching_from_numpy(models, transition_matrix, initial_probs=None):
+    """A ``MarkovSwitchingModel`` over the port's regime ``models`` (already
+    built, one device) with the transition matrix ``(K, K)`` (or lane-batched
+    ``(L, K, K)``) and optional initial probabilities from numpy, on the
+    models' device."""
+    from .filters.imm import MarkovSwitchingModel
+
+    device = models[0].device
+    p0 = None if initial_probs is None else _tensor("initial_probs", initial_probs, torch.float32, device)
+    return MarkovSwitchingModel(tuple(models), _tensor("transition_matrix", transition_matrix, torch.float32, device),
+                                p0)
+
+
+def linear_substructure_from_numpy(trans_matrix, trans_offset, trans_cov, obs_matrix, obs_offset, obs_cov,
+                                   init_mean, init_cov, device=None):
+    """A Rao-Blackwellized PF's ``LinearSubstructure``: each of the six
+    per-particle functions is given either as a numpy array (a constant
+    block, returned for every particle) or as a function of the particle's
+    state returning a tensor on ``device``; the prior's mean and covariance
+    as numpy arrays."""
+    from .filters.rbpf import LinearSubstructure
+
+    device = resolve_device(device)
+
+    def block(name, value):
+        if callable(value):
+            return value
+        const = _tensor(name, value, torch.float32, device)
+        return lambda n: const
+
+    return LinearSubstructure(
+        block("trans_matrix", trans_matrix), block("trans_offset", trans_offset), block("trans_cov", trans_cov),
+        block("obs_matrix", obs_matrix), block("obs_offset", obs_offset), block("obs_cov", obs_cov),
+        _tensor("init_mean", init_mean, torch.float32, device), _tensor("init_cov", init_cov, torch.float32, device))
+
+
+def localization_from_numpy(radius: float = 1.0, state_coords=None, obs_coords=None, dist_xy=None, dist_yy=None,
+                            dist_xx=None, device=None):
+    """A ``Localization``: from ``state_coords`` (and ``obs_coords``, Euclidean
+    distances) or from the distance matrices ``dist_xy``, ``dist_yy`` and
+    optionally ``dist_xx``, numpy arrays, on ``device``."""
+    from .filters.etkf import Localization
+
+    device = resolve_device(device)
+    if state_coords is not None:
+        oc = None if obs_coords is None else _tensor("obs_coords", obs_coords, torch.float32, device)
+        return Localization.from_coords(_tensor("state_coords", state_coords, torch.float32, device), oc,
+                                        radius=float(radius))
+    dxx = None if dist_xx is None else _tensor("dist_xx", dist_xx, torch.float32, device)
+    return Localization.from_distances(_tensor("dist_xy", dist_xy, torch.float32, device),
+                                       _tensor("dist_yy", dist_yy, torch.float32, device), float(radius), dist_xx=dxx)

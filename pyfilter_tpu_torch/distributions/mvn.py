@@ -67,6 +67,10 @@ class MultivariateNormal(Distribution):
     def support(self):
         return constraints.real_vector
 
+    @property
+    def covariance_matrix(self) -> torch.Tensor:
+        return self.scale_tril @ self.scale_tril.transpose(-1, -2)
+
     def sample(self, generator, sample_shape=()):
         shape = tuple(sample_shape) + self.batch_shape + self.event_shape
         eps = torch.randn(shape, generator=generator, dtype=self.loc.dtype, device=self.loc.device)

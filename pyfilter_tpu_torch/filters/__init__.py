@@ -1,11 +1,21 @@
-"""Filters of the port: the particle filters and the predictive diagnostics
-(PIT, CRPS)."""
+"""Filters of the port: the particle filters, the Gaussian family (Kalman,
+EKF/IEKF, UKF/CKF, EnKF, ETKF/LETKF, GSF, IMM and the marginal adapter), the
+Rao-Blackwellized PF and the predictive diagnostics (PIT, CRPS)."""
 
 from . import particle
 from .base import BaseFilter
 from .diagnostics import crps, predictive_pit
+from .ekf import EKFState, ExtendedKalmanFilter
+from .enkf import EnKFState, EnsembleKalmanFilter
+from .etkf import EnsembleTransformKalmanFilter, Localization, gaspari_cohn
+from .gsf import GaussianSumFilter, GSFState
+from .imm import IMMState, InteractingMultipleModel, MarkovSwitchingModel
+from .kalman import KalmanFilter, KalmanState
+from .marginal import GaussianMarginalFilter
 from .particle import APF, GPF, SISR, ParticleFilter
+from .rbpf import LinearSubstructure, RaoBlackwellizedPF
 from .result import FilterHistory, FilterResult
+from .ukf import CubatureKalmanFilter, UnscentedKalmanFilter
 from .state import ParticleFilterCorrection, ParticleFilterPrediction
 
 # the reference's import-path aliases, as the JAX package keeps them
@@ -16,6 +26,25 @@ __all__ = [
     "BaseFilter",
     "predictive_pit",
     "crps",
+    "KalmanFilter",
+    "KalmanState",
+    "ExtendedKalmanFilter",
+    "EKFState",
+    "UnscentedKalmanFilter",
+    "CubatureKalmanFilter",
+    "GaussianSumFilter",
+    "GSFState",
+    "InteractingMultipleModel",
+    "IMMState",
+    "MarkovSwitchingModel",
+    "EnsembleKalmanFilter",
+    "EnsembleTransformKalmanFilter",
+    "Localization",
+    "gaspari_cohn",
+    "GaussianMarginalFilter",
+    "EnKFState",
+    "RaoBlackwellizedPF",
+    "LinearSubstructure",
     "ParticleFilter",
     "SISR",
     "APF",

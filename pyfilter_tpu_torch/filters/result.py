@@ -27,8 +27,8 @@ class FilterHistory(NamedTuple):
 class FilterResult(NamedTuple):
     """Output of a full filtering pass: the total log-likelihood estimate,
     the per-step increments, the per-step weighted moments stacked over the
-    leading time axis, the last filter state and, with ``record_states``,
-    the history."""
+    leading time axis, the last filter state, with ``record_states`` the
+    history, and a filter's per-step extras in ``aux``."""
 
     log_likelihood: torch.Tensor
     step_log_likelihoods: torch.Tensor
@@ -36,6 +36,9 @@ class FilterResult(NamedTuple):
     filter_variances: torch.Tensor
     latest_state: ParticleFilterCorrection
     states: Optional[FilterHistory] = None
+    #: filter-specific per-step extras, time-major with lanes second (the
+    #: IMM's ``(T, K)`` regime log-probabilities), kept out of ``states``
+    aux: Optional[torch.Tensor] = None
 
     @property
     def loglikelihood(self) -> torch.Tensor:
@@ -59,6 +62,7 @@ class FilterResult(NamedTuple):
             self.filter_variances.index_select(1, idx),
             self.latest_state.resample(idx),
             states,
+            None if self.aux is None else self.aux.index_select(1, idx),
         )
 
     def exchange(self, other: "FilterResult", mask: torch.Tensor) -> "FilterResult":
@@ -82,4 +86,5 @@ class FilterResult(NamedTuple):
             mix(self.filter_variances, other.filter_variances, 1),
             lat,
             states,
+            self.aux if self.aux is None or other.aux is None else mix(self.aux, other.aux, 1),
         )

@@ -29,7 +29,7 @@ import torch
 from ....filters.particle import base as particle_base
 from ....filters.particle.base import smoothed_joint_log_likelihood
 from ....timeseries import TimeseriesState
-from ....utils import batched_gather, normalize_log
+from ....utils import batched_gather, cuda_graph, normalize_log
 from ... import prior as prior_ops
 from ...base import BaseAlgorithm
 from ...logging import DefaultLogger
@@ -292,34 +292,13 @@ class PGAS(BaseAlgorithm):
         return theta, trajectory, (acc / self.num_theta_steps).reshape(-1)
 
     def _graphed_sweep(self, sweep, theta, trajectory):
-        """``sweep(theta, trajectory)`` captured as a CUDA graph: one eager
-        sweep on a side stream first (the capture's warm-up; the generator's
-        state is restored after it, so it consumes no draws), then the
-        capture, with the generator registered so that every replay draws
-        on from where the last left off. Returns a function with the sweep's
-        signature that copies its inputs into the graph's buffers, replays it
+        """``sweep(theta, trajectory)`` captured as a CUDA graph from the
+        algorithm's generator (:func:`~pyfilter_tpu_torch.utils.cuda_graph`).
+        Returns a function with the sweep's signature that replays the graph
         and returns copies of its outputs."""
-        static = (theta.clone(), trajectory.clone())
-        rng = self.generator.get_state()
-        side = torch.cuda.Stream(device=self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            sweep(static[0].clone(), static[1].clone())
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        self.generator.set_state(rng)
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.generator)
-        with torch.cuda.graph(graph):
-            out = sweep(*static)
-
-        def replay(theta_, trajectory_):
-            static[0].copy_(theta_)
-            static[1].copy_(trajectory_)
-            graph.replay()
-            return tuple(t.clone() for t in out)
-
+        replay, _ = cuda_graph(sweep, (theta, trajectory), self.device, generator=self.generator)
         self.graphed = True
-        return replay
+        return lambda theta_, trajectory_: tuple(t.clone() for t in replay(theta_, trajectory_))
 
     def fit(self, y, logging=None) -> PGASResult:
         """Run ``num_samples`` sweeps over the observations ``y`` (time axis

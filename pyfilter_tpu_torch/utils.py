@@ -8,7 +8,8 @@ log-weights to -inf and backfills lanes whose weights are all -inf with the
 uniform 1/N.
 
 Also the port's device rule (:func:`resolve_device`): entry points run on
-the card unless the caller asks for the CPU.
+the card unless the caller asks for the CPU, and the CUDA-graph capture the
+host-bound loops replay (:func:`cuda_graph`).
 """
 
 from __future__ import annotations
@@ -28,6 +29,41 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def cuda_graph(fn, inputs, device, generator=None):
+    """``fn(*inputs)`` captured as a CUDA graph on ``device``: one eager call
+    on a side stream first (the capture's warm-up, on copies of ``inputs``;
+    ``generator``'s state is restored after it, so it consumes no draws),
+    then the capture over the graph's own copies of ``inputs``, with
+    ``generator`` registered so that every replay draws on from where the
+    last left off. ``fn`` must not read the device back to the host.
+
+    Returns ``(replay, warm)``: ``replay(*inputs)`` copies ``inputs`` into
+    the graph's tensors, replays it and returns its outputs (the graph's own
+    tensors, which the next replay overwrites); ``warm`` is the warm-up
+    call's result."""
+    static = [t.detach().clone() for t in inputs]
+    rng = None if generator is None else generator.get_state()
+    side = torch.cuda.Stream(device=device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        warm = fn(*(t.clone() for t in static))
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        generator.set_state(rng)
+        graph.register_generator_state(generator)
+    with torch.cuda.graph(graph):
+        out = fn(*static)
+
+    def replay(*new):
+        for dst, src in zip(static, new):
+            dst.copy_(src)
+        graph.replay()
+        return out
+
+    return replay, warm
 
 
 def same_device(a, b) -> bool:

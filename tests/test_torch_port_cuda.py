@@ -782,3 +782,124 @@ def test_inference_entry_points_refuse_without_a_card(monkeypatch):
     res = pt.inference.StorvikFilter(pt.inference.NIGAutoregression(device="cpu"), 16, device="cpu").fit(
         torch.Generator().manual_seed(0), [0.1, 0.2, 0.3])
     assert res.values.device.type == "cpu" and res.param_means[0].shape == (3,)
+
+
+def _gaussian_makers(dev):
+    """Each new Gaussian-family entry point built on ``dev``'s default device
+    rule (device left to the default)."""
+    ar = lambda: pt.timeseries.LinearStateSpaceModel(pt.timeseries.models.AR(0.2, 0.7, 0.4, device=dev),  # noqa: E731
+                                                     (1.0, 0.25))
+    nonlinear, lin = chip_smoke.rbpf_parts(pt, dev)
+    return (
+        lambda: pt.KalmanFilter(ar()),
+        lambda: pt.ExtendedKalmanFilter(ar()),
+        lambda: pt.UnscentedKalmanFilter(ar()),
+        lambda: pt.CubatureKalmanFilter(ar()),
+        lambda: pt.GaussianSumFilter(ar()),
+        lambda: pt.InteractingMultipleModel(list(chip_smoke.switching_regimes(pt, dev)), [[0.9, 0.1], [0.1, 0.9]]),
+        lambda: pt.EnsembleKalmanFilter(ar(), 10),
+        lambda: pt.EnsembleTransformKalmanFilter(ar(), 10),
+        lambda: pt.GaussianMarginalFilter(lambda c: chip_smoke.switching_builder(pt, c), kind="imm"),
+        lambda: pt.RaoBlackwellizedPF(nonlinear, lin, 16),
+    )
+
+
+def test_gaussian_entry_points_refuse_without_a_card(monkeypatch):
+    """Without a card every Gaussian-family entry point and the RBPF on the
+    default device raise; with ``device="cpu"`` they run."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in _gaussian_makers("cpu"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    ar = pt.timeseries.LinearStateSpaceModel(pt.timeseries.models.AR(0.2, 0.7, 0.4, device="cpu"), (1.0, 0.25))
+    assert math.isfinite(float(pt.ExtendedKalmanFilter(ar, device="cpu").batch_filter([0.1, 0.3]).log_likelihood))
+
+
+@pytest.mark.cuda
+def test_gaussian_entry_points_run_on_the_card_by_default(cuda):
+    for make in _gaussian_makers("cuda"):
+        assert make().device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["kalman", "ekf", "iekf", "ukf", "ckf", "gsf", "imm"])
+def test_deterministic_filter_steps_make_no_host_sync(cuda, name):
+    """A step of each deterministic filter (Kalman, EKF, IEKF, UKF, CKF, GSF,
+    IMM) makes 0 host syncs (sync-debug counter)."""
+    ar = pt.timeseries.LinearStateSpaceModel(pt.timeseries.models.AR(0.2, 0.7, 0.4), (1.0, 0.25))
+    filt = {"kalman": lambda: pt.KalmanFilter(ar), "ekf": lambda: pt.ExtendedKalmanFilter(ar),
+            "iekf": lambda: pt.ExtendedKalmanFilter(ar, iterations=3), "ukf": lambda: pt.UnscentedKalmanFilter(ar),
+            "ckf": lambda: pt.CubatureKalmanFilter(ar), "gsf": lambda: pt.GaussianSumFilter(ar, n_components=3),
+            "imm": lambda: pt.InteractingMultipleModel(list(chip_smoke.switching_regimes(pt, "cuda")),
+                                                       [[0.95, 0.05], [0.05, 0.95]])}[name]()
+    y = torch.randn(8, 1, device=cuda)
+    state = filt.filter(y[0], filt.initialize(), n_transitions=1)
+    assert chip_smoke.step_syncs(torch, filt, y[1:], state) == {}
+
+
+@pytest.mark.cuda
+def test_rbpf_fires_k1_on_its_planes_and_matches_its_plain_run(cuda):
+    """On the card the RBPF's fires launch K1 (value, mean, covariance as 3
+    planes), once per fire, and the whole pass equals the gather route's bit
+    for bit."""
+    nonlinear, lin = chip_smoke.rbpf_parts(pt, "cuda")
+    y = chip_smoke.rbpf_data(40)
+    runs = []
+    for fused in (None, False):
+        rb = pt.RaoBlackwellizedPF(nonlinear, lin, 4096, ess_threshold=1.1, fused_resample=fused)
+        before = expand.fused_expand.launches
+        runs.append(rb.batch_filter(torch.Generator(device=cuda).manual_seed(3), y))
+        assert expand.fused_expand.launches - before == (rb.n_resamples if fused is None else 0)
+        assert rb.n_resamples == len(y)
+    for name in ("log_likelihood", "filter_means", "filter_variances"):
+        assert torch.equal(getattr(runs[0], name), getattr(runs[1], name)), name
+
+
+def _ar_builder(c):
+    """An AR(1) with its coefficient and noise sd drawn from the context,
+    observed with noise 0.2."""
+    const = lambda v: pt.timeseries.models.parameter(v, c.device)  # noqa: E731
+    beta = c.named_parameter("beta", pt.distributions.Uniform(const(0.0), const(1.0)))
+    sigma = c.named_parameter("sigma", pt.distributions.LogNormal(const(-1.0), const(0.5)))
+    return pt.timeseries.LinearStateSpaceModel(pt.timeseries.models.AR(0.0, beta, sigma, device=c.device), (1.0, 0.2))
+
+
+def _fixed_switching_builder(c):
+    """The switching model of phase 17b with a fixed transition matrix (a
+    list, not a lane leaf) and the quiet regime's sd drawn from the context."""
+    const = lambda v: pt.timeseries.models.parameter(v, c.device)  # noqa: E731
+    low = c.named_parameter("low", pt.distributions.LogNormal(const(-2.3), const(0.3)))
+    regimes = tuple(pt.timeseries.LinearStateSpaceModel(pt.timeseries.models.AR(0.0, 0.9, s, device=c.device),
+                                                        (1.0, 0.1)) for s in (low, 1.0))
+    return pt.MarkovSwitchingModel(regimes, [[0.95, 0.05], [0.05, 0.95]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,builder,lanes", [
+    ("ekf", "ar", 5), ("ukf", "ar", 5), ("ckf", "ar", 5), ("gsf", "ar", 5), ("imm", "lane matrix", 5),
+    ("imm", "fixed matrix", 5), ("imm", "fixed matrix", None)])
+def test_marginal_graph_replay_equals_the_eager_pass(cuda, kind, builder, lanes):
+    """Each kind of the adapter, at new prior draws every pass: the first pass
+    eager, the second captured, the third and fourth replayed from the one
+    CUDA graph, each equal bit for bit to an eager pass at its parameters
+    (the IMM's transition matrix a lane leaf, fixed, and on one lane)."""
+    y, _ = chip_smoke.switching_data()
+    y = y[:60]
+    build = {"ar": _ar_builder, "lane matrix": lambda c: chip_smoke.switching_builder(pt, c),
+             "fixed matrix": _fixed_switching_builder}[builder]
+    batch = () if lanes is None else (lanes,)
+    ctx = pt.inference.make_context(generator=torch.Generator(device=cuda).manual_seed(1))
+    ctx.set_batch_shape(batch)
+    build(ctx)
+    filt = pt.GaussianMarginalFilter(build, kind=kind).set_batch_shape(batch)
+    eager = chip_smoke.eager_marginal(pt)(build, kind=kind).set_batch_shape(batch)
+    for i in range(4):
+        for name in list(ctx.parameters) if i else ():
+            ctx.update_parameter(name, ctx.get_prior(name).sample(ctx.generator, batch))
+        res = filt.initialize_model(ctx).batch_filter(None, y)
+        ref = eager.initialize_model(ctx).batch_filter(None, y)
+        assert torch.isfinite(ref.log_likelihood).all()
+        for name in ("log_likelihood", "filter_means", "filter_variances", "aux"):
+            a, b = getattr(res, name), getattr(ref, name)
+            assert (a is None and b is None) or torch.equal(a, b), (i, name)
+    assert sum(callable(v) for v in filt._graphs.values()) == 1

@@ -17,26 +17,15 @@ import pytest
 import pyfilter_tpu
 import pyfilter_tpu_torch
 
-_GAUSSIAN = "ROADMAP Queue 1 item 3 (the Gaussian family)"
 _BEYOND = "ROADMAP Queue 1 item 4 (methods beyond the reference)"
 
 #: (module path below the package, name) -> why the port does not have it yet
 NOT_PORTED = {
-    **{("", n): _GAUSSIAN for n in (
-        "KalmanFilter", "ExtendedKalmanFilter", "UnscentedKalmanFilter", "CubatureKalmanFilter",
-        "GaussianSumFilter", "InteractingMultipleModel", "MarkovSwitchingModel", "EnsembleKalmanFilter",
-        "EnsembleTransformKalmanFilter", "Localization", "GaussianMarginalFilter")},
-    **{("", n): _BEYOND for n in ("BlockParticleFilter", "RaoBlackwellizedPF", "SQMC")},
+    **{("", n): _BEYOND for n in ("BlockParticleFilter", "SQMC")},
     ("", "parallel"): "ROADMAP Queue 1 item 6",
     ("", "enable_compile_cache"): "not queued: it exists only for XLA",
     ("", "interop"): "not queued: the numpyro bridge (no numpyro or pyro to bridge to)",
-    **{("filters", n): _GAUSSIAN for n in (
-        "KalmanFilter", "KalmanState", "ExtendedKalmanFilter", "EKFState", "UnscentedKalmanFilter",
-        "CubatureKalmanFilter", "GaussianSumFilter", "GSFState", "InteractingMultipleModel", "IMMState",
-        "MarkovSwitchingModel", "EnsembleKalmanFilter", "EnsembleTransformKalmanFilter", "Localization",
-        "gaspari_cohn", "GaussianMarginalFilter", "EnKFState")},
-    **{("filters", n): _BEYOND for n in (
-        "BlockParticleFilter", "BlockPFState", "RaoBlackwellizedPF", "LinearSubstructure", "SQMC")},
+    **{("filters", n): _BEYOND for n in ("BlockParticleFilter", "BlockPFState", "SQMC")},
     **{("filters.particle", n): _BEYOND for n in (
         "SQMC", "SQMCState", "VarianceEstimate", "eve_indices", "lag_ancestor_indices", "log_likelihood_variance",
         "filter_mean_variance")},
@@ -93,6 +82,12 @@ def test_the_list_names_only_jax_exports():
     ("io", ""), ("PGAS", "inference"), ("PGAS", "inference.batch.mcmc"), ("PGASResult", "inference.batch.mcmc"),
     ("csmc_sweep", "inference.batch.mcmc"), ("collectors", "inference.sequential"),
     *[(n, "inference.sequential") for n in ("Collector", "MeanCollector", "Standardizer", "ParameterPosterior")],
+    *[(n, where) for where in ("", "filters") for n in (
+        "KalmanFilter", "ExtendedKalmanFilter", "UnscentedKalmanFilter", "CubatureKalmanFilter", "GaussianSumFilter",
+        "InteractingMultipleModel", "MarkovSwitchingModel", "EnsembleKalmanFilter", "EnsembleTransformKalmanFilter",
+        "Localization", "GaussianMarginalFilter", "RaoBlackwellizedPF")],
+    *[(n, "filters") for n in ("KalmanState", "EKFState", "GSFState", "IMMState", "EnKFState", "gaspari_cohn",
+                               "LinearSubstructure")],
     *[(n, where) for where in ("inference", "inference.sequential") for n in (
         "StorvikFilter", "StorvikResult", "NIGAutoregression", "NIGARUnknownObsVariance", "NIGVectorAutoregression",
         "PoissonGammaCounts")],
