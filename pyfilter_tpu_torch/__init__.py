@@ -14,7 +14,9 @@ observations, the linearized (gradient and damped-Newton mode finding),
 nested and Gaussian-approximate proposals and the local linearization;
 joint processes and the imputation of missing observation components;
 recorded histories with exact FFBS, rejection FFBSi and fixed-lag
-smoothing; PaRIS online smoothing, the online score and streaming maximum
+smoothing; SQMC (sequential quasi-Monte Carlo over a Hilbert-curve sort), the
+block particle filter, the iterated (twisted) APF and the genealogy variance
+estimators; PaRIS online smoothing, the online score and streaming maximum
 likelihood; the single-step API (``step``, ``filter(...,
 return_intermediaries=True)``, ``batch_filter_masked``); the systematic,
 stratified, multinomial, residual, Metropolis and rejection resamplers; SMC² over a lane-batched APF, with a quasi-random
@@ -41,6 +43,8 @@ from .filters import (
     APF,
     GPF,
     SISR,
+    SQMC,
+    BlockParticleFilter,
     CubatureKalmanFilter,
     EnsembleKalmanFilter,
     EnsembleTransformKalmanFilter,
@@ -83,6 +87,8 @@ __all__ = [
     "SISR",
     "APF",
     "GPF",
+    "SQMC",
+    "BlockParticleFilter",
     "KalmanFilter",
     "ExtendedKalmanFilter",
     "UnscentedKalmanFilter",

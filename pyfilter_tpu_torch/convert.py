@@ -14,7 +14,8 @@ linear-Gaussian suite's 2-D models and the nonlinear benchmark model from
 their numpy parameters, so that both packages filter the same model, and
 the Gaussian family's model pieces: a Markov-switching model over the
 port's regime models, a Rao-Blackwellized PF's linear substructure, and a
-localization from coordinates or distances.
+localization from coordinates or distances; and the states of SQMC and the
+block particle filter.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ import torch
 
 from . import distributions, examples
 from .distributions import Normal
+from .filters.block import BlockPFState
+from .filters.particle.sqmc import SQMCState
 from .filters.result import FilterHistory
 from .filters.state import ParticleFilterCorrection
 from .timeseries import (
@@ -86,6 +89,30 @@ def correction_from_numpy(
         mean,
         variance,
     )
+
+
+def sqmc_state_from_numpy(values, log_weights, time_index, log_likelihood, event_ndim: int = 0,
+                          device=None) -> SQMCState:
+    """An ``SQMCState`` from the numpy leaves of the JAX package's one
+    (``values``, ``log_weights``, ``time_index``, ``log_likelihood``), single
+    lane or with lanes in the port's layout (particle axis first: ``(N, K,
+    ...)``; a vmapped JAX state is lane-leading and moves its lane axis to 1
+    first)."""
+    device = resolve_device(device)
+    return SQMCState(_tensor("values", values, torch.float32, device),
+                     _tensor("log_weights", log_weights, torch.float32, device),
+                     float(_check("time_index", time_index)),
+                     _tensor("log_likelihood", log_likelihood, torch.float32, device), int(event_ndim))
+
+
+def block_state_from_numpy(values, time_index, log_likelihood, block_ess, device=None) -> BlockPFState:
+    """A ``BlockPFState`` from the numpy leaves of the JAX package's one
+    (``values`` ``(N, *lanes, d)``, ``time_index``, ``log_likelihood``
+    ``(*lanes)``, ``block_ess`` ``(*lanes, B)``)."""
+    device = resolve_device(device)
+    return BlockPFState(_tensor("values", values, torch.float32, device), float(_check("time_index", time_index)),
+                        _tensor("log_likelihood", log_likelihood, torch.float32, device),
+                        _tensor("block_ess", block_ess, torch.float32, device))
 
 
 def sv_model_from_numpy(kappa, gamma, sigma, mu, nu, tau, dt, device=None):

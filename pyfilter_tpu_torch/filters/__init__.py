@@ -1,9 +1,11 @@
-"""Filters of the port: the particle filters, the Gaussian family (Kalman,
-EKF/IEKF, UKF/CKF, EnKF, ETKF/LETKF, GSF, IMM and the marginal adapter), the
-Rao-Blackwellized PF and the predictive diagnostics (PIT, CRPS)."""
+"""Filters of the port: the particle filters (SQMC among them), the block
+particle filter, the Gaussian family (Kalman, EKF/IEKF, UKF/CKF, EnKF,
+ETKF/LETKF, GSF, IMM and the marginal adapter), the Rao-Blackwellized PF and
+the predictive diagnostics (PIT, CRPS)."""
 
 from . import particle
 from .base import BaseFilter
+from .block import BlockParticleFilter, BlockPFState
 from .diagnostics import crps, predictive_pit
 from .ekf import EKFState, ExtendedKalmanFilter
 from .enkf import EnKFState, EnsembleKalmanFilter
@@ -12,7 +14,7 @@ from .gsf import GaussianSumFilter, GSFState
 from .imm import IMMState, InteractingMultipleModel, MarkovSwitchingModel
 from .kalman import KalmanFilter, KalmanState
 from .marginal import GaussianMarginalFilter
-from .particle import APF, GPF, SISR, ParticleFilter
+from .particle import APF, GPF, SISR, SQMC, ParticleFilter
 from .rbpf import LinearSubstructure, RaoBlackwellizedPF
 from .result import FilterHistory, FilterResult
 from .ukf import CubatureKalmanFilter, UnscentedKalmanFilter
@@ -24,6 +26,8 @@ Correction = ParticleFilterCorrection
 
 __all__ = [
     "BaseFilter",
+    "BlockParticleFilter",
+    "BlockPFState",
     "predictive_pit",
     "crps",
     "KalmanFilter",
@@ -49,6 +53,7 @@ __all__ = [
     "SISR",
     "APF",
     "GPF",
+    "SQMC",
     "FilterResult",
     "FilterHistory",
     "ParticleFilterCorrection",

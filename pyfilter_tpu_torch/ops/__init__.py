@@ -1,6 +1,6 @@
-"""The resampling ops of the SMC hot path, and the hand-written CUDA kernels
+"""The resampling ops of the SMC hot path, the hand-written CUDA kernels
 that carry the fused resample + gather on the card (single lane and lane
-batches)."""
+batches), and the Hilbert-curve sort of SQMC."""
 
 from .expand import (
     fused_expand,
@@ -8,6 +8,7 @@ from .expand import (
     systematic_expand,
     systematic_expand_lanes,
 )
+from .hilbert import hilbert_argsort, hilbert_keys
 from .resample import prob_cumsum, systematic_counts
 
 __all__ = [
@@ -17,4 +18,6 @@ __all__ = [
     "systematic_expand_lanes",
     "fused_expand_lanes",
     "prob_cumsum",
+    "hilbert_argsort",
+    "hilbert_keys",
 ]

@@ -903,3 +903,67 @@ def test_marginal_graph_replay_equals_the_eager_pass(cuda, kind, builder, lanes)
             a, b = getattr(res, name), getattr(ref, name)
             assert (a is None and b is None) or torch.equal(a, b), (i, name)
     assert sum(callable(v) for v in filt._graphs.values()) == 1
+
+def _qmc_block_twist_makers(device):
+    """SQMC, the block filter, a twisted pass, the iterated APF and the
+    twist's constructor on ``device`` (the default when None), over models
+    on the CPU."""
+    import numpy as np
+
+    from pyfilter_tpu_torch.filters.particle import twisted
+
+    ar = chip_smoke.qmc_ar_model(pt, "cpu")
+    ring = chip_smoke.ring_model(pt, 4, "cpu", **chip_smoke.BLOCK_RING)
+    y = np.zeros(5, np.float32)
+    psi = twisted.TwistCoefficients.identity(5, 1, device="cpu")
+    kw = {} if device is None else {"device": device}
+    return (
+        lambda: pt.SQMC(ar, 64, **kw),
+        lambda: pt.BlockParticleFilter(ring, 64, block_size=2, **kw),
+        lambda: twisted.twisted_pass(ar, 64, torch.Generator(), y, psi, **kw),
+        lambda: twisted.iterated_apf(ar, 64, torch.Generator(), y, **kw),
+        lambda: twisted.TwistCoefficients.identity(5, 1, **kw),
+    )
+
+
+def test_qmc_block_twist_entry_points_refuse_without_a_card(monkeypatch):
+    """Without a card ``SQMC``, ``BlockParticleFilter``, ``twisted_pass``,
+    ``iterated_apf`` (and the twist's constructor) on the default device
+    raise; with ``device="cpu"`` they run."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in _qmc_block_twist_makers(None):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    for make in _qmc_block_twist_makers("cpu"):
+        make()
+
+
+@pytest.mark.cuda
+def test_block_and_twisted_passes_launch_their_kernels_and_sqmc_none(cuda):
+    """On the card the block filter launches the lane kernel once per step
+    (L = blocks lanes), a twisted pass the single-lane kernel once per step,
+    and SQMC neither."""
+    from pyfilter_tpu_torch.filters.particle import twisted
+
+    gen = lambda s: torch.Generator(device=cuda).manual_seed(s)  # noqa: E731
+    _, y = chip_smoke.ar_sim(20, 0, **chip_smoke.QMC)
+    ar = chip_smoke.qmc_ar_model(pt, cuda)
+    lanes_before = expand.fused_expand_lanes.launches
+    res, launches = _counted(lambda: pt.SQMC(ar, 512).batch_filter(gen(0), y))
+    assert torch.isfinite(res.log_likelihood) and launches == 0 and expand.fused_expand_lanes.launches == lanes_before
+    before = expand.fused_expand_lanes.launches
+    ring = chip_smoke.ring_model(pt, 32, cuda, **chip_smoke.BLOCK_RING)
+    y_ring = torch.randn(12, 32, generator=gen(1), device=cuda).cpu().numpy()
+    res, _ = _counted(lambda: pt.BlockParticleFilter(ring, 256, block_size=2).batch_filter(gen(2), y_ring))
+    assert expand.fused_expand_lanes.launches - before == 12 and torch.isfinite(res.log_likelihood)
+    psi = twisted.TwistCoefficients.identity(len(y), 1)
+    out, launches = _counted(lambda: twisted.twisted_pass(ar, 1024, gen(3), y, psi))
+    assert launches == len(y) and torch.isfinite(out.result.log_likelihood)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 2, 4])
+def test_hilbert_argsort_on_card_equals_cpu(cuda, d):
+    cloud = torch.randn(50_000, d, generator=torch.Generator(device=cuda).manual_seed(d), device=cuda)
+    cloud[::5] = cloud[1::5]  # ties
+    assert torch.equal(pt.ops.hilbert_argsort(cloud).cpu(), pt.ops.hilbert_argsort(cloud.cpu()))

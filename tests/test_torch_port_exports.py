@@ -17,19 +17,11 @@ import pytest
 import pyfilter_tpu
 import pyfilter_tpu_torch
 
-_BEYOND = "ROADMAP Queue 1 item 4 (methods beyond the reference)"
-
 #: (module path below the package, name) -> why the port does not have it yet
 NOT_PORTED = {
-    **{("", n): _BEYOND for n in ("BlockParticleFilter", "SQMC")},
     ("", "parallel"): "ROADMAP Queue 1 item 6",
     ("", "enable_compile_cache"): "not queued: it exists only for XLA",
     ("", "interop"): "not queued: the numpyro bridge (no numpyro or pyro to bridge to)",
-    **{("filters", n): _BEYOND for n in ("BlockParticleFilter", "BlockPFState", "SQMC")},
-    **{("filters.particle", n): _BEYOND for n in (
-        "SQMC", "SQMCState", "VarianceEstimate", "eve_indices", "lag_ancestor_indices", "log_likelihood_variance",
-        "filter_mean_variance")},
-    **{("ops", n): _BEYOND + ": ops/hilbert.py with SQMC" for n in ("hilbert_argsort", "hilbert_keys")},
 }
 #: JAX packages the port has no counterpart of yet
 NOT_PORTED_PACKAGES = {"parallel": "ROADMAP Queue 1 item 6"}
@@ -88,6 +80,11 @@ def test_the_list_names_only_jax_exports():
         "Localization", "GaussianMarginalFilter", "RaoBlackwellizedPF")],
     *[(n, "filters") for n in ("KalmanState", "EKFState", "GSFState", "IMMState", "EnKFState", "gaspari_cohn",
                                "LinearSubstructure")],
+    *[(n, where) for where in ("", "filters") for n in ("SQMC", "BlockParticleFilter")],
+    *[(n, "filters") for n in ("BlockPFState", "SQMC")],
+    *[(n, "filters.particle") for n in ("SQMC", "SQMCState", "VarianceEstimate", "eve_indices", "lag_ancestor_indices",
+                                        "log_likelihood_variance", "filter_mean_variance")],
+    *[(n, "ops") for n in ("hilbert_argsort", "hilbert_keys")],
     *[(n, where) for where in ("inference", "inference.sequential") for n in (
         "StorvikFilter", "StorvikResult", "NIGAutoregression", "NIGARUnknownObsVariance", "NIGVectorAutoregression",
         "PoissonGammaCounts")],
