@@ -13,6 +13,7 @@
     python3 chip_smoke.py --inference # phases 1-3 and 16 only
     python3 chip_smoke.py --gaussian  # phases 1-3 and 17 only (17b at the example's 400 samples)
     python3 chip_smoke.py --qmc       # phases 1-3 and 18 only
+    python3 chip_smoke.py --parallel  # phases 1-3 and 19 only
     python3 chip_smoke.py --backward-ab TREE   # TREE's backward kernels against these, one card
 
 Phases, in order; any failure exits non-zero before the result line:
@@ -146,8 +147,8 @@ Phases, in order; any failure exits non-zero before the result line:
    lane and over one run of 64 lanes within 4 SEM + 5% of the float64 Kalman
    score, the backward kernels launched once per resample whose gathered
    values carry a gradient, the uncorrected SISR gradient further off. (c) ``fit_mle`` at
-   ``test_fit_mle_recovers_beta``'s size, within 0.08 of the float64 Kalman
-   MLE. (d) The reference's nutria notebook (``fit_svi``, APF(300), T = 100,
+   ``test_fit_mle_recovers_beta``'s size (MLE_STEPS Adam steps), within 0.08
+   of the float64 Kalman MLE. (d) The reference's nutria notebook (``fit_svi``, APF(300), T = 100,
    500 Adam steps, 4 ELBO samples) from the priors' means: a lower loss, a
    finite guide, each posterior median within NUTRIA_TOL sds between seeds
    of the JAX package's fits (NUTRIA_JAX), one guide sd at least. (e) PMMH on the OU model with the gradient
@@ -158,15 +159,15 @@ Phases, in order; any failure exits non-zero before the result line:
 14. Online smoothing and streaming maximum likelihood (the JAX package's
    ``tests/test_score.py`` and ``tests/test_smoothing_ffbsi.py`` at their
    sizes, but for (a)'s T; TF32 off). (a) ``fit_mle_streaming`` over
-   STREAM_T = 5,000 observations (the test's 10,000, cut) of an AR(1)
+   STREAM_T = 4,000 observations (the test's 10,000, cut) of an AR(1)
    (SISR(500), one Adam step per window of 50, lr 2e-2, from beta 0.3, sigma
    0.7): the fit within STREAM_TOL of the truth, finite window
    log-likelihoods, a path of STREAM_T / 50 rows, K1 once per resample fire; the wall,
    ms a window and host syncs an observation by source. (b) ``online_score``
-   at N = 1e5, T = 200, 8 seeds: each run within rel 0.18 / abs 2.5 of the
+   at N = 1e5, T = 200, 4 seeds: each run within rel 0.18 / abs 2.5 of the
    float64 Kalman score (in beta and log sigma), their mean within 4 SEM + 5%
    (one more run at the default 16 rejection rounds of the backward kernel,
-   the 8 seeds at ONLINE_ROUNDS); K1 on the last cloud; ms and syncs an observation, peak memory; the
+   the 4 seeds at ONLINE_ROUNDS); K1 on the last cloud; ms and syncs an observation, peak memory; the
    transition's score functional by ``vmap(grad)`` and by ``jacfwd`` on one
    cloud. (c) PaRIS on the stochastic-volatility model (5 sub-steps, N = 1000,
    30 observations, the caller's bound) within 15% + 0.5 of FFBSi's functional
@@ -308,6 +309,27 @@ Phases, in order; any failure exits non-zero before the result line:
    its plain version on the last cloud; ms a twisted step and a
    ``learn_twist`` call.
 
+19. The parallel layer (``parallel/collective.py``, ``parallel/sharding.py``
+   and the ``mesh`` option of SMC2, NESS and PMMH) on a gloo group of
+   PAR_WORLD spawned processes, each rank's shards on the one card (NCCL puts
+   no two ranks on one card): (a) main path 1 through
+   ``sharded_batch_filter`` on a ("particles",) mesh, its log-likelihood and
+   filter means against the one-process run at the same seed under
+   ``tests/test_parallel.py:62-91``'s bar (rel 0.02, atol 0.05), the same on
+   every rank, K1 once a fire on each rank (over the gathered cloud), its ms
+   a step and the collectives' share (calls, bytes and host copies a step);
+   (b) main path 2 on a ("lanes",) mesh, 500 lanes a rank: the posterior
+   mean and sd against the one-process fit at the same seed within
+   PAR_POST_RTOL, K2 once an APF step on each rank, the wall against the one
+   process's; (c) ``allgather_systematic``, ``halo_systematic`` and
+   ``distributed_systematic`` at N = 1e6, once on a cloud whose ancestors
+   fit the halo window (halo 1) and once on one forced to the all-gather
+   fallback (all the mass on the last rank, halo 0: on two ranks a halo of
+   one holds the whole ring):
+   indices bit-equal to the one-process ``copy_counts`` + ``invert_counts``
+   and to K1's, each route timed (CUDA events) beside a K1 fire. A rank that
+   fails, or outlives PAR_DEADLINE, fails the phase.
+
 ``--host-probe TREE`` times, with TREE's package and TREE's own phase-11
 fit (``pmmh_fit``), the host time of a lane resample-and-gather call at
 phase 11's shape and one phase-11 fit, and prints them as one JSON line; run
@@ -428,7 +450,7 @@ HYBRID_T, HYBRID_SWITCH, HYBRID_BLOCK = 100, 50, 10
 # reference's stochastic-volatility notebook): SMC2(APF 400) x K = 1000,
 # five PMMH steps with the adaptive distance stop, a Sobol start, T = 500
 NB_N, NB_K, NB_T, NB_STEPS, NB_DISTANCE = 400, 1000, 500, 5, 0.025
-NB_TIMED = 2
+NB_TIMED = 1  # 2 until phase 19 needed the room
 # The JAX package's fits at this configuration on the CPU (its own Sobol
 # engine, seeded per fit; ``tests/test_torch_port_quasi.py`` run as a script,
 # seeds 10-160; PERF.md): per parameter the mean over fits of the posterior
@@ -490,7 +512,7 @@ ORACLE_BATCHED, ORACLE_LANES = ("sisr-bootstrap", "apf-linear"), 3
 # This is what a card-only numeric shows in: TF32, the pinv cut, a
 # factorisation that raises instead of giving NaN.
 ORACLE_STAT = (("sisr-linearized2", "rw2d"), ("gpf-glinearized2", "rw2d"), ("apf-nested", "joint2d"), ("gpf", "ar"))
-ORACLE_STAT_CARD, ORACLE_STAT_CPU = 3, 8
+ORACLE_STAT_CARD, ORACLE_STAT_CPU = 2, 8  # 3 card runs until phase 19 needed the room
 # the runs whose host syncs are counted by source, and (--profile) whose
 # device operations are traced, over ORACLE_SYNC_T steps
 ORACLE_SYNC = (("sisr-linearized2", "rw2d"), ("gpf-glinearized2", "rw2d"))
@@ -527,10 +549,12 @@ NUTRIA_TOL = 4.0
 # at beta SCORE_BETA0 over SCORE_SEEDS runs (or lanes)
 SCORE_ALPHA, SCORE_BETA, SCORE_SIGMA, SCORE_OBS_S = 0.0, 0.8, 0.5, 0.3
 SCORE_T, SCORE_N, SCORE_SEEDS, SCORE_BETA0 = 40, 512, 64, 0.6
-# phase 13c: test_fit_mle_recovers_beta's size: SISR(256), T = 150, 250 Adam
+# phase 13c: test_fit_mle_recovers_beta's size: SISR(256), T = 150, Adam
 # steps at lr 3e-2, within 0.08 of the float64 Kalman MLE (its tolerance).
-# Not cut: at 125 steps the card's fit ended 0.049 from the MLE (0.010 at 250)
-MLE_N, MLE_T, MLE_STEPS, MLE_LR, MLE_TOL = 256, 150, 250, 3e-2, 0.08
+# 250 steps until phase 19 needed the room (the whole script read about 1315
+# s on a slow host): at 125 steps the card's fit ended 0.049 from the MLE,
+# at 250 0.010-0.016, so 150
+MLE_N, MLE_T, MLE_STEPS, MLE_LR, MLE_TOL = 256, 150, 150, 3e-2, 0.08
 # phase 13e: the JAX package's gradient-PMMH tests' model (tests/test_inference.py)
 # at T = 200 with APF(300) and 4 chains; samples cut from 40 to 20 to keep
 # the whole run near 900 s (the 40-sample fits took 19-30 s a proposal)
@@ -548,16 +572,19 @@ COLLAPSE_ALPHA, COLLAPSE_T = 3.0, 10
 # beta 0.3, sigma 0.7, within 0.06 of the truth (its gate); its T = 10,000
 # cut to 5,000 to keep the whole run inside the limit with phase 18 (the
 # 10,000-observation fit took 116.4 s on a slow host; on the CPU the
-# 5,000-observation fit ends 0.026 and 0.023 from the truth)
+# 5,000-observation fit ends 0.026 and 0.023 from the truth), and to 4,000
+# with phase 19 (the whole script read about 1315 s on a slow host)
 STREAM_ALPHA, STREAM_BETA, STREAM_SIGMA, STREAM_OBS = 0.2, 0.7, 0.4, 0.25
-STREAM_T, STREAM_N, STREAM_WINDOW, STREAM_LR, STREAM_START, STREAM_TOL = 5_000, 500, 50, 2e-2, (0.3, 0.7), 0.06
+STREAM_T, STREAM_N, STREAM_WINDOW, STREAM_LR, STREAM_START, STREAM_TOL = 4_000, 500, 50, 2e-2, (0.3, 0.7), 0.06
 # (b) the online score at N = 1e5, T = 200 at tests/test_score.py:33-62's
 # point, each run within its tolerance of the float64 Kalman score. One run
 # at the default 16 rejection rounds of the backward kernel, then the seeds
 # at ONLINE_ROUNDS: the same law (a target that fails every round takes the
 # exact Gumbel-max fallback), and about a fifth of the targets in the
-# fallback, which is 90% of a default run's 18 s at this size
-ONLINE_N, ONLINE_T, ONLINE_SEEDS, ONLINE_AT, ONLINE_RTOL, ONLINE_ATOL = 100_000, 200, 8, (0.5, 0.5), 0.18, 2.5
+# fallback, which is 90% of a default run's 18 s at this size. The seeds cut
+# from 8 to 4 to make room for phase 19 (the mean's gate, 4 SEM + 5%, takes
+# the SEM of the runs it has)
+ONLINE_N, ONLINE_T, ONLINE_SEEDS, ONLINE_AT, ONLINE_RTOL, ONLINE_ATOL = 100_000, 200, 4, (0.5, 0.5), 0.18, 2.5
 ONLINE_ROUNDS = 64
 # (c) tests/test_smoothing_ffbsi.py:214-247 (PaRIS on the stochastic-volatility
 # model, 5 sub-steps, the caller's bound from a floor on the volatility) and
@@ -913,7 +940,7 @@ def main(argv) -> int:
 
     refs, cpu = None, None
     if argv[:1] not in (["--backward-ab"], ["--oracle"], ["--backward"], ["--gradients"], ["--streaming"],
-                        ["--batch"], ["--inference"], ["--gaussian"], ["--qmc"]):
+                        ["--batch"], ["--inference"], ["--gaussian"], ["--qmc"], ["--parallel"]):
         # the CPU references of phases 4, 6 and 9 run in worker processes while the card runs
         refs = ProcessPoolExecutor(CPU_REF_WORKERS, mp_context=multiprocessing.get_context("spawn"))
     try:
@@ -928,7 +955,7 @@ def main(argv) -> int:
 
 def card_phases(torch, pt, _build, expand, copy_counts, argv, cpu) -> int:
     """Phases 1-3, then the mode ``argv`` asks for: one of the partial runs,
-    or phases 4-18 (:func:`full_run`) with ``cpu``, the futures of the CPU
+    or phases 4-19 (:func:`full_run`) with ``cpu``, the futures of the CPU
     references."""
     # -- 1. device --------------------------------------------------------
     card = card_line()
@@ -974,11 +1001,14 @@ def card_phases(torch, pt, _build, expand, copy_counts, argv, cpu) -> int:
     if argv[:1] == ["--qmc"]:
         qmc_blocks(torch, pt, expand, card)
         return 0
+    if argv[:1] == ["--parallel"]:
+        parallel_phase(torch, pt, expand, card)
+        return 0
     return full_run(torch, pt, expand, copy_counts, card, max_err, lanes_err, argv, cpu)
 
 
 def full_run(torch, pt, expand, copy_counts, card, max_err, lanes_err, argv, cpu) -> int:
-    """Phases 4-18 (module docstring), after the kernels' checks; ``cpu``
+    """Phases 4-19 (module docstring), after the kernels' checks; ``cpu``
     holds the futures of the CPU references of phases 4, 6 and 9."""
     import numpy as np
 
@@ -1117,14 +1147,17 @@ def full_run(torch, pt, expand, copy_counts, card, max_err, lanes_err, argv, cpu
     # -- 18. SQMC, the block particle filter, the genealogy estimators, the iterated APF -----
     qmc = qmc_blocks(torch, pt, expand, card)
 
+    # -- 19. the parallel layer: both main paths sharded over two ranks on the card -----
+    par = parallel_phase(torch, pt, expand, card)
+
     k1_paths = {"phase 4": launches, "phase 7": flag_launches, "phase 8": ffbsi_launches, "phase 12": oracle_k1,
                 **{path: c["k1"] for path, c in grads["paths"].items() if c["k1"]}, **stream["paths"], **zoo["k1"],
-                **infl["k1"], **gauss["k1"], **qmc["k1"]}
+                **infl["k1"], **gauss["k1"], **qmc["k1"], **par["k1"]}
     lane_paths = {"phase 5": lanes["launches"], "phase 6": smc2_launches, "phase 8": lane_launches,
                   "phase 9 NESS": ness_launches, "phase 9 hybrids": hybrid_launches, "phase 10": nb_launches,
                   "phase 11": pmmh_launches, "phase 12": oracle_lanes,
                   **{path: c["lanes"] for path, c in grads["paths"].items() if c["lanes"]}, **zoo["lanes"],
-                  **infl["lanes"], **qmc["lanes"]}
+                  **infl["lanes"], **qmc["lanes"], **par["lanes"]}
 
     kernels = [{
         "name": "expand",
@@ -1134,7 +1167,7 @@ def full_run(torch, pt, expand, copy_counts, card, max_err, lanes_err, argv, cpu
         "launches": sum(k1_paths.values()),
         "launches_by_path": k1_paths,
         "max_abs_err": max(max_err, err, flag_err, ffbsi_err, oracle_err, stream["err"], zoo["k1_err"],
-                           infl["k1_err"], gauss["k1_err"], qmc["k1_err"]),
+                           infl["k1_err"], gauss["k1_err"], qmc["k1_err"], par["k1_err"]),
         "ms": k_ms,
         "plain_ms": p_ms,
         "bound_ms": bound_ms,
@@ -1311,10 +1344,11 @@ def apf_lanes(torch, pt, expand, copy_counts, y, card) -> dict:
     return {"err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": bound_ms, "launches": launches}
 
 
-def smc2_fit(torch, pt, y, device: str, seed: int):
+def smc2_fit(torch, pt, y, device: str, seed: int, mesh=None):
     """One fit of phase 6's SMC2 over ``y`` on ``device``, its context and
-    generator seeded from ``seed``: the algorithm, and the posterior mean and
-    sd by name."""
+    generator seeded from ``seed`` (its lanes sharded over ``mesh``'s
+    "lanes" axis with one): the algorithm, and the posterior mean and sd by
+    name, every lane's."""
     from pyfilter_tpu_torch import inference as inf
 
     def gen(s):
@@ -1323,10 +1357,10 @@ def smc2_fit(torch, pt, y, device: str, seed: int):
     ctx = inf.make_context(generator=gen(seed), device=device)
     filt = pt.APF(pt.examples.stochastic_volatility_builder, SMC2_N, record_moments=False, device=device)
     alg = inf.SMC2(filt, SMC2_K, threshold=SMC2_THRESHOLD, num_steps=SMC2_STEPS, context=ctx,
-                   generator=gen(seed + 1), record_moments=False, device=device)
+                   generator=gen(seed + 1), record_moments=False, device=device, mesh=mesh)
     state = alg.fit(y)
     w = state.normalized_weights()
-    stacked = ctx.stack_parameters(constrained=True)
+    stacked = state.lanes.gather(ctx.stack_parameters(constrained=True))
     mean = w @ stacked
     sd = torch.sqrt(torch.clamp(w @ torch.square(stacked - mean), min=1e-12))
     if device == "cuda":
@@ -1867,7 +1901,7 @@ def notebook(torch, pt, expand, card, profile: bool = False):
     the distance stop. Returns the lane kernel's launches over the timed fits
     and its largest difference from the plain version on the last cloud."""
     y = simulate_obs(NB_T)
-    notebook_fit(torch, pt, y, "cuda", 0)  # warm-up
+    notebook_fit(torch, pt, y, "cuda", 0, t_obs=100)  # warm-up (over 100 observations: room for phase 19)
     expand.fused_expand.launches = expand.fused_expand_lanes.launches = 0
     pt.APF.corrections = 0
     for rep in range(NB_TIMED):
@@ -2485,9 +2519,10 @@ def oracle_suite(torch, pt, expand, card, profile: bool = False) -> tuple:
 
 def hessian_cost(torch, pt, card, reps: int = 20) -> None:
     """Host milliseconds of one damped-Newton Hessian at phase 12's size on
-    the 2-D walk: the port's columns (``torch.func.jvp`` of the gradient,
-    forward over reverse) against rows from ``torch.func.vjp`` (reverse over
-    reverse), which give the same symmetric matrix; and of one gradient."""
+    the 2-D walk: the port's rows (``torch.func.vjp`` of the gradient,
+    reverse over reverse; since PR 16) against the JAX package's columns by
+    ``torch.func.jvp`` (forward over reverse), the same symmetric matrix; and
+    of one gradient."""
     from pyfilter_tpu_torch.filters.particle.proposals import utils as putils
 
     model = oracle_model(pt, "rw2d", "cuda")
@@ -2497,8 +2532,7 @@ def hessian_cost(torch, pt, card, reps: int = 20) -> None:
                                                        x, torch.tensor([0.1, -0.2], device="cuda")))
 
     def rows():
-        pull = torch.func.vjp(grad_fn, x.value)[1]
-        return torch.stack([pull(t)[0] for t in putils._unit_tangents(x.value, 1)], dim=-2)
+        return putils._per_particle_hessian(grad_fn, x.value, 1)
 
     def host_ms(fn):
         fn()
@@ -2510,7 +2544,8 @@ def hessian_cost(torch, pt, card, reps: int = 20) -> None:
         return (time.perf_counter() - t0) / reps * 1e3
 
     def cols():
-        return putils._per_particle_hessian(grad_fn, x.value, 1)
+        return torch.stack([torch.func.jvp(grad_fn, (x.value,), (t,))[1]
+                            for t in putils._unit_tangents(x.value, 1)], dim=-1)
 
     gap = float((cols() - rows()).abs().max() / cols().abs().max())
     print(f"  one Hessian (N={ORACLE_N}, d=2): jvp columns {host_ms(cols):.3f} ms, vjp rows {host_ms(rows):.3f} ms, "
@@ -3071,8 +3106,8 @@ def score_gate(torch, pt, expand, card) -> dict:
 
 
 def mle_gate(torch, pt, expand, card) -> dict:
-    """Phase 13c: ``fit_mle`` at ``test_fit_mle_recovers_beta``'s size on the
-    card, within MLE_TOL of the float64 Kalman MLE on a 60-point grid, its
+    """Phase 13c: ``fit_mle`` at ``test_fit_mle_recovers_beta``'s size (MLE_STEPS
+    Adam steps) on the card, within MLE_TOL of the float64 Kalman MLE on a 60-point grid, its
     loss lower at the end. Returns the launches by kernel."""
     import numpy as np
 
@@ -4352,7 +4387,7 @@ def waste_free_phase(torch, pt, expand, card, y, std_per_rejuv: float) -> dict:
     """Phase 16b (module docstring)."""
     t_phase = time.perf_counter()
     counted = counted_apf(pt)
-    wf_fit(torch, pt, y, "cuda", 0, counted)  # warm-up
+    wf_fit(torch, pt, y[:50], "cuda", 0, counted)  # warm-up (over 50 observations: room for phase 19)
     m = SMC2_K // (WF_STEPS + 1)
     out = {"launches": 0, "err": 0.0}
     for rep in range(WF_TIMED):
@@ -5657,6 +5692,242 @@ def qmc_blocks(torch, pt, expand, card) -> dict:
                    "phase 18e": twist["launches"]},
             "lanes": {"phase 18b": block["launches"]}, "k1_err": twist["err"], "lanes_err": block["err"],
             "block": block}
+
+
+# phase 19: the parallel layer (parallel/collective.py, parallel/sharding.py, the mesh option) on the card. A gloo
+# group of PAR_WORLD processes, started with the spawn method, each rank's shards on the one card: the smoke line
+# counts one card, and NCCL puts no two ranks on one card, so the exchanges travel through host copies. (a) main
+# path 1 (SISR, N = 1e6, T = 200) through sharded_batch_filter on a ("particles",) mesh against the one-process run
+# at the same seed, under tests/test_parallel.py:62-91's bar; (b) main path 2 (SMC2, APF 400 x 1000 lanes) on a
+# ("lanes",) mesh against the one-process fit at the same seed, within PAR_POST_RTOL (the lane count sets the
+# rounding of the per-step reductions over the particle axis); (c) the collectives at N = 1e6, each route's indices
+# bit-equal to one-process copy_counts + invert_counts and to K1's, each timed beside a K1 fire.
+PAR_WORLD = 2
+PAR_DEADLINE = 600  # s: a child that hangs, or dies, fails the phase
+PAR_SEED, PAR_SMC2_SEED, PAR_WARM_T = 7, 10, 20
+PAR_LL_RTOL, PAR_MEAN_ATOL = 0.02, 0.05  # tests/test_parallel.py:62-91
+PAR_POST_RTOL = 1e-5
+PAR_REPS = 10  # 19c: timed calls a route (CUDA events, median)
+
+
+def _par_routes(torch, pt, probs, u, v2d, group, rank: int, world: int, halo: int) -> dict:
+    """19c on this rank: every systematic route of ``parallel.collective`` from
+    this rank's rows of the probabilities ``probs`` (all N on every rank), the
+    halo routes with ``halo`` neighbours, its indices against the one-process
+    counts and K1's, each route timed (CUDA events, median of PAR_REPS) beside
+    one K1 fire over the whole cloud."""
+    from pyfilter_tpu_torch.ops import expand
+    from pyfilter_tpu_torch.ops.resample import copy_counts, invert_counts
+    from pyfilter_tpu_torch.parallel import _comm, collective as col
+
+    n = probs.shape[0]
+    rows = slice(rank * n // world, (rank + 1) * n // world)
+    local, v_local = probs[rows].contiguous(), v2d[:, rows].T.contiguous()
+    ref = invert_counts(copy_counts(probs, u))[rows]
+    k1_out, k1_idx = expand.fused_expand(probs, u, v2d)
+    plain_out, _ = expand._expand_probs_plain(probs, u, v2d)
+    routes = {
+        "allgather": lambda: col.allgather_systematic(None, local, group, normalized=True, u=u),
+        "halo": lambda: col.halo_systematic(None, local, group, halo, normalized=True, u=u)[0],
+        "composed": lambda: col.distributed_systematic(None, local, v_local, group, halo, normalized=True, u=u)[1],
+    }
+    out = {"k1_equal": bool(torch.equal(k1_idx[rows], ref)), "k1_err": float((k1_out - plain_out).abs().max()),
+           "fits": bool(col.halo_systematic(None, local, group, halo, normalized=True, u=u)[2])}
+
+    def ms(fn):
+        times = []
+        for _ in range(PAR_REPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(sorted(times)[len(times) // 2])
+
+    for name, fn in routes.items():
+        idx = fn()
+        out[name] = {"equal": bool(torch.equal(idx, ref)), "k1_equal": bool(torch.equal(idx, k1_idx[rows]))}
+        _comm.reset()
+        out[name]["ms"] = ms(fn)
+        out[name]["comm"] = _comm.counts()
+    out["k1_ms"] = ms(lambda: expand.fused_expand(probs, u, v2d))
+    return out
+
+
+def parallel_rank(rank: int, world: int, store: str, out_path: str) -> None:
+    """One rank of phase 19 (a spawned process): joins the gloo group, runs
+    19a-19c on its shards and writes its readings to ``out_path`` (JSON)."""
+    import torch
+    import torch.distributed as dist
+
+    import pyfilter_tpu_torch as pt
+    from pyfilter_tpu_torch.ops import expand
+    from pyfilter_tpu_torch.parallel import _comm
+    from pyfilter_tpu_torch.parallel._shards import ParticleShard
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=_comm.TIMEOUT)
+    try:
+        mesh = pt.parallel.make_mesh()
+        y = simulate_obs(N_OBS)
+        res = {}
+
+        def gen(s):
+            return torch.Generator(device="cuda").manual_seed(s)
+
+        # -- 19a: main path 1 on a ("particles",) mesh
+        model = pt.examples.stochastic_volatility_model(KAPPA, GAMMA, SIGMA, MU, NU, TAU, dt=DT)
+        filt = pt.SISR(model, N_PARTICLES)
+        pt.parallel.sharded_batch_filter(filt, gen(PAR_SEED), y[:PAR_WARM_T], mesh)  # warm-up
+        _zero_counts(expand)
+        ParticleShard.fires = 0
+        _comm.reset()
+        out, wall = timed(torch, lambda: pt.parallel.sharded_batch_filter(filt, gen(PAR_SEED), y, mesh))
+        res["19a"] = {"ll": float(out.log_likelihood), "means": out.filter_means.tolist(), "wall": wall,
+                      "launches": expand.fused_expand.launches, "fires": ParticleShard.fires,
+                      "comm": _comm.counts(), "cloud": list(out.latest_state.x.value.shape)}
+
+        # -- 19b: main path 2 on a ("lanes",) mesh
+        lanes = pt.parallel.make_mesh((world,), ("lanes",))
+        smc2_fit(torch, pt, y[:PAR_WARM_T], "cuda", PAR_SMC2_SEED, mesh=lanes)  # warm-up
+        _zero_counts(expand)
+        pt.APF.corrections = 0
+        _comm.reset()
+        (alg, mean, sd), wall = timed(torch, lambda: smc2_fit(torch, pt, y, "cuda", PAR_SMC2_SEED, mesh=lanes))
+        k = alg.kernel
+        res["19b"] = {"mean": mean, "sd": sd, "wall": wall, "launches": expand.fused_expand_lanes.launches,
+                      "steps": pt.APF.corrections, "comm": _comm.counts(), "rejuvenations": k.n_rejuvenations,
+                      "transitions": k.n_transitions, "lanes": list(alg.filter.batch_shape)}
+
+        # -- 19c: the collectives at N = 1e6
+        g = gen(PAR_SEED + 1)
+        probs = torch.softmax(torch.randn(N_PARTICLES, generator=g, device="cuda") * 2.0, 0)
+        bad = torch.full((N_PARTICLES,), -math.inf, device="cuda")
+        bad[-100:] = 0.0  # every ancestor on the last rank: the halo window cannot hold them
+        u = torch.rand((), generator=g, device="cuda")
+        v2d = torch.randn(1, N_PARTICLES, generator=g, device="cuda")
+        group = mesh.get_group("particles")
+        # on two ranks a halo of one holds the whole ring: the fallback needs a halo of none
+        res["19c"] = {name: _par_routes(torch, pt, p, u, v2d, group, rank, world, halo)
+                      for name, p, halo in (("fits", probs, 1), ("fallback", torch.softmax(bad, 0), 0))}
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def parallel_phase(torch, pt, expand, card) -> dict:
+    """Phase 19 (module docstring): the one-process references here, then the
+    PAR_WORLD ranks in spawned processes; their readings against the
+    references and each other. Returns the kernels' launches on its main
+    paths and K1's largest error against its plain version."""
+    t_phase = time.perf_counter()
+    y = simulate_obs(N_OBS)
+
+    def gen(s):
+        return torch.Generator(device="cuda").manual_seed(s)
+
+    model = pt.examples.stochastic_volatility_model(KAPPA, GAMMA, SIGMA, MU, NU, TAU, dt=DT)
+    filt = pt.SISR(model, N_PARTICLES)
+    filt.batch_filter(gen(PAR_SEED), y[:PAR_WARM_T])  # warm-up
+    one, one_wall = timed(torch, lambda: filt.batch_filter(gen(PAR_SEED), y))
+    smc2_fit(torch, pt, y[:PAR_WARM_T], "cuda", PAR_SMC2_SEED)  # warm-up
+    (_, one_mean, one_sd), one_fit_wall = timed(torch, lambda: smc2_fit(torch, pt, y, "cuda", PAR_SMC2_SEED))
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", f"parallel-{os.getpid()}")
+    os.makedirs(work, exist_ok=True)
+    spawn = multiprocessing.get_context("spawn")
+    outs = [os.path.join(work, f"rank{r}.json") for r in range(PAR_WORLD)]
+    procs = [spawn.Process(target=parallel_rank, args=(r, PAR_WORLD, os.path.join(work, "store"), outs[r]))
+             for r in range(PAR_WORLD)]
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(max(PAR_DEADLINE - (time.perf_counter() - t0), 1.0))
+        if any(p.is_alive() for p in procs):
+            raise AssertionError(f"phase 19: a rank did not finish within {PAR_DEADLINE} s")
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            raise AssertionError(f"phase 19: the ranks exited with {codes}")
+    finally:
+        for p in procs:
+            if p.pid is not None and p.is_alive():
+                p.terminate()
+            if p.pid is not None:
+                p.join(10)
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    group_wall = time.perf_counter() - t0
+
+    # -- 19a
+    one_ll, one_means = float(one.log_likelihood), one.filter_means.cpu()
+    a = [r["19a"] for r in ranks]
+    gap = abs(a[0]["ll"] - one_ll) / abs(one_ll)
+    mean_gap = float((torch.tensor(a[0]["means"]) - one_means).abs().max())
+    comm = a[0]["comm"]
+    comm_s = sum(v["seconds"] for k, v in comm.items() if k != "host_copies")
+    print(f"phase 19a: SISR N={N_PARTICLES} T={N_OBS} x{OES} sub-steps on {PAR_WORLD} gloo ranks (one card): "
+          f"log-likelihood {a[0]['ll']} (one process {one_ll}, rel gap {gap:.6f}, limit {PAR_LL_RTOL}); filter means "
+          f"max gap {mean_gap:.6f} (limit {PAR_MEAN_ATOL}); shard {a[0]['cloud']}; K1 launches "
+          f"{[r['launches'] for r in a]} for fires {[r['fires'] for r in a]}")
+    print(f"  wall {a[0]['wall']:.4f} s, {a[0]['wall'] / N_OBS * 1e3:.4f} ms a step (one process {one_wall:.4f} s, "
+          f"{one_wall / N_OBS * 1e3:.4f} ms a step); collectives {comm_s:.4f} s ({comm_s / a[0]['wall']:.4f} of the "
+          f"wall), a step: {comm['all_reduce']['calls'] / N_OBS:.2f} all-reduces, {comm['all_gather']['calls'] / N_OBS:.2f}"
+          f" all-gathers, {(comm['all_reduce']['bytes'] + comm['all_gather']['bytes']) / N_OBS:.1f} bytes sent, "
+          f"{comm['host_copies'] / N_OBS:.2f} host copies; card {card}")
+    if not (gap < PAR_LL_RTOL and mean_gap < PAR_MEAN_ATOL and len({r["ll"] for r in a}) == 1):
+        raise AssertionError(f"phase 19a: sharded {[r['ll'] for r in a]} against one process {one_ll}, "
+                             f"means gap {mean_gap}")
+    if not all(r["launches"] == r["fires"] > 0 for r in a):
+        raise AssertionError(f"phase 19a: K1 launches {[r['launches'] for r in a]}, fires {[r['fires'] for r in a]}")
+
+    # -- 19b
+    b = [r["19b"] for r in ranks]
+    rel = max(abs(b[0][key][n] - ref[n]) / max(abs(ref[n]), 1e-30)
+              for key, ref in (("mean", one_mean), ("sd", one_sd)) for n in ref)
+    exact = all(b[0][key] == ref for key, ref in (("mean", one_mean), ("sd", one_sd)))
+    comm = b[0]["comm"]
+    print(f"phase 19b: SMC2(APF({SMC2_N}), {SMC2_K}) on {PAR_WORLD} lane ranks ({b[0]['lanes']} lanes a rank), "
+          f"T={N_OBS}: posterior mean {b[0]['mean']}, sd {b[0]['sd']}; one process: mean {one_mean}, sd {one_sd}; "
+          f"largest relative gap {rel:.3e} (limit {PAR_POST_RTOL}; bit-equal: {exact}); rejuvenations "
+          f"{b[0]['rejuvenations']}, transitions {b[0]['transitions']}; K2 launches {[r['launches'] for r in b]} for "
+          f"APF steps {[r['steps'] for r in b]}")
+    print(f"  wall {b[0]['wall']:.4f} s (one process {one_fit_wall:.4f} s); collectives "
+          f"{sum(v['seconds'] for k, v in comm.items() if k != 'host_copies'):.4f} s: all-gathers "
+          f"{comm['all_gather']['calls']} ({comm['all_gather']['bytes']} bytes), all-reduces "
+          f"{comm['all_reduce']['calls']}, host copies {comm['host_copies']}; card {card}")
+    if not (rel < PAR_POST_RTOL and all(r["mean"] == b[0]["mean"] for r in b)):
+        raise AssertionError(f"phase 19b: posterior {[r['mean'] for r in b]} against one process {one_mean}")
+    if not all(r["launches"] == r["steps"] > 0 for r in b):
+        raise AssertionError(f"phase 19b: K2 launches {[r['launches'] for r in b]}, APF steps {[r['steps'] for r in b]}")
+
+    # -- 19c
+    k1_err = 0.0
+    for case in ("fits", "fallback"):
+        c = [r["19c"][case] for r in ranks]
+        k1_err = max(k1_err, *(x["k1_err"] for x in c))
+        line = "; ".join(f"{name} {c[0][name]['ms']:.4f} ms ({c[0][name]['comm']['all_gather']['calls']} gathers, "
+                         f"{c[0][name]['comm']['ring_shift']['calls']} ring shifts, "
+                         f"{c[0][name]['comm']['host_copies']} host copies)" for name in ("allgather", "halo", "composed"))
+        print(f"phase 19c: N={N_PARTICLES} on {PAR_WORLD} ranks, {case} (halo {1 if case == 'fits' else 0}; fits: "
+              f"{[x['fits'] for x in c]}): {line}; "
+              f"K1 fire {c[0]['k1_ms']:.4f} ms; card {card}")
+        ok = all(x["k1_equal"] and all(x[n]["equal"] and x[n]["k1_equal"] for n in ("allgather", "halo", "composed"))
+                 for x in c if case == "fits") and all(x["fits"] == (case == "fits") for x in c)
+        ok = ok and all(x["k1_equal"] and x["allgather"]["equal"] and x["composed"]["equal"] for x in c)
+        if not ok or k1_err:
+            raise AssertionError(f"phase 19c ({case}): routes against one process and K1: {c}")
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s (the group {group_wall:.1f} s)")
+    return {"k1": {"phase 19a": sum(r["launches"] for r in a)}, "lanes": {"phase 19b": sum(r["launches"] for r in b)},
+            "k1_err": k1_err}
 
 
 def apf_bias(torch, pt, seeds: int) -> int:

@@ -38,7 +38,7 @@ Verhulst, sine-diffusion, Lorenz-63 and nutria models.
 
 __version__ = "0.1.0"
 
-from . import convert, distributions, examples, filters, inference, io, ops, resampling, timeseries, utils
+from . import convert, distributions, examples, filters, inference, io, ops, parallel, resampling, timeseries, utils
 from .filters import (
     APF,
     GPF,
@@ -82,6 +82,7 @@ __all__ = [
     "io",
     "resampling",
     "ops",
+    "parallel",
     "timeseries",
     "utils",
     "SISR",

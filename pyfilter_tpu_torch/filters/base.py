@@ -162,7 +162,8 @@ class BaseFilter:
                 on_substep(prediction)
         if nan_row == "skip":
             return prediction.create_state_from_prediction(
-                generator, self.model, compute_moments=getattr(self, "record_moments", True)
+                generator, self.model, compute_moments=getattr(self, "record_moments", True),
+                shard=getattr(self, "_shard", None)
             )
         if nan_row == "impute":
             y = self._impute(generator, y, prediction)
@@ -199,7 +200,10 @@ class BaseFilter:
 
         step_lls = torch.stack(lls)
         return FilterResult(
-            log_likelihood=torch.sum(step_lls, dim=0),
+            # each lane's steps summed along a contiguous row: the bits of a
+            # lane then do not depend on how many lanes run beside it (a
+            # lane-sharded run's are the one-process run's)
+            log_likelihood=torch.sum(step_lls.movedim(0, -1).contiguous(), dim=-1),
             step_log_likelihoods=step_lls,
             filter_means=torch.stack(means),
             filter_variances=torch.stack(variances),

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from ...utils import batched_gather, log_likelihood
+from ...utils import batched_gather
 from ..state import ParticleFilterCorrection, ParticleFilterPrediction
 from .base import ParticleFilter
 
@@ -24,7 +24,7 @@ class APF(ParticleFilter):
 
     def predict(self, generator, state) -> ParticleFilterPrediction:
         """Pass-through: the APF resamples inside :meth:`correct`."""
-        return ParticleFilterPrediction(state.x, state.log_weights, state.normalized_weights(), self._identity)
+        return ParticleFilterPrediction(state.x, state.log_weights, self._normalize(state.log_weights), self._identity)
 
     def correct(self, generator, y, prediction) -> ParticleFilterCorrection:
         """Pre-weight with :math:`p(y_t | E[x_t])`, resample on the combined
@@ -51,7 +51,7 @@ class APF(ParticleFilter):
             corr = None
             zeros = torch.zeros_like(resample_weights)
             resampled = ParticleFilterPrediction(
-                ts_state.copy(values=res_vals), zeros, zeros + 1.0 / self.n_particles, indices
+                ts_state.copy(values=res_vals), zeros, zeros + 1.0 / self._n_total, indices
             )
 
         x, inc_weights = self.proposal.sample_and_weight(generator, self.model, y, resampled)
@@ -60,9 +60,8 @@ class APF(ParticleFilter):
             weights = weights + corr
         # log(sum w * exp(pre)) as the JAX package writes it (no max shift),
         # so the two packages round alike
-        aux_norm = torch.log(torch.sum(prediction.normalized_weights * torch.exp(pre_weights), dim=0))
-        ll = log_likelihood(weights) + aux_norm
+        aux = torch.sum(prediction.normalized_weights * torch.exp(pre_weights), dim=0)
+        aux_norm = torch.log(aux if self._shard is None else self._shard.psum(aux))
+        ll = self._log_likelihood(weights) + aux_norm
         APF.corrections += 1
-        return ParticleFilterCorrection.from_weighted_particles(
-            x, weights, ll, indices, compute_moments=self.record_moments
-        )
+        return self._correction(x, weights, ll, indices)

@@ -16,7 +16,7 @@ import torch
 from ...ops import systematic_counts, systematic_expand, systematic_expand_lanes
 from ...resampling import systematic_m
 from ...timeseries import TimeseriesState
-from ...utils import batched_gather, normalize_log, same_device
+from ...utils import batched_gather, get_ess, log_likelihood, normalize, normalize_log, same_device
 from ..base import BaseFilter
 from ..result import FilterHistory, FilterResult
 from ..state import ParticleFilterCorrection
@@ -100,7 +100,17 @@ class ParticleFilter(BaseFilter):
     (:meth:`_ancestor_correction`) through every resample, so that the
     log-likelihood estimate is differentiable in the model's parameters with
     the right expected gradient; its forward values are those of the default
-    path."""
+    path.
+
+    ``parallel.sharding`` runs a filter over one rank's shard of the particle
+    axis by setting ``_shard`` (a ``parallel`` particle shard; None, the
+    default, holds the whole cloud): ``n_particles`` is then the rank's count,
+    the weight operations of a step (:meth:`_normalize`, :meth:`_ess`,
+    :meth:`_log_likelihood`, the moments) reduce over every rank's particles,
+    and the fused resample runs over the gathered cloud."""
+
+    #: the particle shard this filter runs on (``parallel.sharding``)
+    _shard = None
 
     def __init__(
         self,
@@ -139,13 +149,41 @@ class ParticleFilter(BaseFilter):
     def _identity(self) -> torch.Tensor:
         """Identity ancestry ``(N, *batch)`` (cached per particle shape)."""
         if self._identity_cache is None or tuple(self._identity_cache.shape) != self.particles:
-            ar = torch.arange(self.n_particles, dtype=torch.int32, device=self.device)
+            lo = 0 if self._shard is None else self._shard.rank * self.n_particles
+            ar = torch.arange(lo, lo + self.n_particles, dtype=torch.int32, device=self.device)
             self._identity_cache = ar.reshape((-1,) + (1,) * len(self.batch_shape)).expand(self.particles)
         return self._identity_cache
 
     def _use_fused_resample(self, value: torch.Tensor) -> bool:
         return (value.dtype == torch.float32 and self.resampler is systematic_counts
-                and math.prod(self.particles) < 1 << 24)
+                and math.prod(self.particles) * self._n_total // self.n_particles < 1 << 24)
+
+    @property
+    def _n_total(self) -> int:
+        """The particles of the whole cloud, every rank's shard included."""
+        return self.n_particles if self._shard is None else self.n_particles * self._shard.size
+
+    def _filter(self, generator, y, nan_row, state, first_step: bool, on_substep=None):
+        if self._shard is not None:
+            self._shard.n_local = self.n_particles
+        return super()._filter(generator, y, nan_row, state, first_step, on_substep=on_substep)
+
+    # -- weight operations over the whole cloud (every rank's, when sharded) --
+    def _normalize(self, log_weights: torch.Tensor) -> torch.Tensor:
+        return normalize(log_weights) if self._shard is None else self._shard.normalize(log_weights)
+
+    def _ess(self, probs: torch.Tensor) -> torch.Tensor:
+        return get_ess(probs, normalized=True) if self._shard is None else self._shard.ess(probs)
+
+    def _log_likelihood(self, inc_weights: torch.Tensor, probs: torch.Tensor | None = None) -> torch.Tensor:
+        if self._shard is None:
+            return log_likelihood(inc_weights, probs)
+        return self._shard.log_likelihood(inc_weights, probs)
+
+    def _correction(self, x, log_weights, ll, indices) -> ParticleFilterCorrection:
+        return ParticleFilterCorrection.from_weighted_particles(
+            x, log_weights, ll, indices, compute_moments=self.record_moments, shard=self._shard
+        )
 
     def resample_uniform(self, generator) -> torch.Tensor:
         """The fused systematic resample's uniforms, one per lane, drawn from
@@ -154,8 +192,11 @@ class ParticleFilter(BaseFilter):
 
     def _fused_resample(self, generator, weights, values, normalized: bool = False):
         """Resample + gather ``values`` by ``weights`` in one pass: the lane
-        kernel for a lane batch, the single-lane kernel otherwise."""
+        kernel for a lane batch, the single-lane kernel otherwise (over the
+        gathered cloud, when sharded)."""
         u = self.resample_uniform(generator)
+        if self._shard is not None:
+            return self._shard.resample(u, weights if normalized else self._shard.normalize(weights), values)
         expand = systematic_expand_lanes if self.batch_shape else systematic_expand
         return expand(None, weights, values, normalized=normalized, u=u)
 
@@ -177,7 +218,7 @@ class ParticleFilter(BaseFilter):
 
     @property
     def resample_threshold(self) -> float:
-        return self.ess_threshold * self.n_particles
+        return self.ess_threshold * self._n_total
 
     def increase_particles(self, factor: int) -> "ParticleFilter":
         """A filter with ``factor`` times the particles."""
@@ -185,12 +226,12 @@ class ParticleFilter(BaseFilter):
 
     def initialize(self, generator) -> ParticleFilterCorrection:
         """Initial cloud with zero log-weights and identity ancestry."""
+        if self._shard is not None:
+            self._shard.n_local = self.n_particles
         x = self.model.hidden.initial_sample(generator, self.particles)
         weights = torch.zeros(self.particles, dtype=x.value.dtype, device=self.device)
         ll = torch.zeros(self.batch_shape, dtype=x.value.dtype, device=self.device)
-        return ParticleFilterCorrection.from_weighted_particles(
-            x, weights, ll, self._identity, compute_moments=self.record_moments
-        )
+        return self._correction(x, weights, ll, self._identity)
 
     # -- smoothing ------------------------------------------------------------
     def smooth(self, generator, states, method: str = "ffbs", **kwargs) -> torch.Tensor:

@@ -12,8 +12,9 @@ digits.
 :func:`find_mode` takes every particle's gradient from one
 ``torch.func.grad`` of the summed objective (valid because the objective is
 a sum of per-particle terms) and every particle's Hessian from ``d``
-``torch.func.jvp`` calls on that gradient, one per column, as the JAX
-package does: no loop over particles. Its damped-Newton step goes through
+``torch.func.vjp`` pull-backs of that gradient, one per row (the JAX package
+takes the same symmetric matrix as ``d`` forward-mode columns): no loop over
+particles. Its damped-Newton step goes through
 ``eigvalsh`` and ``pinv``, which on the card wait for their error status on
 the host.
 """
@@ -138,12 +139,16 @@ def _unit_tangents(x: torch.Tensor, event_ndim: int) -> list:
 
 
 def _per_particle_hessian(grad_fn: Callable, x: torch.Tensor, event_ndim: int) -> torch.Tensor:
-    """Every particle's Hessian from forward-mode products of the gradient:
-    particle ``i``'s gradient depends on ``x_i`` only, so the product with
-    ``e_j`` on every particle is column ``j`` of every Hessian at once.
+    """Every particle's Hessian from reverse-mode products of the gradient:
+    particle ``i``'s gradient depends on ``x_i`` only, so the pull-back of
+    ``e_j`` on every particle is row ``j`` of every Hessian at once. The
+    Hessian is symmetric, so the rows are the JAX package's forward-mode
+    columns; one linearization and ``d`` pull-backs take about a quarter of
+    the host time of ``d`` forward-mode columns (``chip_smoke.hessian_cost``).
     ``(N, *batch)`` for a scalar state, ``(N, *batch, d, d)`` otherwise."""
-    cols = [torch.func.jvp(grad_fn, (x,), (t,))[1] for t in _unit_tangents(x, event_ndim)]
-    return cols[0] if event_ndim == 0 else torch.stack(cols, dim=-1)
+    pull = torch.func.vjp(grad_fn, x)[1]
+    rows = [pull(t)[0] for t in _unit_tangents(x, event_ndim)]
+    return rows[0] if event_ndim == 0 else torch.stack(rows, dim=-2)
 
 
 def _pinv_rtol(d: int, dtype) -> float:

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from ...utils import batched_gather, get_ess, log_likelihood
+from ...utils import batched_gather
 from ..state import ParticleFilterCorrection, ParticleFilterPrediction
 from .base import ParticleFilter
 
@@ -26,8 +26,8 @@ class SISR(ParticleFilter):
         ``differentiable``); otherwise it passes through with identity
         ancestor indices (never the previous step's, which the fixed-lag
         smoother would trace)."""
-        normalized = state.normalized_weights()
-        ess = get_ess(normalized, normalized=True)
+        normalized = self._normalize(state.log_weights)
+        ess = self._ess(normalized)
         ts_state = state.x
         if self.batch_shape:
             return self._resample_lanes(generator, state, normalized, ess)
@@ -42,7 +42,7 @@ class SISR(ParticleFilter):
         return ParticleFilterPrediction(
             ts_state.copy(values=new_vals),
             torch.zeros_like(state.log_weights),
-            torch.full_like(normalized, 1.0 / self.n_particles),
+            torch.full_like(normalized, 1.0 / self._n_total),
             indices,
         )
 
@@ -66,7 +66,7 @@ class SISR(ParticleFilter):
             corr = self._ancestor_correction(state.log_weights, fresh_idx)
             reset_w, reset_norm = corr, torch.softmax(corr, dim=0)
         else:
-            reset_w, reset_norm = 0.0, 1.0 / self.n_particles
+            reset_w, reset_norm = 0.0, 1.0 / self._n_total
         return ParticleFilterPrediction(
             ts_state.copy(values=torch.where(vals_mask, resampled, ts_state.value)),
             torch.where(mask, reset_w, state.log_weights),
@@ -78,7 +78,5 @@ class SISR(ParticleFilter):
         """Propose, accumulate weights, estimate the per-step log-likelihood."""
         x, inc_weights = self.proposal.sample_and_weight(generator, self.model, y, prediction)
         new_weights = inc_weights + prediction.log_weights
-        ll = log_likelihood(inc_weights, prediction.normalized_weights)
-        return ParticleFilterCorrection.from_weighted_particles(
-            x, new_weights, ll, prediction.indices, compute_moments=self.record_moments
-        )
+        ll = self._log_likelihood(inc_weights, prediction.normalized_weights)
+        return self._correction(x, new_weights, ll, prediction.indices)

@@ -29,13 +29,15 @@ class ParticleFilterPrediction(NamedTuple):
     def get_timeseries_state(self) -> TimeseriesState:
         return self.x
 
-    def create_state_from_prediction(self, generator, model, compute_moments: bool = True) -> "ParticleFilterCorrection":
-        """Propagate the hidden process without correcting (the all-NaN skip)."""
+    def create_state_from_prediction(self, generator, model, compute_moments: bool = True,
+                                     shard=None) -> "ParticleFilterCorrection":
+        """Propagate the hidden process without correcting (the all-NaN skip);
+        ``shard`` as :meth:`ParticleFilterCorrection.from_weighted_particles`."""
         x_new = model.hidden.propagate(generator, self.x)
         ll = torch.zeros(self.normalized_weights.shape[1:], dtype=self.normalized_weights.dtype,
                          device=self.normalized_weights.device)
         return ParticleFilterCorrection.from_weighted_particles(
-            x_new, self.log_weights, ll, self.indices, compute_moments=compute_moments
+            x_new, self.log_weights, ll, self.indices, compute_moments=compute_moments, shard=shard
         )
 
     def get_predictive_density(self, model, generator=None, approximate: bool = False) -> Distribution:
@@ -69,10 +71,16 @@ class ParticleFilterCorrection(NamedTuple):
 
     @classmethod
     def from_weighted_particles(
-        cls, x: TimeseriesState, log_weights, log_likelihood, prev_indices, compute_moments: bool = True
+        cls, x: TimeseriesState, log_weights, log_likelihood, prev_indices, compute_moments: bool = True, shard=None
     ):
+        """The corrected state with its weighted moments; ``shard`` (a
+        ``parallel`` particle shard) makes them the whole cloud's: the
+        probabilities normalized over every rank's particles and each local
+        weighted sum all-reduced."""
         if compute_moments:
-            mean, var = get_mean_and_variance(x.value, normalize(log_weights), event_ndim=x.event_ndim)
+            probs = normalize(log_weights) if shard is None else shard.normalize(log_weights)
+            mean, var = get_mean_and_variance(x.value, probs, event_ndim=x.event_ndim,
+                                              reduce=None if shard is None else shard.psum)
         else:
             mean = torch.zeros_like(log_likelihood)
             var = torch.zeros_like(log_likelihood)
@@ -110,18 +118,23 @@ class ParticleFilterCorrection(NamedTuple):
         return model.sample_states(generator, num_steps, x_0=self.x)
 
     # -- lane surgery (JAX filters/state.py:139-202) ---------------------------
-    def resample(self, indices: torch.Tensor) -> "ParticleFilterCorrection":
+    def resample(self, indices: torch.Tensor, lanes=None) -> "ParticleFilterCorrection":
         """Gather the LANES by ``indices`` ``(K,)``: lane axis 1 of the
         particle-indexed leaves, lane axis 0 of the per-lane log-likelihood,
-        mean and variance. The particle axis is untouched."""
-        idx = indices.long()
+        mean and variance. The particle axis is untouched. With ``lanes`` (a
+        ``parallel`` lane shard) the state holds this rank's lanes and
+        ``indices`` are its new lanes' global ids: the leaves are gathered
+        first."""
+        def take(t, dim):
+            return t.index_select(dim, indices.long()) if lanes is None else lanes.take(t, indices, dim)
+
         return ParticleFilterCorrection(
-            self.x.copy(values=self.x.value.index_select(1, idx)),
-            self.log_weights.index_select(1, idx),
-            self.log_likelihood.index_select(0, idx),
-            self.prev_indices.index_select(1, idx),
-            self.mean.index_select(0, idx),
-            self.variance.index_select(0, idx),
+            self.x.copy(values=take(self.x.value, 1)),
+            take(self.log_weights, 1),
+            take(self.log_likelihood, 0),
+            take(self.prev_indices, 1),
+            take(self.mean, 0),
+            take(self.variance, 0),
         )
 
     def exchange(self, other: "ParticleFilterCorrection", mask: torch.Tensor) -> "ParticleFilterCorrection":

@@ -68,7 +68,11 @@ class SymmetricMH(BaseProposal):
     engine when it has one."""
 
     def build(self, context, state, filter_, y, generator=None):
-        return construct_mvn(context.stack_parameters(constrained=False), state.normalized_weights(), scale=1.1,
+        """The fit on every lane: a lane-sharded state's ``lanes`` gather the
+        rank's parameters first (``state.normalized_weights`` are every
+        lane's)."""
+        params = state.lanes.gather(context.stack_parameters(constrained=False))
+        return construct_mvn(params, state.normalized_weights(), scale=1.1,
                              quasi_engine=getattr(context, "quasi_engine", None))
 
     def exchange(self, latest, candidate, mask):

@@ -62,8 +62,13 @@ def run_pmmh(generator, context, state, proposal, proposal_kernel, filter_, y: n
     """One PMMH update over all lanes: draw the candidate, re-filter ``y``
     (host observations) under it, draw the log-uniforms, then
     :func:`pmmh_accept`, whose build of the candidate's kernel draws last.
-    Every draw comes from ``generator``, in that order."""
+    Every draw comes from ``generator``, in that order. ``size``, for a
+    kernel without lanes, is every lane's: a lane-sharded ``state`` keeps its
+    own lanes of the candidate, computed as the one-process run computes it
+    (a product over the lanes can round by their count)."""
     rvs = proposal_kernel.sample(generator, tuple(size))
+    if size:
+        rvs = state.lanes.local(rvs)
     proposal_context = context.unstack_parameters(rvs, constrained=False)
     proposal_filter = filter_.initialize_model(proposal_context)
     new_res = proposal_filter.batch_filter(generator, y)

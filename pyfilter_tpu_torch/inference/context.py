@@ -215,14 +215,17 @@ class InferenceContext:
             setattr(new, name, OrderedDict(getattr(self, name)))
         return new
 
-    def resample(self, indices: torch.Tensor) -> "InferenceContext":
-        """Gather the parameter lanes (one lane axis, dim 0) by ``indices``."""
+    def resample(self, indices: torch.Tensor, lanes=None) -> "InferenceContext":
+        """Gather the parameter lanes (one lane axis, dim 0) by ``indices``.
+        With ``lanes`` (a ``parallel`` lane shard) the context holds this
+        rank's lanes and ``indices`` are its new lanes' global ids: the values
+        are gathered first."""
         if len(self.batch_shape or ()) != 1:
             raise ValueError(f"lane resampling needs a 1-D batch shape; context has {self.batch_shape}")
         new = self._clone_registry()
-        idx = indices.long()
         for name, v in self._value_dict.items():
-            new._value_dict[name] = v.index_select(0, idx)
+            new._value_dict[name] = v.index_select(0, indices.long()) if lanes is None else lanes.take(v, indices)
+        new.batch_shape = (int(indices.shape[0]),)
         return new
 
     def exchange(self, other: "InferenceContext", mask: torch.Tensor) -> "InferenceContext":

@@ -12,6 +12,18 @@ the collectors of :mod:`.collectors`) run after each observation's move and
 before the iteration count moves on. In the JAX package a registered
 callback forces the per-step loop instead of the chunked scan; the port's
 ``fit`` is always the per-step loop, so there is nothing to switch.
+
+``mesh`` (a ``DeviceMesh`` of ``parallel.make_mesh``) shards the run over
+ranks, one process each, all called with the same arguments and the same
+seed. Over the mesh's ``lane_axis`` each rank holds K / P of the parameter
+lanes: its context, filter and state carry its own lanes, and the cross-lane
+operations (the trigger's ESS, the lane resample, the proposal's fit, the
+acceptance rate, the distance stop, the waste-free roots, the jitter) gather
+the small lane vectors and run the one-process arithmetic on every rank.
+Over ``particle_axis`` each filter's cloud shards too
+(``parallel.sharding.particle_sharded_filter``). Every draw is the
+one-process run's (``parallel._shards.ShardedDraws``), so a lane-sharded fit
+follows the one-process fit at the same seed.
 """
 
 from __future__ import annotations
@@ -21,6 +33,7 @@ from typing import Any, Callable, Dict, List
 import numpy as np
 import torch
 
+from ...parallel._shards import lane_shard
 from ..base import BaseAlgorithm
 from ..logging import DefaultLogger
 from ..state import RunningFilterResult, SequentialAlgorithmState
@@ -28,21 +41,34 @@ from ..state import RunningFilterResult, SequentialAlgorithmState
 
 class SequentialParticleAlgorithm(BaseAlgorithm):
     """Wires the filter's lane axis and the context's batch shape to the same
-    ``num_particles`` parameter lanes."""
+    ``num_particles`` parameter lanes (this rank's share of them, with a
+    ``mesh``: module docstring)."""
 
     #: the rejuvenation kernel (set by algorithms that have one)
     _kernel = None
 
     def __init__(self, filter_, num_particles: int, context=None, generator=None, record_moments: bool = True,
-                 device=None):
+                 device=None, mesh=None, lane_axis: str = "lanes", particle_axis: str | None = None):
         super().__init__(filter_, context=context, generator=generator, device=device)
         self.num_particles = int(num_particles)
-        self._filter = self._filter.set_batch_shape((self.num_particles,))
-        self.context.set_batch_shape((self.num_particles,))
+        self._lanes = lane_shard(mesh, lane_axis, self.num_particles)
+        lanes = self.num_particles // self._lanes.size
+        self._filter = self._place_filter(self._filter.set_batch_shape((lanes,)), mesh, particle_axis)
+        self.context.set_batch_shape((lanes,))
         self.record_moments = record_moments
         #: device-to-host reads of trigger values since the count was set to 0
         self.n_host_syncs = 0
         self._callbacks: List[Callable] = []
+
+    @staticmethod
+    def _place_filter(filt, mesh, particle_axis):
+        """``filt`` over this rank's shard of its particles on the mesh's
+        ``particle_axis``, when it has one."""
+        if mesh is None or particle_axis not in (mesh.mesh_dim_names or ()):
+            return filt
+        from ...parallel.sharding import particle_sharded_filter
+
+        return particle_sharded_filter(filt, mesh, particle_axis)
 
     @property
     def particles(self) -> tuple:
@@ -51,13 +77,14 @@ class SequentialParticleAlgorithm(BaseAlgorithm):
     def initialize(self) -> SequentialAlgorithmState:
         """Build the model from the context (registering and sampling the
         priors), then the filter's initial cloud over every lane."""
-        self._filter = self._filter.initialize_model(self.context)
-        self.context.initialize_parameters()
-        self._filter = self._filter.initialize_model(self.context)
-        init_state = self._filter.initialize(self.generator)
-        zeros = torch.zeros(self.particles, device=self.device)
+        with self._draws():
+            self._filter = self._filter.initialize_model(self.context)
+            self.context.initialize_parameters()
+            self._filter = self._filter.initialize_model(self.context)
+            init_state = self._filter.initialize(self.generator)
+        zeros = torch.zeros(self.context.batch_shape, device=self.device)
         return SequentialAlgorithmState(
-            zeros, RunningFilterResult(init_state, zeros.clone(), record_moments=self.record_moments)
+            zeros, RunningFilterResult(init_state, zeros.clone(), record_moments=self.record_moments), self._lanes
         )
 
     def register_callback(self, callback):
@@ -74,7 +101,8 @@ class SequentialParticleAlgorithm(BaseAlgorithm):
         move also reads."""
         y = np.asarray(y, dtype=np.float32)
         y_dev = torch.as_tensor(y, device=self.device)
-        result = self._step(y, y_dev, state)
+        with self._draws():
+            result = self._step(y, y_dev, state)
         for cb in self._callbacks:
             cb(self, y_dev, result)
         result.bump_iteration()
@@ -100,7 +128,8 @@ class SequentialParticleAlgorithm(BaseAlgorithm):
     def _read_trigger(self, state: SequentialAlgorithmState) -> tuple:
         """The last parameter ESS and whether a lane weight is not finite, in
         one host read (counted in ``n_host_syncs``)."""
-        ess, finite = torch.stack([state.ess[-1], torch.isfinite(state.w).all().to(state.w.dtype)]).tolist()
+        w = self._lanes.gather(state.w)  # every lane's, on a lane mesh
+        ess, finite = torch.stack([state.ess[-1], torch.isfinite(w).all().to(w.dtype)]).tolist()
         self.n_host_syncs += 1
         return ess, finite == 0.0
 
@@ -120,14 +149,14 @@ class SequentialParticleAlgorithm(BaseAlgorithm):
         if isinstance(y, torch.Tensor):
             y = y.detach().cpu().numpy()
         y = np.asarray(y, dtype=np.float32)
-        with logging.initialize(self, y.shape[0]):
+        with logging.initialize(self, y.shape[0]), self._draws():
             state = self.initialize()
             for yt in y:
                 state = self.step(yt, state)
                 logging.do_log(state.current_iteration, state)
             if self._kernel is not None:
                 self.n_host_syncs += 1
-                if not bool(torch.isfinite(state.w).all()):
+                if not bool(torch.isfinite(self._lanes.gather(state.w)).all()):
                     state = self._do_rejuvenate(state)
             return state
 

@@ -18,15 +18,21 @@ every chain state as the new K-lane swarm — the same swarm from num_steps + 1
 times fewer re-filtered lanes per transition. The JAX package runs it only
 in its fused tier; the port's eager path keeps that tier's one condition
 that is not about XLA: a filter that records no history.
+
+On a lane mesh the state's ``lanes`` shard the swarm: the resample's
+indices, the proposal's fit, the acceptance rate and the distance come from
+every lane, gathered, and each rank keeps its own lanes of the result.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
 
 from ....filters.state import ParticleFilterCorrection
+from ....parallel._shards import WHOLE_LANES, LaneShard, ShardedDraws
 from ....resampling import systematic, systematic_m
 from ...batch.mcmc.proposals import BaseProposal, SymmetricMH
 from ...batch.mcmc.utils import run_pmmh
@@ -35,6 +41,15 @@ from ...state import RunningFilterResult, SMC2State
 
 class TooManyIncreases(Exception):
     pass
+
+
+def _all_lanes(state: ParticleFilterCorrection, lanes) -> ParticleFilterCorrection:
+    """Every rank's lanes of a correction (lane axis 1 of the particle-indexed
+    leaves, 0 of the per-lane ones)."""
+    return ParticleFilterCorrection(
+        state.x.copy(values=lanes.gather(state.x.value, 1)), lanes.gather(state.log_weights, 1),
+        lanes.gather(state.log_likelihood), lanes.gather(state.prev_indices, 1), lanes.gather(state.mean),
+        lanes.gather(state.variance))
 
 
 class MHUpdate(NamedTuple):
@@ -84,13 +99,14 @@ class ParticleMetropolisHastings:
         y = state.parsed_data_host
         if self.waste_free:
             return self._waste_free_update(generator, context, filter_, state, y)
-        indices = self._resampler(generator, state.normalized_weights(), normalized=True)
+        lanes = state.lanes
+        indices = lanes.local(self._resampler(generator, state.normalized_weights(), normalized=True))
         # the proposal is fitted on the cloud BEFORE the lane resample
         dist = self._proposal.build(context, state, filter_, y, generator)
-        context = context.resample(indices)
-        state.filter_state = state.filter_state.resample(indices)
-        size = () if tuple(dist.batch_shape) else (filter_.batch_shape[0],)
-        old_params = None if self._dist_thresh is None else context.stack_parameters(constrained=False)
+        context = context.resample(indices, lanes)
+        state.filter_state = state.filter_state.resample(indices, lanes=lanes)
+        size = () if tuple(dist.batch_shape) else (int(state.all_weights().shape[0]),)
+        old_params = None if self._dist_thresh is None else lanes.gather(context.stack_parameters(constrained=False))
 
         previous_distance = acceptance_rate = 0.0
         for i in range(self._n_steps):
@@ -98,7 +114,7 @@ class ParticleMetropolisHastings:
             context = step.context
             state.filter_state = step.filter_state
             self.n_transitions += 1
-            rate = float(step.accepted.float().mean())  # the transition's host sync
+            rate = float(lanes.gather(step.accepted).float().mean())  # the transition's host sync
             self.n_host_syncs += 1
             acceptance_rate = (rate + i * acceptance_rate) / (i + 1)
             # abort early rather than spend transitions at a low acceptance
@@ -108,7 +124,7 @@ class ParticleMetropolisHastings:
                 continue
 
             # mean over parameters of the largest lane move since the start
-            new_params = context.stack_parameters(constrained=False)
+            new_params = lanes.gather(context.stack_parameters(constrained=False))
             distance = float(torch.mean(torch.amax(torch.abs(new_params - old_params), dim=0)))
             self.n_host_syncs += 1
             if abs(distance - previous_distance) <= self._dist_thresh * previous_distance:
@@ -128,7 +144,8 @@ class ParticleMetropolisHastings:
         swarm is doubled and re-filtered at K lanes."""
         if filter_.record_states or filter_.record_intermediary:
             raise ValueError("waste_free rejuvenation requires a non-recording filter")
-        k_total, chain_len = int(state.w.shape[0]), self._n_steps + 1
+        lanes = state.lanes
+        k_total, chain_len = int(state.all_weights().shape[0]), self._n_steps + 1
         if k_total % chain_len:
             raise ValueError(
                 f"waste_free needs the parameter-particle count ({k_total}) divisible by num_steps + 1 ({chain_len})"
@@ -137,42 +154,51 @@ class ParticleMetropolisHastings:
         roots = systematic_m(generator, state.normalized_weights(), m, normalized=True)
         # the proposal is fitted on the whole K-lane cloud before the resample
         dist = self._proposal.build(context, state, filter_, y, generator)
-        ctx_m = context.resample(roots)
-        ctx_m.batch_shape = (m,)
-        filt_m = filter_.set_batch_shape((m,))
-        idx = roots.long()
-        fs = RunningFilterResult(state.filter_state.latest_state.resample(roots),
-                                 state.filter_state.log_likelihood.index_select(0, idx), record_moments=False)
-        state_m = SMC2State(state.w.new_zeros((m,)), fs, parsed_data=state.parsed_data)
+        # the M roots split over the ranks as the K lanes do
+        lanes_m = lanes if lanes is WHOLE_LANES else LaneShard(lanes.group, m)
+        own_roots = lanes_m.local(roots)
+        ctx_m = context.resample(own_roots, lanes)
+        filt_m = filter_.set_batch_shape(ctx_m.batch_shape)
+        fs = RunningFilterResult(state.filter_state.latest_state.resample(own_roots, lanes),
+                                 lanes.take(state.filter_state.log_likelihood, own_roots), record_moments=False)
+        state_m = SMC2State(state.w.new_zeros(ctx_m.batch_shape), fs, parsed_data=state.parsed_data, lanes=lanes_m)
         size = () if tuple(dist.batch_shape) else (m,)
         thetas, latests, lls = [ctx_m.stack_parameters(constrained=False)], [fs.latest_state], [fs.log_likelihood]
 
         acceptance_rate, aborted = 0.0, False
-        for i in range(self._n_steps):
-            step = run_pmmh(generator, ctx_m, state_m, self._proposal, dist, filt_m, y, size=size)
-            ctx_m = step.context
-            state_m.filter_state = step.filter_state
-            self.n_transitions += 1
-            thetas.append(ctx_m.stack_parameters(constrained=False))
-            latests.append(step.filter_state.latest_state)
-            lls.append(step.filter_state.log_likelihood)
-            rate = float(step.accepted.float().mean())  # the transition's host sync
-            self.n_host_syncs += 1
-            acceptance_rate = (rate + i * acceptance_rate) / (i + 1)
-            if acceptance_rate < self._acceptance_threshold:
-                aborted = True
-                break
+        # on a lane mesh the chains' draws are sharded as the M roots are
+        scope = (contextlib.nullcontext() if lanes is WHOLE_LANES
+                 else ShardedDraws(getattr(filter_, "_shard", None), lanes_m))
+        with scope:
+            for i in range(self._n_steps):
+                step = run_pmmh(generator, ctx_m, state_m, self._proposal, dist, filt_m, y, size=size)
+                ctx_m = step.context
+                state_m.filter_state = step.filter_state
+                self.n_transitions += 1
+                thetas.append(ctx_m.stack_parameters(constrained=False))
+                latests.append(step.filter_state.latest_state)
+                lls.append(step.filter_state.log_likelihood)
+                rate = float(lanes_m.gather(step.accepted).float().mean())  # the transition's host sync
+                self.n_host_syncs += 1
+                acceptance_rate = (rate + i * acceptance_rate) / (i + 1)
+                if acceptance_rate < self._acceptance_threshold:
+                    aborted = True
+                    break
         pad = chain_len - len(thetas)
         thetas, latests, lls = thetas + thetas[-1:] * pad, latests + latests[-1:] * pad, lls + lls[-1:] * pad
 
         # every chain state, root first: lane j * M + r is root r after j moves
-        indices = roots.repeat(chain_len)
-        new_context = context.unstack_parameters(torch.cat(thetas, dim=0), constrained=False)
-        new_fs = RunningFilterResult(ParticleFilterCorrection.lane_concat(latests), torch.cat(lls, dim=0),
+        # (on a mesh: every rank's chains gathered, then this rank's lanes)
+        indices = lanes.local(roots.repeat(chain_len))
+        own = lanes.local(torch.arange(k_total, device=roots.device))
+        thetas = torch.cat([lanes_m.gather(t) for t in thetas], dim=0).index_select(0, own)
+        new_context = context.unstack_parameters(thetas, constrained=False)
+        swarm = ParticleFilterCorrection.lane_concat([_all_lanes(s, lanes_m) for s in latests]).resample(own)
+        new_fs = RunningFilterResult(swarm, torch.cat([lanes_m.gather(t) for t in lls], dim=0).index_select(0, own),
                                      state.filter_state.record_moments)
-        lane = indices.long()
-        new_fs.filter_means = [v.index_select(0, lane) for v in state.filter_state.filter_means]
-        new_fs.filter_variances = [v.index_select(0, lane) for v in state.filter_state.filter_variances]
+        for name in ("filter_means", "filter_variances"):
+            rows = getattr(state.filter_state, name)
+            setattr(new_fs, name, list(lanes.take(torch.stack(rows), indices, 1).unbind(0)) if rows else [])
         state.filter_state = new_fs
         if aborted:
             return self._increase_states(generator, new_context, filter_, state)
@@ -195,6 +221,7 @@ class ParticleMetropolisHastings:
             weight,
             RunningFilterResult.from_filter_result(new_res, record_moments=state.filter_state.record_moments),
             parsed_data=state.parsed_data,
+            lanes=state.lanes,
         )
         new_state.ess = state.ess
         new_state.current_iteration = state.current_iteration

@@ -47,8 +47,9 @@ class OnlineKernel:
         """Draws, in order from ``generator``: the lane resampler's uniform,
         the jitter's normals and, with ``discrete``, the mask's uniforms."""
         self.n_rejuvenations += 1
+        lanes = state.lanes  # on a lane mesh: every lane's parameters, each rank keeping its own after
         weights = state.normalized_weights()
-        stacked = context.stack_parameters(constrained=False)  # (K, D)
+        stacked = lanes.gather(context.stack_parameters(constrained=False))  # (K, D)
         indices = self._resampler(generator, weights, normalized=True)
 
         jittered = self._kernel.jitter(generator, stacked, weights, indices)
@@ -56,7 +57,7 @@ class OnlineKernel:
             to_jitter = self.jitter_mask(generator, stacked.shape[0], stacked)
             jittered = (1.0 - to_jitter) * stacked[indices.long()] + to_jitter * jittered
 
-        new_context = context.unstack_parameters(jittered, constrained=False)
-        state.filter_state = state.filter_state.resample(indices, entire_history=False)
+        new_context = context.unstack_parameters(lanes.local(jittered), constrained=False)
+        state.filter_state = state.filter_state.resample(lanes.local(indices), entire_history=False, lanes=lanes)
         state.w = torch.zeros_like(state.w)
         return OnlineUpdate(new_context, filter_.initialize_model(new_context), state)

@@ -50,7 +50,7 @@ class SMC2(SequentialParticleAlgorithm):
 
     def initialize(self) -> SMC2State:
         state = super().initialize()
-        return SMC2State(state.w, state.filter_state)
+        return SMC2State(state.w, state.filter_state, lanes=state.lanes)
 
     def _step(self, y, y_dev, state: SMC2State) -> SMC2State:
         """Append the observation, filter, accumulate the lane weights, and

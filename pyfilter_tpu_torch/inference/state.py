@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..filters.state import ParticleFilterCorrection
+from ..parallel._shards import WHOLE_LANES
 from ..timeseries import TimeseriesState
 from ..utils import get_ess, normalize
 
@@ -77,17 +78,20 @@ class RunningFilterResult:
             self.filter_means.append(correction.mean)
             self.filter_variances.append(correction.variance)
 
-    def resample(self, indices: torch.Tensor, entire_history: bool = True) -> "RunningFilterResult":
+    def resample(self, indices: torch.Tensor, entire_history: bool = True, lanes=WHOLE_LANES) -> "RunningFilterResult":
         """Gather the lanes by ``indices``; with ``entire_history=False`` the
         recorded moments are carried over as they are (the online kernel's
-        choice: only the latest state and log-likelihood move)."""
-        idx = indices.long()
+        choice: only the latest state and log-likelihood move). With a
+        ``parallel`` lane shard ``lanes``, this record holds the rank's lanes
+        and ``indices`` are its new lanes' global ids."""
         new = RunningFilterResult(
-            self.latest_state.resample(indices), self.log_likelihood.index_select(0, idx), self.record_moments
+            self.latest_state.resample(indices, lanes),
+            lanes.take(self.log_likelihood, indices), self.record_moments
         )
-        if entire_history:
-            new.filter_means = [m.index_select(0, idx) for m in self.filter_means]
-            new.filter_variances = [v.index_select(0, idx) for v in self.filter_variances]
+        if entire_history and self.filter_means:
+            # every step's moments in one exchange
+            new.filter_means = list(lanes.take(torch.stack(self.filter_means), indices, 1).unbind(0))
+            new.filter_variances = list(lanes.take(torch.stack(self.filter_variances), indices, 1).unbind(0))
         else:
             new.filter_means = list(self.filter_means)
             new.filter_variances = list(self.filter_variances)
@@ -159,29 +163,39 @@ def scrub_lane_increment(inc: torch.Tensor) -> torch.Tensor:
 
 class SequentialAlgorithmState(FilterAlgorithmState):
     """Per-lane parameter log-weights ``w``, the parameter ESS after every
-    step (device scalars) and the running filter record."""
+    step (device scalars) and the running filter record.
 
-    def __init__(self, w: torch.Tensor, filter_state: RunningFilterResult):
+    ``lanes`` (a ``parallel`` lane shard) is the share of the lanes this
+    state holds: ``w`` and the filter record are the rank's lanes, while
+    :meth:`all_weights`, :meth:`normalized_weights` and the ESS are every
+    lane's, the same on every rank."""
+
+    def __init__(self, w: torch.Tensor, filter_state: RunningFilterResult, lanes=WHOLE_LANES):
         super().__init__(filter_state)
         self.w = w
-        self.ess: List[torch.Tensor] = [get_ess(w)]
+        self.lanes = lanes
+        self.ess: List[torch.Tensor] = [get_ess(self.all_weights())]
         self.current_iteration: int = 0
 
+    def all_weights(self) -> torch.Tensor:
+        """Every lane's log-weight."""
+        return self.lanes.gather(self.w)
+
     def normalized_weights(self) -> torch.Tensor:
-        return normalize(self.w)
+        return normalize(self.all_weights())
 
     def append(self, correction: ParticleFilterCorrection):
         """Fold in one filter step: bump the lane weights by the scrubbed
         increments and record the ESS."""
         self.filter_state.append(correction)
         self.w = self.w + scrub_lane_increment(correction.log_likelihood)
-        self.ess.append(get_ess(self.w))
+        self.ess.append(get_ess(self.all_weights()))
 
     def bump_iteration(self):
         self.current_iteration += 1
 
     def replicate(self, filter_state) -> "SequentialAlgorithmState":
-        return SequentialAlgorithmState(torch.zeros_like(self.w), filter_state)
+        return SequentialAlgorithmState(torch.zeros_like(self.w), filter_state, self.lanes)
 
     def state_dict(self) -> dict:
         """``w``, the ESS history, the iteration and the filter record as
@@ -216,8 +230,8 @@ class SMC2State(SequentialAlgorithmState):
     """Adds the observations seen so far, kept on the host: SMC²'s
     rejuvenation re-filters them."""
 
-    def __init__(self, w, filter_state, parsed_data: Optional[list] = None):
-        super().__init__(w, filter_state)
+    def __init__(self, w, filter_state, parsed_data: Optional[list] = None, lanes=WHOLE_LANES):
+        super().__init__(w, filter_state, lanes)
         self.parsed_data: List[np.ndarray] = [np.asarray(y) for y in (parsed_data or [])]
 
     def append_data(self, y):

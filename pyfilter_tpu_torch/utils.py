@@ -120,23 +120,26 @@ def log_likelihood(
 
 
 def get_mean_and_variance(
-    x: torch.Tensor, probs: torch.Tensor, event_ndim: int = 0, covariance: bool = False
+    x: torch.Tensor, probs: torch.Tensor, event_ndim: int = 0, covariance: bool = False, reduce=None
 ):
     """Weighted mean and variance (or, for ``event_ndim == 1`` with
     ``covariance=True``, covariance) of a particle cloud ``x`` of shape
-    ``(N, *batch, *event)`` under probabilities ``probs`` of shape ``(N, *batch)``."""
+    ``(N, *batch, *event)`` under probabilities ``probs`` of shape ``(N, *batch)``.
+    ``reduce``, when given, takes each sum over the particle axis to the sum
+    over the whole cloud (an all-reduce over the shards of a sharded one)."""
     if event_ndim > 1:
         raise ValueError("event_ndim must be 0 or 1")
+    total = (lambda t: t) if reduce is None else reduce
     if event_ndim == 0:
-        mean = torch.sum(probs * x, dim=0)
-        var = torch.sum(probs * torch.square(x - mean), dim=0)
+        mean = total(torch.sum(probs * x, dim=0))
+        var = total(torch.sum(probs * torch.square(x - mean), dim=0))
         return mean, var
     w = probs.unsqueeze(-1)
-    mean = torch.sum(w * x, dim=0)
+    mean = total(torch.sum(w * x, dim=0))
     centered = x - mean
     if not covariance:
-        return mean, torch.sum(w * torch.square(centered), dim=0)
-    return mean, torch.einsum("n...i,n...j->...ij", w * centered, centered)
+        return mean, total(torch.sum(w * torch.square(centered), dim=0))
+    return mean, total(torch.einsum("n...i,n...j->...ij", w * centered, centered))
 
 
 def construct_diag_from_flat(x: torch.Tensor, event_ndim: int = 1) -> torch.Tensor:

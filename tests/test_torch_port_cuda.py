@@ -246,6 +246,33 @@ def test_entry_points_refuse_without_a_card(monkeypatch):
     assert filt.smooth(torch.Generator().manual_seed(1), res, method="ffbsi").device.type == "cpu"
 
 
+def test_parallel_entry_points_refuse_without_a_card(monkeypatch):
+    """``parallel.make_mesh`` puts the shards on the card unless asked for the
+    CPU, and raises without one before it starts any process group."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pt.parallel.make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pt.parallel.make_mesh((2,), ("lanes",), device_type="cuda")
+
+
+@pytest.mark.cuda
+def test_sharded_resample_on_card_equals_one_process(cuda, tmp_path):
+    """Two gloo ranks on the card: the all-gather route of a particle shard
+    launches K1 (one lane) and K2 (a lane batch) once over the gathered
+    cloud, and each rank's indices and values are its rows of the
+    one-process counts' bit for bit; gloo carries the card's tensors through
+    host copies."""
+    from torch_parallel_group import run_group
+
+    for r in run_group("card_checks", 2, {}, tmp_path, deadline=300):
+        assert r["device"].startswith("cuda")
+        for name in ("k1", "k2"):
+            got = r[name]
+            assert got["indices"] and got["values"] and got["on_card"], (name, got)
+            assert got["launches"] == 1 and got["host_copies"] > 0, (name, got)
+
+
 @pytest.mark.cuda
 def test_quasi_draws_copy_once_per_draw_on_card(cuda):
     """A quasi context on the card: its Sobol start and each quasi-random

@@ -19,12 +19,13 @@ import pyfilter_tpu_torch
 
 #: (module path below the package, name) -> why the port does not have it yet
 NOT_PORTED = {
-    ("", "parallel"): "ROADMAP Queue 1 item 6",
     ("", "enable_compile_cache"): "not queued: it exists only for XLA",
     ("", "interop"): "not queued: the numpyro bridge (no numpyro or pyro to bridge to)",
+    **{("parallel", name): "ROADMAP Queue 1 item 2" for name in (
+        "spmd_batch_filter", "spmd_enkf", "spmd_predict", "spmd_smooth", "spmd_smoothed_log_likelihood")},
 }
 #: JAX packages the port has no counterpart of yet
-NOT_PORTED_PACKAGES = {"parallel": "ROADMAP Queue 1 item 6"}
+NOT_PORTED_PACKAGES = {}
 
 
 def _shared_packages():

@@ -173,7 +173,7 @@ def _params(d):
 @pytest.mark.parametrize("name", ["ar", "rw2d", "ukf"])
 def test_joint_log_prob_gradient_and_hessian_match_jax(name):
     """The summed objective, its gradient (``torch.func.grad``) and every
-    particle's Hessian (``torch.func.jvp`` columns) at a random point."""
+    particle's Hessian (``torch.func.vjp`` rows) at a random point."""
     js, ts_ = _states(name, 1)
     y = _y(name, 2)
     jm, tm = _jax_model(name), _port_model(name)
