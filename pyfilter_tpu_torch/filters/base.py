@@ -23,7 +23,7 @@ import copy
 import numpy as np
 import torch
 
-from ..utils import resolve_device, same_device
+from ..utils import draws_of, resolve_device, same_device
 from .result import FilterHistory, FilterResult
 from .state import ParticleFilterCorrection, ParticleFilterPrediction
 
@@ -91,6 +91,12 @@ class BaseFilter:
         """A filter over ``batch_shape`` parallel lanes."""
         return self.replace(batch_shape=tuple(batch_shape))
 
+    def _declared_draws(self):
+        """The layout of this filter's draws, declared to the draw mode of a
+        sharded run (``utils.draws_of``): the cloud's ``(N, *batch)`` (where
+        the filter has particles) and the lanes' ``batch``."""
+        return draws_of(getattr(self, "particles", None), self.batch_shape)
+
     # -- abstract ------------------------------------------------------------
     def initialize(self, generator) -> ParticleFilterCorrection:
         raise NotImplementedError
@@ -150,24 +156,26 @@ class BaseFilter:
     def _filter(self, generator, y, nan_row: str | None, state, first_step: bool, on_substep=None):
         """:meth:`filter` on a device ``y`` whose NaN handling ``nan_row``
         (:meth:`_nan_row`) gives; ``on_substep(prediction)``, when given,
-        sees every sub-step's prediction (one propagation at a time)."""
-        n_sub = 0 if first_step else self.model.observe_every_step - 1
-        prediction = self.predict(generator, state)
-        if n_sub and on_substep is None:
-            x_new = self.model.hidden.propagate_substeps(generator, prediction.x, n_sub)
-            prediction = prediction._replace(x=x_new)
-        elif n_sub:
-            for _ in range(n_sub):
-                prediction = prediction._replace(x=self.model.hidden.propagate(generator, prediction.x))
-                on_substep(prediction)
-        if nan_row == "skip":
-            return prediction.create_state_from_prediction(
-                generator, self.model, compute_moments=getattr(self, "record_moments", True),
-                shard=getattr(self, "_shard", None)
-            )
-        if nan_row == "impute":
-            y = self._impute(generator, y, prediction)
-        return self.correct(generator, y, prediction)
+        sees every sub-step's prediction (one propagation at a time). Its
+        draws are declared to a sharded run (:meth:`_declared_draws`)."""
+        with self._declared_draws():
+            n_sub = 0 if first_step else self.model.observe_every_step - 1
+            prediction = self.predict(generator, state)
+            if n_sub and on_substep is None:
+                x_new = self.model.hidden.propagate_substeps(generator, prediction.x, n_sub)
+                prediction = prediction._replace(x=x_new)
+            elif n_sub:
+                for _ in range(n_sub):
+                    prediction = prediction._replace(x=self.model.hidden.propagate(generator, prediction.x))
+                    on_substep(prediction)
+            if nan_row == "skip":
+                return prediction.create_state_from_prediction(
+                    generator, self.model, compute_moments=getattr(self, "record_moments", True),
+                    shard=getattr(self, "_shard", None)
+                )
+            if nan_row == "impute":
+                y = self._impute(generator, y, prediction)
+            return self.correct(generator, y, prediction)
 
     # -- full pass ------------------------------------------------------------
     def batch_filter(self, generator, y, initial_state: ParticleFilterCorrection | None = None) -> FilterResult:
@@ -185,7 +193,10 @@ class BaseFilter:
         nan_mask = np.isnan(y_host.reshape(n_steps, -1))
         y_dev = torch.as_tensor(y_host, device=self.device)
 
-        state = self.initialize(generator) if initial_state is None else initial_state
+        if initial_state is None:
+            with self._declared_draws():
+                initial_state = self.initialize(generator)
+        state = initial_state
         recorder = self._recorder(state, n_steps)
         on_substep = recorder.record_substep if recorder is not None and recorder.intermediary else None
         lls, means, variances = [], [], []

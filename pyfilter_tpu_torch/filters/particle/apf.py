@@ -11,7 +11,6 @@ from __future__ import annotations
 
 import torch
 
-from ...utils import batched_gather
 from ..state import ParticleFilterCorrection, ParticleFilterPrediction
 from .base import ParticleFilter
 
@@ -35,14 +34,8 @@ class APF(ParticleFilter):
         pre_weights = self.proposal.pre_weight(self.model, y, ts_state)
         resample_weights = pre_weights + prediction.log_weights
 
-        if self._use_fused_resample(ts_state.value):
-            (res_vals, res_prew), indices = self._fused_resample(
-                generator, resample_weights, (ts_state.value, pre_weights)
-            )
-        else:
-            indices = self.resampler(generator, resample_weights)
-            res_vals = batched_gather(ts_state.value, indices, ts_state.event_ndim)
-            res_prew = batched_gather(pre_weights, indices, 0)
+        (res_vals, res_prew), indices = self._resample_cloud(generator, resample_weights,
+                                                             (ts_state.value, pre_weights))
         if self.differentiable:
             corr = self._ancestor_correction(resample_weights, indices)
             resampled = ParticleFilterPrediction(ts_state.copy(values=res_vals), corr, torch.softmax(corr, dim=0),

@@ -23,6 +23,11 @@ from ..state import ParticleFilterCorrection
 from .proposals import Bootstrap, Proposal
 
 
+#: the fused kernels index a whole cloud (every rank's particles, every lane)
+#: of fewer entries than this exactly in float32
+FUSED_ENTRIES = 1 << 24
+
+
 def gumbel(generator, shape, like: torch.Tensor) -> torch.Tensor:
     """Standard Gumbel noise ``-log(E)``, ``E ~ Exp(1)`` drawn by
     ``exponential_`` (never 0, unlike a uniform whose ``-log(-log(U))`` can
@@ -107,7 +112,7 @@ class ParticleFilter(BaseFilter):
     default, holds the whole cloud): ``n_particles`` is then the rank's count,
     the weight operations of a step (:meth:`_normalize`, :meth:`_ess`,
     :meth:`_log_likelihood`, the moments) reduce over every rank's particles,
-    and the fused resample runs over the gathered cloud."""
+    and every resample runs over the gathered cloud (:meth:`_resample_cloud`)."""
 
     #: the particle shard this filter runs on (``parallel.sharding``)
     _shard = None
@@ -156,7 +161,7 @@ class ParticleFilter(BaseFilter):
 
     def _use_fused_resample(self, value: torch.Tensor) -> bool:
         return (value.dtype == torch.float32 and self.resampler is systematic_counts
-                and math.prod(self.particles) * self._n_total // self.n_particles < 1 << 24)
+                and math.prod(self.particles) * self._n_total // self.n_particles < FUSED_ENTRIES)
 
     @property
     def _n_total(self) -> int:
@@ -191,14 +196,35 @@ class ParticleFilter(BaseFilter):
         return torch.rand(self.batch_shape, generator=generator, device=self.device)
 
     def _fused_resample(self, generator, weights, values, normalized: bool = False):
-        """Resample + gather ``values`` by ``weights`` in one pass: the lane
-        kernel for a lane batch, the single-lane kernel otherwise (over the
-        gathered cloud, when sharded)."""
+        """Resample + gather ``values`` by ``weights`` of the whole cloud in
+        one pass: the lane kernel for a lane batch, the single-lane kernel
+        otherwise."""
         u = self.resample_uniform(generator)
-        if self._shard is not None:
-            return self._shard.resample(u, weights if normalized else self._shard.normalize(weights), values)
         expand = systematic_expand_lanes if self.batch_shape else systematic_expand
         return expand(None, weights, values, normalized=normalized, u=u)
+
+    def _resample_cloud(self, generator, weights, values, normalized: bool = False):
+        """Resampled ``values`` (a tensor or a tuple, particle axis 0) and
+        ancestor indices by ``weights`` (probabilities with ``normalized``):
+        the fused pass for a float32 cloud with the default resampler
+        (:meth:`_use_fused_resample`), else the resampler and a gather. A
+        sharded cloud is resampled whole by either route, over every rank's
+        particles gathered, each rank keeping its slots
+        (``parallel._shards.ParticleShard.resample``)."""
+        if self._shard is None:
+            return self._resample_whole(generator, weights, values, normalized)
+        probs = weights if normalized else self._shard.normalize(weights)
+        return self._shard.resample(probs, values, lambda p, v: self._resample_whole(generator, p, v, True))
+
+    def _resample_whole(self, generator, weights, values, normalized: bool):
+        if self._use_fused_resample(values[0] if isinstance(values, tuple) else values):
+            return self._fused_resample(generator, weights, values, normalized=normalized)
+        indices = self.resampler(generator, weights, normalized=normalized)
+
+        def take(v):
+            return batched_gather(v, indices, v.dim() - weights.dim())
+
+        return (tuple(map(take, values)) if isinstance(values, tuple) else take(values)), indices
 
     def _ancestor_correction(self, log_weights: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
         """Per-slot log-weight terms that are exactly 0 in value but carry the

@@ -12,6 +12,7 @@ import math
 
 import torch
 
+from ....utils import draws_after
 from .base import Proposal
 
 
@@ -23,7 +24,8 @@ class NestedProposal(Proposal):
     def sample_and_weight(self, generator, model, y, prediction):
         from .. import base  # the Gumbel seam (base imports the proposals)
 
-        samples = prediction.get_predictive_density(model).sample(generator, (self.num_samples,))
+        with draws_after(1):  # the samples' axis leads the cloud's
+            samples = prediction.get_predictive_density(model).sample(generator, (self.num_samples,))
         temp_state = prediction.get_timeseries_state().propagate_from(values=samples)
 
         # the JAX package's guard, jnp.nan_to_num(nan=-inf, posinf=-inf), maps

@@ -14,7 +14,6 @@ from __future__ import annotations
 
 import torch
 
-from ...utils import batched_gather
 from ..state import ParticleFilterCorrection, ParticleFilterPrediction
 from .base import ParticleFilter
 
@@ -47,12 +46,8 @@ class SISR(ParticleFilter):
         )
 
     def _resample(self, generator, normalized, ts_state):
-        """Resampled values and ancestor indices: the fused pass for a
-        float32 cloud with the default resampler, else resampler + gather."""
-        if self._use_fused_resample(ts_state.value):
-            return self._fused_resample(generator, normalized, ts_state.value, normalized=True)
-        indices = self.resampler(generator, normalized, normalized=True)
-        return batched_gather(ts_state.value, indices, ts_state.event_ndim), indices
+        """Resampled values and ancestor indices (:meth:`_resample_cloud`)."""
+        return self._resample_cloud(generator, normalized, ts_state.value, normalized=True)
 
     def _resample_lanes(self, generator, state, normalized, ess) -> ParticleFilterPrediction:
         """Every lane resampled at once (one fire), kept where the lane's ESS

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ....parallel._shards import lane_shard
+from ....utils import draws_of
 from ...base import BaseAlgorithm
 from ...logging import TQDMWrapper
 from .proposals import BaseProposal, RandomWalk
@@ -85,7 +86,8 @@ class PMMH(BaseAlgorithm):
             else:
                 for name in list(self.context.parameters):
                     prior = self.context.get_prior(name)
-                    mean = prior.sample(self.generator, self.MONTE_CARLO_SAMPLES).mean(dim=0)
+                    with draws_of():  # prior draws, no lanes
+                        mean = prior.sample(self.generator, self.MONTE_CARLO_SAMPLES).mean(dim=0)
                     self.context.update_parameter(name, mean.expand(self.context.batch_shape + tuple(prior.event_shape)))
             self._filter = self._filter.initialize_model(self.context)
             return PMMHResult(dict(self.context.parameters), self._filter.batch_filter(self.generator, y))
@@ -98,7 +100,8 @@ class PMMH(BaseAlgorithm):
         seed_ctx = self.context._clone_registry()
         seed_ctx.batch_shape = (n_seeds,)
         for name in list(self.context.parameters):
-            seed_ctx._value_dict[name] = self.context.get_prior(name).sample(self.generator, (n_seeds,))
+            with draws_of():  # every seed on every rank
+                seed_ctx._value_dict[name] = self.context.get_prior(name).sample(self.generator, (n_seeds,))
         seed_filter = self._filter.set_batch_shape((n_seeds,)).initialize_model(seed_ctx)
         res = seed_filter.batch_filter(self.generator, y)
         best = self._lanes.local(top_seeds(res.log_likelihood.reshape(n_seeds), self.num_chains))

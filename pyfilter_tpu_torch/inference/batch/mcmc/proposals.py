@@ -162,8 +162,8 @@ class GradientBasedProposal(RandomWalk):
     def build(self, context, state, filter_, y, generator=None):
         """The kernel at ``context``'s lanes. The FFBS pass over the recorded
         history draws from ``generator`` (seeded 0 when not given) and runs
-        outside the graph; the gradient (and the Hessian's columns, by
-        ``torch.func.jvp``) is ``torch.func.grad`` of :math:`S` through a
+        outside the graph; the gradient (and the Hessian's rows, by
+        ``torch.func.vjp``) is ``torch.func.grad`` of :math:`S` through a
         rebuild of the model from the unstacked parameters."""
         result = state.filter_state
         if getattr(result, "states", None) is None:
@@ -189,7 +189,7 @@ class GradientBasedProposal(RandomWalk):
             return Normal(loc, torch.full_like(loc, self._scale)).to_event(1)
 
         # S sums independent lanes, so its Hessian is block-diagonal by lane:
-        # the product with e_j on every lane is column j of every block
+        # the pull-back of e_j on every lane is row j of every block
         blocks = _per_particle_hessian(grad_fn, vec, 1)  # (K, D, D)
         neg_h = -0.5 * (blocks + blocks.transpose(-1, -2))
         # torch's eigh raises on a non-finite matrix where JAX's gives NaN: such

@@ -14,6 +14,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ....utils import draws_of
+
 
 class PMMHStep(NamedTuple):
     accepted: torch.Tensor
@@ -23,8 +25,10 @@ class PMMHStep(NamedTuple):
 
 
 def _uniform(generator, like: torch.Tensor) -> torch.Tensor:
-    """The acceptance uniforms, ``like``'s shape, dtype and device."""
-    return torch.rand(like.shape, generator=generator, dtype=like.dtype, device=like.device)
+    """The acceptance uniforms, ``like``'s shape (lanes leading), dtype and
+    device."""
+    with draws_of(lanes=like.shape):
+        return torch.rand(like.shape, generator=generator, dtype=like.dtype, device=like.device)
 
 
 def pmmh_accept(context, state, proposal, proposal_kernel, rvs, proposal_context, proposal_filter, new_res, log_u,
@@ -66,7 +70,8 @@ def run_pmmh(generator, context, state, proposal, proposal_kernel, filter_, y: n
     kernel without lanes, is every lane's: a lane-sharded ``state`` keeps its
     own lanes of the candidate, computed as the one-process run computes it
     (a product over the lanes can round by their count)."""
-    rvs = proposal_kernel.sample(generator, tuple(size))
+    with draws_of(lanes=tuple(size) or tuple(proposal_kernel.batch_shape)):
+        rvs = proposal_kernel.sample(generator, tuple(size))
     if size:
         rvs = state.lanes.local(rvs)
     proposal_context = context.unstack_parameters(rvs, constrained=False)

@@ -26,7 +26,7 @@ import torch
 
 from ..distributions import Distribution, Independent, TransformedDistribution
 from ..distributions.bijectors import Bijector
-from ..utils import resolve_device
+from ..utils import draws_of, resolve_device
 from . import prior as prior_ops
 from .parameter import PriorBoundParameter
 from .qmc import EngineContainer
@@ -132,7 +132,8 @@ class InferenceContext:
             raise ValueError("You cannot pass a batched distribution as a prior!")
 
         self._prior_dict[name] = prior
-        self._value_dict[name] = prior.sample(self.generator, self.batch_shape)
+        with draws_of(lanes=self.batch_shape):
+            self._value_dict[name] = prior.sample(self.generator, self.batch_shape)
         self._shape_dict[name] = tuple(prior.event_shape)
         self._unconstrained_shape_dict[name] = prior_ops.unconstrained_event_shape(prior)
         return self._value_dict[name]

@@ -81,7 +81,8 @@ class SequentialParticleAlgorithm(BaseAlgorithm):
             self._filter = self._filter.initialize_model(self.context)
             self.context.initialize_parameters()
             self._filter = self._filter.initialize_model(self.context)
-            init_state = self._filter.initialize(self.generator)
+            with self._filter._declared_draws():
+                init_state = self._filter.initialize(self.generator)
         zeros = torch.zeros(self.context.batch_shape, device=self.device)
         return SequentialAlgorithmState(
             zeros, RunningFilterResult(init_state, zeros.clone(), record_moments=self.record_moments), self._lanes

@@ -13,7 +13,7 @@ import math
 import torch
 
 from ....constants import EPS
-from ....utils import get_ess
+from ....utils import draws_of, get_ess
 
 
 def silverman(n: int, ess) -> torch.Tensor:
@@ -53,8 +53,10 @@ def _bandwidth_factor(w: torch.Tensor) -> torch.Tensor:
 
 
 def _standard_normal(generator, like: torch.Tensor) -> torch.Tensor:
-    """The jitter's standard normals, ``like``'s shape, dtype and device."""
-    return torch.randn(like.shape, generator=generator, dtype=like.dtype, device=like.device)
+    """The jitter's standard normals, ``like``'s shape (lanes leading), dtype
+    and device."""
+    with draws_of(lanes=like.shape[:1]):
+        return torch.randn(like.shape, generator=generator, dtype=like.dtype, device=like.device)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,24 +7,29 @@ draw: a draw that carries the sharded particle or lane axis is made at the
 global size and the rank keeps its own rows and lanes; any other draw is the
 same on every rank. So the generators of all ranks stay in step, the
 resample uniforms and the rejuvenation's draws are shared, and each shard's
-noise is its slice of the one-process noise.
+noise is its slice of the one-process noise. Which draws carry a sharded
+axis, and where, is declared by the code that makes them
+(``utils.draws_of``), never guessed from a size.
 
 :class:`ParticleShard` is what a particle filter consults for the weight
 operations of its step (``parallel.collective``) and for its resample: the
-probabilities and values are all-gathered, the fused kernel (K1 on one lane,
-K2 on a lane batch) runs over the whole cloud, and the rank keeps its own
-output slots, as XLA runs the unpartitioned Pallas call under a particle
-sharding. :class:`LaneShard` gathers and slices the lane axis for the
-cross-lane operations of SMC², NESS and PMMH.
+probabilities and values are all-gathered, the whole cloud is resampled on
+every rank alike (by the fused kernel, K1 on one lane and K2 on a lane
+batch, where it applies) and the rank keeps its own output slots, as XLA
+runs the unpartitioned Pallas call under a particle sharding.
+:class:`LaneShard` gathers and slices the lane axis for the cross-lane
+operations of SMC², NESS and PMMH.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.distributed as dist
 from torch.overrides import TorchFunctionMode
 
-from ..ops import systematic_expand, systematic_expand_lanes
+from ..utils import _DRAW_MODES
 from . import _comm, collective
 
 
@@ -64,16 +69,15 @@ class ParticleShard:
     def psum(self, t: torch.Tensor) -> torch.Tensor:
         return _comm.all_reduce(t, "sum", self.group)
 
-    def resample(self, u: torch.Tensor, probs: torch.Tensor, values):
-        """The fused systematic resample of the whole cloud from this rank's
-        probabilities ``(n_local, *batch)`` and values (a tensor or a tuple),
-        with the shared uniforms ``u``: everything all-gathered, one kernel
-        launch over all N particles, this rank's output slots kept. Returns
-        ``(values, global indices)``."""
+    def resample(self, probs: torch.Tensor, values, resample):
+        """The resample of the whole cloud from this rank's probabilities
+        ``(n_local, *batch)`` and values (a tensor or a tuple): everything
+        all-gathered, ``resample(probs, values)`` of all N particles (a
+        one-process resample, the same on every rank: its draws are shared),
+        this rank's output slots kept. Returns ``(values, global indices)``."""
         full = _comm.all_gather(probs.contiguous(), self.group)
         vals = tuple(_comm.all_gather(v, self.group) for v in (values if isinstance(values, tuple) else (values,)))
-        expand = systematic_expand_lanes if probs.dim() > 1 else systematic_expand
-        out, idx = expand(None, full, vals if isinstance(values, tuple) else vals[0], normalized=True, u=u)
+        out, idx = resample(full, vals if isinstance(values, tuple) else vals[0])
         n = probs.shape[0]
         own = slice(self.rank * n, (self.rank + 1) * n)
         out = tuple(v[own] for v in out) if isinstance(values, tuple) else out[own]
@@ -149,41 +153,70 @@ _PARAMETRIZED = {torch.normal, torch.bernoulli, torch.poisson, torch._standard_g
 class ShardedDraws(TorchFunctionMode):
     """While active, every random draw is the one-process run's (module
     docstring). ``particles`` (a :class:`ParticleShard`) and ``lanes`` (a
-    :class:`LaneShard`) are the sharded axes, read at each draw. A draw's
-    particle axis is its first axis of the local particle count; its lane
-    axis is the one axis after it (anywhere, without a particle axis) of the
-    local lane count. A draw with two candidates for the lane axis raises, as
-    does a draw whose law is a tensor of parameters along a sharded axis: the
-    other ranks' parameters are not here."""
+    :class:`LaneShard`) are the sharded axes, read at each draw; a shard of
+    one rank is no sharding. The innermost ``utils.draws_of`` decides a draw's
+    sharded axes. A draw that matches none of its layouts, or is made outside
+    any, and has an axis of a sharded local size raises: it would be sliced or
+    repeated wrongly, whichever was meant. So does a draw whose law is a
+    tensor of parameters along a sharded axis: the other ranks' parameters
+    are not here."""
 
     def __init__(self, particles: ParticleShard | None = None, lanes: LaneShard | None = None):
         super().__init__()
-        self.particles, self.lanes = particles, lanes
+        self.particles = particles if particles is not None and particles.size > 1 else None
+        self.lanes = lanes if lanes is not None and lanes.size > 1 else None
+        self._layouts = []
 
-    def _axes(self) -> list:
-        """``(local size, first index, global size)`` of each sharded axis."""
-        axes = []
-        if self.particles is not None:
-            axes.append((self.particles.n_local, self.particles.lo, self.particles.n_total))
-        if self.lanes is not None:
-            axes.append((self.lanes.k_local, self.lanes.lo, self.lanes.k))
-        if len(axes) == 2 and axes[0][0] == axes[1][0]:
-            raise ValueError(f"the local particle and lane counts must differ, both are {axes[0][0]}")
-        return axes
+    def __enter__(self):
+        _DRAW_MODES.append(self)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        _DRAW_MODES.pop()
+        return super().__exit__(*exc)
+
+    @contextlib.contextmanager
+    def declared(self, layouts):
+        """Inside, the draws' layouts are ``layouts``: ``(kind, shape, lead)``
+        each, ``shape`` starting after ``lead`` leading axes (None:
+        undeclared)."""
+        self._layouts.append(layouts)
+        try:
+            yield
+        finally:
+            self._layouts.pop()
+
+    def shifted(self, n_lead: int):
+        layouts = self._layouts[-1] if self._layouts else None
+        return self.declared(None if layouts is None else tuple((k, s, lead + n_lead) for k, s, lead in layouts))
+
+    def _layout_dims(self, kind: str, layout: tuple, lead: int) -> dict:
+        """``{dim: (local size, first index, global size)}`` of a declared
+        layout's sharded axes."""
+        dims, lane_dim = {}, 0
+        if kind == "particles":
+            lane_dim = 1
+            if self.particles is not None and layout[0] == self.particles.n_local:
+                dims[lead] = (self.particles.n_local, self.particles.lo, self.particles.n_total)
+        if self.lanes is not None and len(layout) > lane_dim and layout[lane_dim] == self.lanes.k_local:
+            dims[lead + lane_dim] = (self.lanes.k_local, self.lanes.lo, self.lanes.k)
+        return dims
 
     def _sharded_dims(self, shape) -> dict:
-        dims, start = {}, 0
-        axes = self._axes()
-        for axis in axes:
-            hits = [d for d in range(start, len(shape)) if shape[d] == axis[0]]
-            if axis is axes[0] and self.particles is not None and hits:
-                hits = hits[:1]
-            if len(hits) > 1:
-                raise ValueError(f"a draw of shape {tuple(shape)} has {len(hits)} axes of the sharded size {axis[0]}")
-            if hits:
-                dims[hits[0]] = axis
-                start = hits[0] + 1
-        return dims
+        shape = tuple(shape)
+        layouts = self._layouts[-1] if self._layouts else None
+        if layouts is not None:
+            for kind, layout, lead in layouts:
+                if shape[lead:lead + len(layout)] == layout:
+                    return self._layout_dims(kind, layout, lead)
+            if not layouts:
+                return {}
+        sizes = [s.n_local for s in (self.particles,) if s is not None] + \
+                [s.k_local for s in (self.lanes,) if s is not None]
+        if any(d in sizes for d in shape):
+            raise ValueError(f"a draw of shape {shape} has an axis of a sharded size {sizes} and no declared layout "
+                             f"that it matches ({layouts}): make it inside utils.draws_of")
+        return {}
 
     @staticmethod
     def _slice(t: torch.Tensor, dims: dict) -> torch.Tensor:

@@ -123,15 +123,17 @@ def shard_filter_state(state: ParticleFilterCorrection, mesh: DeviceMesh, partic
 
 def particle_sharded_filter(filt, mesh: DeviceMesh, particle_axis: str = "particles"):
     """``filt`` over this rank's shard of its particles on the mesh axis
-    ``particle_axis``: SISR or the APF, resampling by the fused systematic
-    route, with a proposal that moves each particle on its own (the
-    moment-matched Gaussian proposals fit the whole cloud and are not
-    sharded)."""
+    ``particle_axis``: SISR or the APF with the systematic resampler, with a
+    proposal that moves each particle on its own (the moment-matched
+    Gaussian proposals fit the whole cloud and are not sharded). Every
+    resample runs over the gathered cloud: the fused kernel where it applies
+    (a float32 cloud under 2^24 entries), the resampler and a gather
+    otherwise (``ParticleFilter._resample_cloud``)."""
     if not isinstance(filt, (SISR, APF)) or isinstance(filt.proposal, (GaussianProposal, GaussianLinearized,
                                                                         GaussianLinear)):
         raise NotImplementedError(f"{type(filt).__name__} with {type(filt.proposal).__name__} has no particle sharding")
     if filt.resampler is not systematic_counts or filt.differentiable:
-        raise NotImplementedError("a sharded cloud resamples by the fused systematic route, not differentiably")
+        raise NotImplementedError("a sharded cloud resamples by the systematic resampler, not differentiably")
     size, _ = _axis(mesh, particle_axis)
     if filt.n_particles % size:
         raise ValueError(f"{filt.n_particles} particles do not split evenly over {size} ranks")

@@ -14,6 +14,7 @@ from typing import Callable, Sequence
 import torch
 
 from ..distributions import Distribution, Independent, Normal
+from ..utils import draws_after
 from .affine import affine_transform
 from .state import StateSpacePath, TimeseriesState
 
@@ -117,7 +118,8 @@ class AffineProcess(StructuralStochasticProcess):
         bs_es = tuple(inc.batch_shape) + tuple(inc.event_shape)
         target = tuple(torch.broadcast_shapes(loc.shape, scale.shape, bs_es))
         prefix = target[: len(target) - len(bs_es)]
-        eps = inc.sample(generator, (n,) + prefix)
+        with draws_after(1):  # the sub-step axis leads the state's
+            eps = inc.sample(generator, (n,) + prefix)
 
         x = x.propagate_from(values=loc + scale * eps[0], time_increment=1.0)
         for i in range(1, n):

@@ -9,14 +9,45 @@ uniform 1/N.
 
 Also the port's device rule (:func:`resolve_device`): entry points run on
 the card unless the caller asks for the CPU, and the CUDA-graph capture the
-host-bound loops replay (:func:`cuda_graph`).
+host-bound loops replay (:func:`cuda_graph`), and :func:`draws_of`, with which
+the code that makes a random draw declares which of its axes a sharded run
+splits over its ranks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
+
+
+#: the draw modes of the sharded runs entered (``parallel._shards.ShardedDraws``),
+#: innermost last: :func:`draws_of` declares to it
+_DRAW_MODES: list = []
+
+
+def draws_of(particles: tuple | None = None, lanes: tuple | None = None):
+    """Declare the draws made inside to the draw mode of a sharded run (a
+    no-op without one). A draw whose shape begins with ``particles`` (a
+    filter's ``(N, *batch)``) carries the particle axis at 0 and the lane
+    axis at 1; one whose shape begins with ``lanes`` (``(K, ...)``) carries
+    the lane axis at 0. Such an axis is sharded where it holds this rank's
+    share: the particle axis when its extent is the shard's local count, the
+    lane axis likewise (a draw over every lane is the same on every rank).
+    ``draws_of()`` declares draws that carry no sharded axis."""
+    if not _DRAW_MODES:
+        return contextlib.nullcontext()
+    layouts = tuple((kind, tuple(shape), 0) for kind, shape in (("particles", particles), ("lanes", lanes)) if shape)
+    return _DRAW_MODES[-1].declared(layouts)
+
+
+def draws_after(n_lead: int):
+    """Declare that the draws inside carry ``n_lead`` leading axes (sub-steps,
+    samples) before the layouts declared around them (:func:`draws_of`)."""
+    if not _DRAW_MODES:
+        return contextlib.nullcontext()
+    return _DRAW_MODES[-1].shifted(n_lead)
 
 
 def resolve_device(device=None) -> torch.device:

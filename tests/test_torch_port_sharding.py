@@ -8,12 +8,15 @@ observations made with numpy from fixed seeds:
 
 - ``make_mesh``, ``shard_filter_state``'s shapes and ``lane_sharded_filter``
   (``:54``, ``:94``, ``:118``), beside the JAX package's;
-- the particle-sharded SISR against the one-process run at the same seed
-  under the reference's bar (``:62``: log-likelihood rel 0.02, filter means
-  atol 0.05; every draw of a sharded run is the one-process run's, so the
-  two agree until the all-reduced weight sums, rounded in another order,
-  move a copy-count boundary, and from there they are two estimates of one
-  likelihood);
+- the particle-sharded SISR against the one-process run at the same seed,
+  over 4 ranks, over 2, and by the resampler route (the fused kernels'
+  limit set below the cloud): every draw of a sharded run is the
+  one-process run's, so up to the first step where the all-reduced weight
+  sums, rounded in another order, move a copy-count boundary the ancestors
+  are equal and the clouds, per-step log-likelihoods and means agree within
+  1e-5; over the whole run, where they are two estimates of one likelihood,
+  the reference's bar (``:62``: log-likelihood rel 0.02, means atol 0.05);
+- the draw mode's declared layouts;
 - ``sharded_filter_step`` on an APF (``:106``);
 - SMC² (and its waste-free rejuvenation), NESS and PMMH sharded over a lane
   axis against the one-process fit at the same seeds (``:857``, ``:884``,
@@ -101,18 +104,58 @@ def test_lane_plus_particle_mesh_and_lane_sharded_filter(case):
         np.testing.assert_array_equal(lls[0], lls[1])
 
 
-def test_sharded_sisr_matches_one_process(case):
-    """``:62``'s bar against the one-process run at the same seed; the
-    log-likelihood is the same on every rank."""
+def _whole(ranks, run: str, key: str) -> np.ndarray:
+    """The sharded run's recorded ``key`` over the whole cloud, its shards in
+    rank order (the first pair of ranks for ``"pair"``), particle axis 1."""
+    group = sorted(ranks[:2], key=lambda r: r["pair_rank"]) if run == "pair" else ranks
+    return np.concatenate([r["sisr"][run][key] for r in group], axis=1)
+
+
+@pytest.mark.parametrize("run", ["world", "pair", "unfused"])
+def test_sharded_sisr_matches_one_process(case, run):
+    """Every draw of the sharded run is the one-process run's, so the two
+    move together until the all-reduced weight sums, rounded in another
+    order, move a copy-count boundary: up to that step the ancestors are
+    equal and the clouds, per-step log-likelihoods and means agree within
+    1e-5. Over the whole run ``:62``'s bar holds (log-likelihood rel 0.02,
+    means atol 0.05). ``"world"`` shards over 4 ranks, ``"pair"`` over 2,
+    and ``"unfused"`` resamples by the resampler and a gather over the
+    gathered cloud (the fused kernels' limit set below it)."""
     _, ranks = case
-    n_local = 1024 // WORLD
+    s0 = ranks[0]["sisr"][run]
+    assert s0["fused"] == (run != "unfused") and s0["fires"] > 0
+    idx, values = _whole(ranks, run, "idx"), _whole(ranks, run, "values")
+    assert idx.shape == values.shape == s0["one_idx"].shape == (51, 1024)
+    moved = np.flatnonzero((idx != s0["one_idx"]).any(axis=1))
+    # rows of the history: the initial cloud, then one a step
+    same = int(moved[0]) if moved.size else idx.shape[0]
+    assert same > 1, "the first resample already moved a boundary"
+    np.testing.assert_array_equal(idx[:same], s0["one_idx"][:same])
+    np.testing.assert_allclose(values[:same], s0["one_values"][:same], rtol=1e-5, atol=1e-5)
+    steps = same - 1
     for r in ranks:
-        s = r["sisr"]
+        s = r["sisr"][run]
+        np.testing.assert_allclose(s["lls"][:steps], s0["one_lls"][:steps], rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(s["means"][:steps], s0["one_means"][:steps], rtol=1e-5, atol=1e-5)
         assert abs(float(s["ll"]) - float(s["one_ll"])) / abs(float(s["one_ll"])) < 0.02
         np.testing.assert_allclose(s["means"], s["one_means"], atol=0.05)
-        np.testing.assert_array_equal(s["ll"], ranks[0]["sisr"]["ll"])  # replicated
-    cloud = np.concatenate([r["sisr"]["cloud"] for r in ranks])
-    assert cloud.shape == (WORLD * n_local,) and np.isfinite(cloud).all()
+        assert np.isfinite(s["values"]).all()
+    for r in ranks:
+        np.testing.assert_array_equal(r["sisr"][run]["ll"], s0["ll"])  # replicated
+
+
+def test_draws_follow_their_declared_layouts(case):
+    """The draw mode of a sharded run (``parallel/_shards.py``
+    ``ShardedDraws``): a draw declared with the cloud's ``(N, *batch)``, one
+    after a leading sub-step axis and one declared over the lanes are each
+    the one-process draw's slice for this rank; a draw declared free of
+    sharded axes is the same on every rank; an undeclared draw with an axis
+    of a sharded local size raises instead of being split by a guess."""
+    _, ranks = case
+    for r in ranks:
+        d = r["draws"]
+        assert d["cloud"] and d["steps"] and d["lanes"] and d["raised"] == [True, True]
+        np.testing.assert_array_equal(d["free"], ranks[0]["draws"]["free"])
 
 
 def test_sharded_step_apf(case):

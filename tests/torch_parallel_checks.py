@@ -11,9 +11,12 @@ import torch.distributed as dist
 
 import pyfilter_tpu_torch as pt
 from pyfilter_tpu_torch import inference as inf
+from pyfilter_tpu_torch.filters.particle import base as pbase
 from pyfilter_tpu_torch.filters.particle.proposals import LinearGaussianObservations
 from pyfilter_tpu_torch.parallel import _comm
 from pyfilter_tpu_torch.parallel import collective as col
+from pyfilter_tpu_torch.parallel._shards import LaneShard, ParticleShard, ShardedDraws
+from pyfilter_tpu_torch.utils import draws_after, draws_of
 
 
 def _np(t):
@@ -148,6 +151,24 @@ def _fit(kind: str, mesh, y, **mesh_kw) -> dict:
             "rejuvenations": alg.kernel.n_rejuvenations, "cloud": tuple(state.filter_state.latest_state.x.value.shape)}
 
 
+def _sisr_runs(mesh, axis: str, y) -> dict:
+    """SISR(1024, record_states) on the AR model at seed 3, on one process
+    and sharded over the mesh axis ``axis``: per-step log-likelihoods and
+    means, the recorded clouds and ancestors (this rank's slots of the
+    sharded run), and the resample fires of each."""
+    filt = pt.SISR(_ar_model(), 1024, record_states=True, device="cpu")
+    one = filt.batch_filter(torch.Generator().manual_seed(3), y)
+    ParticleShard.fires = 0
+    shr = pt.parallel.sharded_batch_filter(filt, torch.Generator().manual_seed(3), y, mesh, particle_axis=axis)
+    return {"one_lls": _np(one.step_log_likelihoods), "lls": _np(shr.step_log_likelihoods),
+            "one_ll": _np(one.log_likelihood), "ll": _np(shr.log_likelihood),
+            "one_means": _np(one.filter_means), "means": _np(shr.filter_means),
+            "one_values": _np(one.states.values), "values": _np(shr.states.values),
+            "one_idx": _np(one.states.prev_indices), "idx": _np(shr.states.prev_indices),
+            "one_fires": filt.n_resamples, "fires": ParticleShard.fires,
+            "fused": filt._use_fused_resample(torch.zeros(1))}
+
+
 def sharding_checks(rank: int, world: int, payload: dict) -> dict:
     res = {}
     mesh = pt.parallel.make_mesh(device_type="cpu")
@@ -173,13 +194,49 @@ def sharding_checks(rank: int, world: int, payload: dict) -> dict:
     lane_mesh = pt.parallel.make_mesh((2, world // 2), ("lanes", "rest"), device_type="cpu")
     res["beta"] = _np(pt.parallel.lane_sharded_filter(f4, lane_mesh).model.hidden.parameters[1])
 
-    # the sharded SISR against the one-process run at the same seed
-    filt = pt.SISR(_ar_model(), 1024, device="cpu")
-    one = filt.batch_filter(torch.Generator().manual_seed(3), payload["y"])
-    shr = pt.parallel.sharded_batch_filter(filt, torch.Generator().manual_seed(3), payload["y"], mesh)
-    res["sisr"] = {"one_ll": _np(one.log_likelihood), "ll": _np(shr.log_likelihood),
-                   "one_means": _np(one.filter_means), "means": _np(shr.filter_means),
-                   "cloud": _np(shr.latest_state.x.value), "one_cloud": _np(one.latest_state.x.value)}
+    # the sharded SISR against the one-process run at the same seed: over
+    # every rank, over pairs of ranks, and by the resampler and a gather (the
+    # fused kernels' limit set below the cloud, as a cloud of 2^24 entries
+    # or more resamples)
+    pairs = pt.parallel.make_mesh((world // 2, 2), ("outer", "pair"), device_type="cpu")
+    res["pair_rank"] = dist.get_rank(pairs.get_group("pair"))
+    res["sisr"] = {"world": _sisr_runs(mesh, "particles", payload["y"]),
+                   "pair": _sisr_runs(pairs, "pair", payload["y"])}
+    limit = pbase.FUSED_ENTRIES
+    pbase.FUSED_ENTRIES = 512
+    try:
+        res["sisr"]["unfused"] = _sisr_runs(mesh, "particles", payload["y"])
+    finally:
+        pbase.FUSED_ENTRIES = limit
+
+    # the draw mode: a declared layout is drawn whole and sliced, a draw
+    # declared free of sharded axes is the same on every rank, an undeclared
+    # draw with an axis of a sharded size raises
+    parts, lanes_sh = ParticleShard(mesh.get_group("particles"), 8), LaneShard(mesh.get_group("particles"), 4 * world)
+    g = torch.Generator().manual_seed(11)
+    with ShardedDraws(parts, lanes_sh):
+        with draws_of(particles=(8, 4)):
+            cloud = torch.randn(8, 4, 2, generator=g)
+            with draws_after(1):
+                steps = torch.rand(3, 8, 4, generator=g)
+        with draws_of(lanes=(4,)):
+            lane_u = torch.rand(4, generator=g)
+        with draws_of():
+            free = torch.randn(8, generator=g)
+        raised = []
+        for shape in ((8,), (5, 4)):
+            try:
+                torch.randn(shape, generator=g)
+                raised.append(False)
+            except ValueError:
+                raised.append(True)
+    g = torch.Generator().manual_seed(11)
+    whole = (torch.randn(8 * world, 4 * world, 2, generator=g), torch.rand(3, 8 * world, 4 * world, generator=g),
+             torch.rand(4 * world, generator=g))
+    rows, cols = slice(8 * rank, 8 * rank + 8), slice(4 * rank, 4 * rank + 4)
+    res["draws"] = {"cloud": bool(torch.equal(cloud, whole[0][rows, cols])),
+                    "steps": bool(torch.equal(steps, whole[1][:, rows, cols])),
+                    "lanes": bool(torch.equal(lane_u, whole[2][cols])), "free": _np(free), "raised": raised}
 
     # one APF step (the optimal proposal of the linear-Gaussian observations)
     apf = pt.APF(_ar_model(), 512, proposal=LinearGaussianObservations(), device="cpu")
@@ -204,8 +261,6 @@ def card_checks(rank: int, world: int, payload: dict) -> dict:
     counts of the whole cloud, and the host copies gloo made."""
     from pyfilter_tpu_torch.ops import expand
     from pyfilter_tpu_torch.ops.resample import copy_counts, invert_counts
-    from pyfilter_tpu_torch.parallel._shards import ParticleShard
-
     mesh = pt.parallel.make_mesh()
     dev = pt.parallel.sharding.mesh_device(mesh)
     shard = ParticleShard(mesh.get_group("particles"), 0)
@@ -217,9 +272,11 @@ def card_checks(rank: int, world: int, payload: dict) -> dict:
         u = torch.rand(lanes, generator=g, device=dev)
         rows = slice(rank * n // world, (rank + 1) * n // world)
         counter = expand.fused_expand_lanes if lanes else expand.fused_expand
+        fused = expand.systematic_expand_lanes if lanes else expand.systematic_expand
         before = counter.launches
         _comm.reset()
-        out, idx = shard.resample(u, probs[rows].contiguous(), vals[rows].contiguous())
+        out, idx = shard.resample(probs[rows].contiguous(), vals[rows].contiguous(),
+                                  lambda p, v: fused(None, p, v, normalized=True, u=u))
         launches = counter.launches - before
         ref = invert_counts(copy_counts(probs.T.contiguous() if lanes else probs, u))
         ref = ref.T if lanes else ref
