@@ -14,6 +14,7 @@
     python3 chip_smoke.py --gaussian  # phases 1-3 and 17 only (17b at the example's 400 samples)
     python3 chip_smoke.py --qmc       # phases 1-3 and 18 only
     python3 chip_smoke.py --parallel  # phases 1-3 and 19 only
+    python3 chip_smoke.py --spmd      # phases 1-3 and 20 only
     python3 chip_smoke.py --hessian-ab  # phases 1-3, then phase 12's damped-Newton runs, Hessian columns vs rows
     python3 chip_smoke.py --backward-ab TREE   # TREE's backward kernels against these, one card
 
@@ -64,8 +65,8 @@ Phases, in order; any failure exits non-zero before the result line:
    equal to its plain version on the last run's cloud.
 8. Rejection FFBSi over a recorded SISR history of ``LinearStateSpaceModel(
    AR(0.2, 0.7, 0.4), (1.0, 0.25))``, T = 200: N = 1e5 with M = N
-   trajectories, and N = 1e6 with M = 4096 (``systematic_m``). Each: one
-   warm-up pass and FFBSI_TIMED timed passes; checks the smoothed means at
+   trajectories, and N = 1e6 with M = 4096 (``systematic_m``). Each: a
+   warm-up pass over the history's last 3 steps and FFBSI_TIMED timed passes; checks the smoothed means at
    every t >= 1 against a float64 RTS smoother within ``4.5 sqrt(max var /
    M) + 0.02``, no NaN (the bound guard quiet), and the expand kernel
    launched once per resample fire (more than 0). Prints the wall per pass,
@@ -160,7 +161,7 @@ Phases, in order; any failure exits non-zero before the result line:
 14. Online smoothing and streaming maximum likelihood (the JAX package's
    ``tests/test_score.py`` and ``tests/test_smoothing_ffbsi.py`` at their
    sizes, but for (a)'s T; TF32 off). (a) ``fit_mle_streaming`` over
-   STREAM_T = 4,000 observations (the test's 10,000, cut) of an AR(1)
+   STREAM_T = 3,000 observations (the test's 10,000, cut) of an AR(1)
    (SISR(500), one Adam step per window of 50, lr 2e-2, from beta 0.3, sigma
    0.7): the fit within STREAM_TOL of the truth, finite window
    log-likelihoods, a path of STREAM_T / 50 rows, K1 once per resample fire; the wall,
@@ -331,6 +332,29 @@ Phases, in order; any failure exits non-zero before the result line:
    one holds the whole ring): indices bit-equal to the one-process ``copy_counts`` + ``invert_counts``
    and to K1's, each route timed (CUDA events) beside a K1 fire. A rank that
    fails, or outlives PAR_DEADLINE, fails the phase.
+
+20. The explicit-SPMD tier (``parallel/spmd.py``, ``parallel/enkf.py``) on a
+   gloo group of SPMD_WORLD spawned processes on the one card, each rank
+   drawing and holding only its N/P particles: (a) main path 1 (N = 1e6, T
+   = 200, 5 sub-steps, ESS threshold MAIN_ESS) through ``spmd_batch_filter``
+   at halo 1 (the ancestors always fit: on two ranks it holds the whole
+   ring) and at halo 0 (every fire takes the all-gather fallback, K1 over
+   the gathered cloud): each log-likelihood within SPMD_LL_SD spreads of
+   SPMD_SEEDS one-process runs, the same on every rank; K1 launches equal
+   the fallback fires and K1 equals its plain version bit for bit on a
+   fallback's gathered cloud; the exchanges counted (all-reduces a step, ring
+   shifts and the totals gather a fire); ms a step, the collectives' share
+   and each rank's peak device memory beside the one process's and 19a's.
+   (b) The APF (bootstrap and linear-Gaussian) and the GPF on phase 8's AR
+   model, N = 1e5, T = 200, against the float64 Kalman filter within
+   SPMD_AR_LL nats and SPMD_AR_MEAN. (c) ``spmd_smooth`` (FFBS and FFBSi, M
+   = 256) on (b)'s SISR history against the RTS smoother's means, FFBSi's
+   host reads and fallback passes, and ``spmd_predict`` 5 steps ahead
+   against the AR's closed-form moments. (d) ``spmd_enkf``: phase 17d's
+   localized ring (d = 512, M = 40, T = 12) against SPMD_SEEDS one-process
+   runs' last-4 RMSE, and the AR oracle at M = 4000, T = 60 against Kalman;
+   all-reduces only. A rank that fails, or outlives PAR_DEADLINE, fails the
+   phase.
 
 ``--host-probe TREE`` times, with TREE's package and TREE's own phase-11
 fit (``pmmh_fit``), the host time of a lane resample-and-gather call at
@@ -577,7 +601,7 @@ COLLAPSE_ALPHA, COLLAPSE_T = 3.0, 10
 # 5,000-observation fit ends 0.026 and 0.023 from the truth), and to 4,000
 # with phase 19 (the whole script read about 1315 s on a slow host)
 STREAM_ALPHA, STREAM_BETA, STREAM_SIGMA, STREAM_OBS = 0.2, 0.7, 0.4, 0.25
-STREAM_T, STREAM_N, STREAM_WINDOW, STREAM_LR, STREAM_START, STREAM_TOL = 4_000, 500, 50, 2e-2, (0.3, 0.7), 0.06
+STREAM_T, STREAM_N, STREAM_WINDOW, STREAM_LR, STREAM_START, STREAM_TOL = 3_000, 500, 50, 2e-2, (0.3, 0.7), 0.06
 # (b) the online score at N = 1e5, T = 200 at tests/test_score.py:33-62's
 # point, each run within its tolerance of the float64 Kalman score. One run
 # at the default 16 rejection rounds of the backward kernel, then the seeds
@@ -940,7 +964,7 @@ def main(argv) -> int:
 
     refs, cpu = None, None
     if argv[:1] not in (["--backward-ab"], ["--oracle"], ["--backward"], ["--gradients"], ["--streaming"],
-                        ["--batch"], ["--inference"], ["--gaussian"], ["--qmc"], ["--parallel"],
+                        ["--batch"], ["--inference"], ["--gaussian"], ["--qmc"], ["--parallel"], ["--spmd"],
                         ["--hessian-ab"]):
         # the CPU references of phases 4, 6 and 9 run in worker processes while the card runs
         refs = ProcessPoolExecutor(CPU_REF_WORKERS, mp_context=multiprocessing.get_context("spawn"))
@@ -1004,6 +1028,9 @@ def card_phases(torch, pt, _build, expand, copy_counts, argv, cpu) -> int:
         return 0
     if argv[:1] == ["--parallel"]:
         parallel_phase(torch, pt, expand, card)
+        return 0
+    if argv[:1] == ["--spmd"]:
+        spmd_phase(torch, pt, expand, card)
         return 0
     if argv[:1] == ["--hessian-ab"]:
         hessian_ab(torch, pt, card)
@@ -1154,9 +1181,12 @@ def full_run(torch, pt, expand, copy_counts, card, max_err, lanes_err, argv, cpu
     # -- 19. the parallel layer: both main paths sharded over two ranks on the card -----
     par = parallel_phase(torch, pt, expand, card)
 
+    # -- 20. the explicit-SPMD tier: main path 1 shard-locally over two ranks on the card -----
+    spmd = spmd_phase(torch, pt, expand, card, sharded=par["19a"])
+
     k1_paths = {"phase 4": launches, "phase 7": flag_launches, "phase 8": ffbsi_launches, "phase 12": oracle_k1,
                 **{path: c["k1"] for path, c in grads["paths"].items() if c["k1"]}, **stream["paths"], **zoo["k1"],
-                **infl["k1"], **gauss["k1"], **qmc["k1"], **par["k1"]}
+                **infl["k1"], **gauss["k1"], **qmc["k1"], **par["k1"], **spmd["k1"]}
     lane_paths = {"phase 5": lanes["launches"], "phase 6": smc2_launches, "phase 8": lane_launches,
                   "phase 9 NESS": ness_launches, "phase 9 hybrids": hybrid_launches, "phase 10": nb_launches,
                   "phase 11": pmmh_launches, "phase 12": oracle_lanes,
@@ -1171,7 +1201,7 @@ def full_run(torch, pt, expand, copy_counts, card, max_err, lanes_err, argv, cpu
         "launches": sum(k1_paths.values()),
         "launches_by_path": k1_paths,
         "max_abs_err": max(max_err, err, flag_err, ffbsi_err, oracle_err, stream["err"], zoo["k1_err"],
-                           infl["k1_err"], gauss["k1_err"], qmc["k1_err"], par["k1_err"]),
+                           infl["k1_err"], gauss["k1_err"], qmc["k1_err"], par["k1_err"], spmd["k1_err"]),
         "ms": k_ms,
         "plain_ms": p_ms,
         "bound_ms": bound_ms,
@@ -1383,7 +1413,7 @@ def smc2(torch, pt, expand, y, card, cpu_fit, profile: bool = False) -> int:
     def fit(device, seed):
         return smc2_fit(torch, pt, y, device, seed)
 
-    fit("cuda", 0)  # warm-up
+    smc2_fit(torch, pt, y[:PAR_WARM_T], "cuda", 0)  # warm-up
     expand.fused_expand.launches = expand.fused_expand_lanes.launches = 0
     pt.APF.corrections = 0
     walls, runs, syncs = [], [], []
@@ -1601,11 +1631,11 @@ def ffbsi(torch, pt, expand, card, profile: bool = False):
                                             last.x.value.reshape(1, -1), f"phase 8's SISR cloud (n={n})"))
         hist_bytes = sum(h.numel() * h.element_size() for h in res.states[1:])
 
-        def smooth(seed):
-            return ffbsi_smooth(gen(seed), model, res.states, filt.resampler, log_density_sup=log_sup,
+        def smooth(seed, history=res.states):
+            return ffbsi_smooth(gen(seed), model, history, filt.resampler, log_density_sup=log_sup,
                                 n_trajectories=m)
 
-        smooth(1)  # warm-up
+        smooth(1, type(res.states)(*(leaf[-3:] for leaf in res.states)))  # warm-up on the last 3 steps
         walls, syncs, passes = [], [], []
         for rep in range(FFBSI_TIMED):
             ffbsi_smooth.host_syncs = ffbsi_smooth.fallback_passes = 0
@@ -4477,11 +4507,12 @@ def waste_free_phase(torch, pt, expand, card, y, std_per_rejuv: float) -> dict:
     return out
 
 
-def storvik_example_fit(torch, pt, device: str, seed: int, filter_class=None):
-    """Phase 16c's example run (STORVIK_EX: data seed 0) on ``device``,
-    drawing from ``seed``: the filter, the result and the wall seconds."""
+def storvik_example_fit(torch, pt, device: str, seed: int, filter_class=None, t_obs: int | None = None):
+    """Phase 16c's example run (STORVIK_EX: data seed 0; its first ``t_obs``
+    observations when given) on ``device``, drawing from ``seed``: the
+    filter, the result and the wall seconds."""
     cfg = STORVIK_EX
-    y = storvik_data(torch, pt, cfg, 0)
+    y = storvik_data(torch, pt, cfg, 0)[:t_obs]
     conj = pt.inference.NIGAutoregression(obs_scale=cfg["obs"], v0=4.0, a0=2.0, b0=0.5, device=device)
     filt = (filter_class or pt.inference.StorvikFilter)(conj, cfg["n"], device=device)
     if device == "cuda":
@@ -4550,7 +4581,7 @@ def storvik_phase(torch, pt, expand, card, cpu_jobs) -> dict:
 
     t_phase = time.perf_counter()
     counted = counted_storvik(pt)
-    storvik_example_fit(torch, pt, "cuda", 99, counted)  # warm-up
+    storvik_example_fit(torch, pt, "cuda", 99, counted, t_obs=100)  # warm-up
     out = {"launches": 0, "err": 0.0}
 
     # the example at full size, over STORVIK_SEEDS seeds
@@ -4866,7 +4897,7 @@ def gauss_part1(torch, pt, expand, card) -> dict:
     rmse = {}
     for name, make in filters.items():
         filt = make(model, "cuda")
-        filt.batch_filter(y)  # warm-up
+        filt.batch_filter(y[:5])  # warm-up: a few steps run every operation of a pass
         res, wall = timed(torch, lambda: filt.batch_filter(y))
         ref = make(cpu_model, "cpu").batch_filter(y)
         ll_rel, m_rel = rel_err(res.log_likelihood, ref.log_likelihood), rel_err(res.filter_means, ref.filter_means)
@@ -5802,6 +5833,53 @@ def _par_routes(torch, pt, probs, u, v2d, group, rank: int, world: int, halo: in
     return out
 
 
+def run_ranks(target, world: int, phase: str, meanwhile=None):
+    """``target(rank, world, store, out_path)`` in ``world`` spawned processes
+    that join one gloo group through a ``file://`` store under ``build/``;
+    every rank's JSON readings, in rank order, and ``meanwhile()``'s result:
+    the parent runs it while the ranks start, and they begin their work
+    (:func:`await_parent`) once it has returned. A rank that fails, or is not
+    done within PAR_DEADLINE, fails the phase, and no child outlives the call."""
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", f"ranks-{phase}-{os.getpid()}")
+    os.makedirs(work, exist_ok=True)
+    spawn = multiprocessing.get_context("spawn")
+    outs = [os.path.join(work, f"rank{r}.json") for r in range(world)]
+    procs = [spawn.Process(target=target, args=(r, world, os.path.join(work, "store"), outs[r])) for r in range(world)]
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.start()
+        parent = None if meanwhile is None else meanwhile()
+        with open(os.path.join(work, "go"), "w"):
+            pass
+        for p in procs:
+            p.join(max(PAR_DEADLINE - (time.perf_counter() - t0), 1.0))
+        if any(p.is_alive() for p in procs):
+            raise AssertionError(f"phase {phase}: a rank did not finish within {PAR_DEADLINE} s")
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            raise AssertionError(f"phase {phase}: the ranks exited with {codes}")
+    finally:
+        for p in procs:
+            if p.pid is not None and p.is_alive():
+                p.terminate()
+            if p.pid is not None:
+                p.join(10)
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    return ranks, parent
+
+
+def await_parent(store: str) -> None:
+    """Wait, in a rank of :func:`run_ranks`, until the parent has done its
+    own work (the readings the ranks are timed apart from); the parent's
+    deadline bounds the wait."""
+    while not os.path.exists(os.path.join(os.path.dirname(store), "go")):
+        time.sleep(0.01)
+
+
 def parallel_rank(rank: int, world: int, store: str, out_path: str) -> None:
     """One rank of phase 19 (a spawned process): joins the gloo group, runs
     19a-19c on its shards and writes its readings to ``out_path`` (JSON)."""
@@ -5819,6 +5897,7 @@ def parallel_rank(rank: int, world: int, store: str, out_path: str) -> None:
                             timeout=_comm.TIMEOUT)
     try:
         mesh = pt.parallel.make_mesh()
+        await_parent(store)
         y = simulate_obs(N_OBS)
         res = {}
 
@@ -5832,10 +5911,13 @@ def parallel_rank(rank: int, world: int, store: str, out_path: str) -> None:
         _zero_counts(expand)
         ParticleShard.fires = 0
         _comm.reset()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         out, wall = timed(torch, lambda: pt.parallel.sharded_batch_filter(filt, gen(PAR_SEED), y, mesh))
         res["19a"] = {"ll": float(out.log_likelihood), "means": out.filter_means.tolist(), "wall": wall,
                       "launches": expand.fused_expand.launches, "fires": ParticleShard.fires,
-                      "comm": _comm.counts(), "cloud": list(out.latest_state.x.value.shape)}
+                      "comm": _comm.counts(), "cloud": list(out.latest_state.x.value.shape),
+                      "peak": torch.cuda.max_memory_allocated() - base}
 
         # -- 19b: main path 2 on a ("lanes",) mesh
         lanes = pt.parallel.make_mesh((world,), ("lanes",))
@@ -5879,46 +5961,25 @@ def parallel_phase(torch, pt, expand, card) -> dict:
     def gen(s):
         return torch.Generator(device="cuda").manual_seed(s)
 
-    model = pt.examples.stochastic_volatility_model(KAPPA, GAMMA, SIGMA, MU, NU, TAU, dt=DT)
-    filt = pt.SISR(model, N_PARTICLES)
-    filt.batch_filter(gen(PAR_SEED), y[:PAR_WARM_T])  # warm-up
-    one, one_wall = timed(torch, lambda: filt.batch_filter(gen(PAR_SEED), y))
-    smc2_fit(torch, pt, y[:PAR_WARM_T], "cuda", PAR_SMC2_SEED)  # warm-up
-    (_, one_mean, one_sd), one_fit_wall = timed(torch, lambda: smc2_fit(torch, pt, y, "cuda", PAR_SMC2_SEED))
-    # the draw mode's host cost alone: the same runs under a mode that shards nothing but sees every torch call
-    with ShardedDraws():
-        inert, inert_wall = timed(torch, lambda: filt.batch_filter(gen(PAR_SEED), y))
-        (_, inert_mean, _), inert_fit_wall = timed(torch, lambda: smc2_fit(torch, pt, y, "cuda", PAR_SMC2_SEED))
-    if not (float(inert.log_likelihood) == float(one.log_likelihood) and inert_mean == one_mean):
-        raise AssertionError("phase 19: the inert draw mode changed a one-process run")
+    def references():
+        """The one-process runs, while the ranks start."""
+        model = pt.examples.stochastic_volatility_model(KAPPA, GAMMA, SIGMA, MU, NU, TAU, dt=DT)
+        filt = pt.SISR(model, N_PARTICLES)
+        filt.batch_filter(gen(PAR_SEED), y[:PAR_WARM_T])  # warm-up
+        one, one_wall = timed(torch, lambda: filt.batch_filter(gen(PAR_SEED), y))
+        smc2_fit(torch, pt, y[:PAR_WARM_T], "cuda", PAR_SMC2_SEED)  # warm-up
+        (_, one_mean, one_sd), one_fit_wall = timed(torch, lambda: smc2_fit(torch, pt, y, "cuda", PAR_SMC2_SEED))
+        # the draw mode's host cost alone: the same runs under a mode that shards nothing but sees every torch call
+        with ShardedDraws():
+            inert, inert_wall = timed(torch, lambda: filt.batch_filter(gen(PAR_SEED), y))
+            (_, inert_mean, _), inert_fit_wall = timed(torch, lambda: smc2_fit(torch, pt, y, "cuda", PAR_SMC2_SEED))
+        if not (float(inert.log_likelihood) == float(one.log_likelihood) and inert_mean == one_mean):
+            raise AssertionError("phase 19: the inert draw mode changed a one-process run")
+        return one, one_wall, one_mean, one_sd, one_fit_wall, inert_wall, inert_fit_wall
 
-    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", f"parallel-{os.getpid()}")
-    os.makedirs(work, exist_ok=True)
-    spawn = multiprocessing.get_context("spawn")
-    outs = [os.path.join(work, f"rank{r}.json") for r in range(PAR_WORLD)]
-    procs = [spawn.Process(target=parallel_rank, args=(r, PAR_WORLD, os.path.join(work, "store"), outs[r]))
-             for r in range(PAR_WORLD)]
     t0 = time.perf_counter()
-    try:
-        for p in procs:
-            p.start()
-        for p in procs:
-            p.join(max(PAR_DEADLINE - (time.perf_counter() - t0), 1.0))
-        if any(p.is_alive() for p in procs):
-            raise AssertionError(f"phase 19: a rank did not finish within {PAR_DEADLINE} s")
-        codes = [p.exitcode for p in procs]
-        if any(codes):
-            raise AssertionError(f"phase 19: the ranks exited with {codes}")
-    finally:
-        for p in procs:
-            if p.pid is not None and p.is_alive():
-                p.terminate()
-            if p.pid is not None:
-                p.join(10)
-    ranks = []
-    for path in outs:
-        with open(path) as f:
-            ranks.append(json.load(f))
+    ranks, refs = run_ranks(parallel_rank, PAR_WORLD, "19", references)
+    one, one_wall, one_mean, one_sd, one_fit_wall, inert_wall, inert_fit_wall = refs
     group_wall = time.perf_counter() - t0
 
     # -- 19a
@@ -5936,7 +5997,8 @@ def parallel_phase(torch, pt, expand, card) -> dict:
           f"{one_wall / N_OBS * 1e3:.4f} ms a step; under the inert draw mode {inert_wall / N_OBS * 1e3:.4f} ms a "
           f"step); collectives {comm_s:.4f} s ({comm_s / a[0]['wall']:.4f} of the wall), a step: {comm['all_reduce']['calls'] / N_OBS:.2f} all-reduces, {comm['all_gather']['calls'] / N_OBS:.2f}"
           f" all-gathers, {(comm['all_reduce']['bytes'] + comm['all_gather']['bytes']) / N_OBS:.1f} bytes sent, "
-          f"{comm['host_copies'] / N_OBS:.2f} host copies; card {card}")
+          f"{comm['host_copies'] / N_OBS:.2f} host copies; peak device memory above the run's start a rank "
+          f"{[round(r['peak'] / 2**20, 2) for r in a]} MiB; card {card}")
     if not (gap < PAR_LL_RTOL and mean_gap < PAR_MEAN_ATOL and len({r["ll"] for r in a}) == 1):
         raise AssertionError(f"phase 19a: sharded {[r['ll'] for r in a]} against one process {one_ll}, "
                              f"means gap {mean_gap}")
@@ -5980,9 +6042,346 @@ def parallel_phase(torch, pt, expand, card) -> dict:
         ok = ok and all(x["k1_equal"] and x["allgather"]["equal"] and x["composed"]["equal"] for x in c)
         if not ok or k1_err:
             raise AssertionError(f"phase 19c ({case}): routes against one process and K1: {c}")
-    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s (the group {group_wall:.1f} s)")
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s (the group {group_wall:.1f} s, the one-process references "
+          f"while the ranks started)")
     return {"k1": {"phase 19a": sum(r["launches"] for r in a)}, "lanes": {"phase 19b": sum(r["launches"] for r in b)},
-            "k1_err": k1_err}
+            "k1_err": k1_err,
+            "19a": {"ms": a[0]["wall"] / N_OBS * 1e3, "peak": max(r["peak"] for r in a), "one_ms": one_wall / N_OBS * 1e3}}
+
+
+# phase 20: the explicit-SPMD tier (parallel/spmd.py, parallel/enkf.py) on the card: a gloo group of SPMD_WORLD
+# spawned processes, each rank's particles on the one card, each drawing and holding only its N/P (module docstring).
+SPMD_WORLD = 2
+SPMD_SEED = 70
+MAIN_ESS = 0.9  # pt.SISR's default: main path 1's threshold (phase 4), passed to spmd_batch_filter explicitly
+SPMD_SEEDS = 8  # one-process runs whose spread sets 20a's and 20d's limits
+SPMD_LL_SD = 4.5  # 20a: the SPMD run is one more independent estimate: limit 4.5 sd * sqrt(1 + 1 / SPMD_SEEDS)
+# 20b: tests/test_parallel.py:910's bar is 0.36 nats at N = 4096, T = 60 (3 MC sds); a sd scales as sqrt(T / N), so
+# 4 sds at N = 1e5, T = 200 are 4 / 3 * 0.36 * sqrt(200 / 60 * 4096 / 1e5) = 0.177 nats; the bootstrap APF's
+# point pre-weight widens its spread (tests/test_parallel.py:641-646), so its bar is the test's 6 nats scaled alike
+SPMD_AR = {"n": 100_000, "t": FFBSI_T, "m": 256, "predict": 5, "enkf_m": 4000, "enkf_t": 60}
+SPMD_AR_LL = {"sisr": 0.18, "apf-lgo": 0.18, "gpf": 0.18, "apf": 2.2}
+# the filter means' largest gap to Kalman over T = 200: the test's 0.08 at N = 4096 scales to 0.016 at N = 1e5; a CPU
+# rehearsal read 0.002-0.004 and, for the bootstrap APF, 0.021
+SPMD_AR_MEAN = {"sisr": 0.03, "apf-lgo": 0.03, "gpf": 0.03, "apf": 0.05}
+
+
+def spmd_ar_model(pt, device=None):
+    """Phase 8's AR model (its ``ffbsi`` builds the same)."""
+    return pt.timeseries.LinearStateSpaceModel(pt.timeseries.models.AR(AR_ALPHA, AR_BETA, AR_SIGMA, device=device),
+                                                (1.0, AR_OBS_S))
+
+
+def spmd_ar_data(torch, pt):
+    """Phase 8's observations (seed 0, T = FFBSI_T)."""
+    _, y = spmd_ar_model(pt, "cpu").sample_states(torch.Generator().manual_seed(0), FFBSI_T).get_paths()
+    return y.numpy()
+
+
+def spmd_ring_data(torch, pt):
+    """Phase 17d's ring states and observations."""
+    x, y = ring_model(pt, RING["d"], "cpu").sample_states(torch.Generator().manual_seed(5), RING["t"]).get_paths()
+    return x.numpy(), y.numpy()
+
+
+def spmd_rank(rank: int, world: int, store: str, out_path: str) -> None:
+    """One rank of phase 20 (a spawned process): joins the gloo group, runs
+    20a-20d on its particles and writes its readings to ``out_path`` (JSON)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import pyfilter_tpu_torch as pt
+    from pyfilter_tpu_torch.filters.particle.proposals import LinearGaussianObservations
+    from pyfilter_tpu_torch.ops import expand
+    from pyfilter_tpu_torch.parallel import _comm, spmd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=_comm.TIMEOUT)
+    try:
+        mesh = pt.parallel.make_mesh()
+        torch.ones((), device="cuda").item()
+        res = {"ready": time.time()}  # the host clock once the rank holds its card and its group
+        await_parent(store)
+        par = pt.parallel
+
+        def gen(s):
+            return torch.Generator(device="cuda").manual_seed(s)
+
+        def counted(fn):
+            """``fn()``'s result and wall, with its counts: K1's launches, the
+            filter's fires and fallbacks, the exchanges, the peak memory."""
+            _zero_counts(expand)
+            spmd.spmd_batch_filter.fires = spmd.spmd_batch_filter.fallbacks = 0
+            _comm.reset()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out, wall = timed(torch, fn)
+            return out, {"wall": wall, "launches": expand.fused_expand.launches, "fires": spmd.spmd_batch_filter.fires,
+                         "fallbacks": spmd.spmd_batch_filter.fallbacks, "comm": _comm.counts(),
+                         "peak": torch.cuda.max_memory_allocated() - base}
+
+        # -- 20a: main path 1, halo 1 and halo 0
+        y = simulate_obs(N_OBS)
+        model = pt.examples.stochastic_volatility_model(KAPPA, GAMMA, SIGMA, MU, NU, TAU, dt=DT)
+
+        def main_path(halo, seed, obs):
+            return par.spmd_batch_filter(model, N_PARTICLES, gen(seed), obs, mesh, ess_threshold=MAIN_ESS, halo=halo)
+
+        main_path(0, SPMD_SEED, y[:PAR_WARM_T])  # warm-up, through both routes
+        captured, expand_whole = {}, spmd.systematic_expand
+
+        def capture(generator, probs, values, normalized=False, u=None):
+            captured.update(probs=probs, values=values, u=u)
+            return expand_whole(generator, probs, values, normalized=normalized, u=u)
+
+        res["20a"] = {}
+        spmd.systematic_expand = capture
+        try:
+            for halo in (1, 0):
+                (vals, _, ll, means), counts = counted(lambda: main_path(halo, SPMD_SEED + 1 + halo, y))
+                res["20a"][f"halo{halo}"] = {"ll": float(ll), "means": means.tolist(), "shard": list(vals.shape),
+                                             **counts}
+        finally:
+            spmd.systematic_expand = expand_whole
+        # K1 against its plain version on the last fallback's gathered cloud
+        probs, u = captured["probs"], captured["u"]
+        v2d = expand._to_planes(captured["values"], probs.shape[0])
+        k_out, k_idx = expand.fused_expand(probs, u, v2d)
+        p_out, p_idx = expand._expand_probs_plain(probs, u, v2d)
+        res["20a"]["k1"] = {"equal": bool(torch.equal(k_idx, p_idx)), "err": float((k_out - p_out).abs().max()),
+                            "n": probs.shape[0]}
+
+        # -- 20b: the APF and the GPF on phase 8's AR model; the SISR history for 20c
+        ar = spmd_ar_model(pt)
+        y_ar = spmd_ar_data(torch, pt)
+        runs = {"apf": {"filter_type": "apf"}, "apf-lgo": {"filter_type": "apf", "proposal": LinearGaussianObservations()},
+                "gpf": {"filter_type": "gpf"}, "sisr": {"record_history": True}}
+        res["20b"], hist = {}, None
+        par.spmd_batch_filter(ar, SPMD_AR["n"], gen(80), y_ar[:PAR_WARM_T], mesh, **runs["apf-lgo"])  # warm-up
+        for i, (name, kw) in enumerate(runs.items()):
+            out, counts = counted(lambda: par.spmd_batch_filter(ar, SPMD_AR["n"], gen(90 + i), y_ar, mesh, **kw))
+            res["20b"][name] = {"ll": float(out[2]), "means": out[3].tolist(), **counts}
+            if name == "sisr":
+                vals, lw, hist = out[0], out[1], out[4]
+
+        # -- 20c: smoothing and prediction on the SISR history
+        res["20c"] = {}
+        for method in ("ffbs", "ffbsi"):
+            spmd.spmd_smooth.host_reads = spmd.spmd_smooth.fallback_passes = 0
+            sm, counts = counted(lambda: par.spmd_smooth(ar, gen(100), hist, mesh, n_trajectories=SPMD_AR["m"],
+                                                         method=method))
+            res["20c"][method] = {"means": sm.double().mean(dim=1).tolist(), "nan": bool(torch.isnan(sm).any()),
+                                  "host_reads": spmd.spmd_smooth.host_reads,
+                                  "fallback_passes": spmd.spmd_smooth.fallback_passes, **counts}
+        (means, variances), counts = counted(lambda: par.spmd_predict(ar, gen(101), vals, lw, SPMD_AR["predict"], mesh,
+                                                                       time_index=FFBSI_T))
+        res["20c"]["predict"] = {"means": means.tolist(), "variances": variances.tolist(), **counts}
+
+        # -- 20d: the sharded EnKF, phase 17d's localized ring and the AR oracle
+        x_ring, y_ring = spmd_ring_data(torch, pt)
+        ring = ring_model(pt, RING["d"], "cuda")
+        loc = ring_localization(pt, RING["d"], RING["radius"], "cuda")
+        par.spmd_enkf(ring, RING["m"], gen(110), y_ring, mesh, inflation=1.05, localization=loc)  # warm-up
+        out, counts = counted(lambda: par.spmd_enkf(ring, RING["m"], gen(111), y_ring, mesh, inflation=1.05,
+                                                     localization=loc))
+        means = out.filter_means.cpu().numpy()
+        res["20d"] = {"ring": {"rmse": float(np.sqrt(np.mean((means[-4:] - x_ring[-4:]) ** 2))),
+                               "members": list(out.latest_state.ensemble.shape), **counts}}
+        out, counts = counted(lambda: par.spmd_enkf(ar, SPMD_AR["enkf_m"], gen(112), y_ar[:SPMD_AR["enkf_t"]], mesh))
+        res["20d"]["ar"] = {"ll": float(out.log_likelihood), "means": out.filter_means[:, 0].tolist(),
+                            "variances": out.filter_variances[:, 0].tolist(),
+                            "members": list(out.latest_state.ensemble.shape), **counts}
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def ar_filter_moments(y, alpha: float, beta: float, sigma: float, obs: float) -> tuple:
+    """The float64 Kalman filter's means, variances and log-likelihood of a
+    scalar AR(1) (:func:`ar_kalman`'s recursion, with the variances)."""
+    import numpy as np
+
+    m, p, ll, means, variances = alpha, sigma**2, 0.0, [], []
+    for y_t in np.asarray(y, np.float64).tolist():
+        m, p = alpha + beta * m, beta * beta * p + sigma**2
+        s = p + obs**2
+        ll -= 0.5 * (math.log(2.0 * math.pi * s) + (y_t - m) ** 2 / s)
+        m, p = m + p / s * (y_t - m), (1.0 - p / s) * p
+        means.append(m)
+        variances.append(p)
+    return np.asarray(means), np.asarray(variances), ll
+
+
+def spmd_phase(torch, pt, expand, card, sharded: dict | None = None) -> dict:
+    """Phase 20 (module docstring): the one-process references here, then the
+    SPMD_WORLD ranks in spawned processes; their readings against the
+    references. ``sharded``: phase 19a's ms a step and peak memory a rank,
+    when it ran. Returns K1's launches on its main path and its largest error
+    against its plain version."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    y = simulate_obs(N_OBS)
+
+    def gen(s):
+        return torch.Generator(device="cuda").manual_seed(s)
+
+    def references():
+        """The one-process runs, while the ranks start: main path 1 over
+        SPMD_SEEDS seeds, the localized ring EnKF over as many."""
+        model = pt.examples.stochastic_volatility_model(KAPPA, GAMMA, SIGMA, MU, NU, TAU, dt=DT)
+        filt = pt.SISR(model, N_PARTICLES, ess_threshold=MAIN_ESS)
+        filt.batch_filter(gen(SPMD_SEED), y[:PAR_WARM_T])  # warm-up
+        lls, walls = [], []
+        for seed in range(SPMD_SEEDS):
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out, wall = timed(torch, lambda: filt.batch_filter(gen(SPMD_SEED + 10 + seed), y))
+            lls.append(float(out.log_likelihood))
+            walls.append(wall)
+            del out
+        peak = torch.cuda.max_memory_allocated() - base  # the last run's, above what was allocated before it
+        ring = ring_model(pt, RING["d"], "cuda")
+        enkf = pt.EnsembleKalmanFilter(ring, RING["m"], localization=ring_localization(pt, RING["d"], RING["radius"],
+                                                                                      "cuda"), inflation=1.05)
+        rmse = []
+        for seed in range(SPMD_SEEDS):
+            means = enkf.batch_filter(gen(120 + seed), y_ring).filter_means.cpu().numpy()
+            rmse.append(float(np.sqrt(np.mean((means[-4:] - x_ring[-4:]) ** 2))))
+        return lls, walls, peak, rmse
+
+    # 20b-20d's float64 references: Kalman and RTS
+    y_ar = spmd_ar_data(torch, pt)
+    k_means, k_vars, k_ll = ar_filter_moments(y_ar, AR_ALPHA, AR_BETA, AR_SIGMA, AR_OBS_S)
+    sm_mean, sm_var = rts_ar(y_ar, AR_ALPHA, AR_BETA, AR_SIGMA, AR_OBS_S)
+    x_ring, y_ring = spmd_ring_data(torch, pt)
+
+    t0, spawned = time.perf_counter(), time.time()
+    ranks, (one_lls, one_walls, one_peak, ring_rmse) = run_ranks(spmd_rank, SPMD_WORLD, "20", references)
+    group_wall = time.perf_counter() - t0
+    startup = max(r["ready"] for r in ranks) - spawned
+    one_mean, one_sd = float(np.mean(one_lls)), float(np.std(one_lls, ddof=1))
+    ll_limit = SPMD_LL_SD * one_sd * math.sqrt(1.0 + 1.0 / SPMD_SEEDS)
+    ring_limit = float(np.mean(ring_rmse) + 4.0 * np.std(ring_rmse, ddof=1))
+
+    # -- 20a
+    n_local = N_PARTICLES // SPMD_WORLD
+    k1_err, k1_launches = 0.0, 0
+    for halo in (1, 0):
+        a = [r["20a"][f"halo{halo}"] for r in ranks]
+        c, fires, fallbacks = a[0]["comm"], a[0]["fires"], a[0]["fallbacks"]
+        gap = abs(a[0]["ll"] - one_mean)
+        comm_s = sum(v["seconds"] for k, v in c.items() if k != "host_copies")
+        k1_launches += sum(r["launches"] for r in a)
+        print(f"phase 20a: SISR N={N_PARTICLES} T={N_OBS} x{OES} sub-steps, spmd_batch_filter on {SPMD_WORLD} gloo "
+              f"ranks (one card), halo {halo}: log-likelihood {a[0]['ll']} (one process {one_mean} +- {one_sd} over "
+              f"{SPMD_SEEDS} seeds; gap {gap:.6f}, limit {ll_limit:.6f}); shard {a[0]['shard']}; fires {fires}, "
+              f"all-gather fallbacks {fallbacks}, K1 launches {[r['launches'] for r in a]}")
+        print(f"  wall {a[0]['wall']:.4f} s, {a[0]['wall'] / N_OBS * 1e3:.4f} ms a step (one process "
+              f"{min(one_walls) / N_OBS * 1e3:.4f}"
+              + ("" if sharded is None else f"; 19a's sharded step {sharded['ms']:.4f}, its one process "
+                                            f"{sharded['one_ms']:.4f}")
+              + f"); collectives {comm_s:.4f} s ({comm_s / a[0]['wall']:.4f} of the wall; all-reduces "
+              f"{c['all_reduce']['seconds']:.4f} s, ring shifts {c['ring_shift']['seconds']:.4f} s, all-gathers "
+              f"{c['all_gather']['seconds']:.4f} s): "
+              f"{c['all_reduce']['calls']} all-reduces ({c['all_reduce']['calls'] / N_OBS:.2f} a step), "
+              f"{c['ring_shift']['calls']} ring shifts ({c['ring_shift']['bytes']} bytes), {c['all_gather']['calls']} "
+              f"all-gathers ({c['all_gather']['bytes']} bytes), {c['host_copies']} host copies; peak device memory "
+              f"above the run's start a rank {[round(r['peak'] / 2**20, 2) for r in a]} MiB (one process "
+              f"{one_peak / 2**20:.2f}"
+              + ("" if sharded is None else f", 19a's rank {sharded['peak'] / 2**20:.2f}, ratio "
+                                            f"{max(r['peak'] for r in a) / sharded['peak']:.4f}")
+              + f"); card {card}")
+        if not (gap < ll_limit and len({r["ll"] for r in a}) == 1 and a[0]["shard"] == [n_local]):
+            raise AssertionError(f"phase 20a (halo {halo}): {[r['ll'] for r in a]} against {one_lls}")
+        # the exchanges: every step's all-reduces (ESS, log-likelihood max and sum, normalize max and sum, mean)
+        # and the first normalize; each fire's fits vote, totals gather and ring shifts (the int64 prefix sums and
+        # the values); each fallback's gathers of the probabilities and the values
+        want_reduce = 2 + 6 * N_OBS + fires
+        want_gather = (fires + 2 * fallbacks, 8 * fires + 8 * n_local * fallbacks)
+        want_ring = (4 * halo * fires, 2 * halo * fires * n_local * (8 + 4))
+        ok = (c["all_reduce"]["calls"] == want_reduce and (c["all_gather"]["calls"], c["all_gather"]["bytes"]) ==
+              want_gather and (c["ring_shift"]["calls"], c["ring_shift"]["bytes"]) == want_ring and fires > 0)
+        ok = ok and all(r["launches"] == r["fallbacks"] for r in a) and (fallbacks == 0 if halo else fallbacks > 0)
+        if not ok:
+            raise AssertionError(f"phase 20a (halo {halo}): exchanges {c}, fires {fires}, fallbacks {fallbacks}, "
+                                 f"K1 {[r['launches'] for r in a]}; want all-reduces {want_reduce}, gathers "
+                                 f"{want_gather}, ring shifts {want_ring}")
+    k1 = [r["20a"]["k1"] for r in ranks]
+    k1_err = max(x["err"] for x in k1)
+    print(f"  K1 on the last fallback's gathered cloud (n = {k1[0]['n']}): indices equal to its plain version "
+          f"{[x['equal'] for x in k1]}, largest value gap {k1_err}")
+    if not (all(x["equal"] for x in k1) and k1_err == 0.0):
+        raise AssertionError(f"phase 20a: K1 against its plain version on the gathered cloud: {k1}")
+
+    # -- 20b
+    b = ranks[0]["20b"]
+    for name, r in b.items():
+        gap, mean_gap = abs(r["ll"] - k_ll), float(np.abs(np.asarray(r["means"]) - k_means).max())
+        print(f"phase 20b: {name} N={SPMD_AR['n']} T={FFBSI_T} on {SPMD_WORLD} ranks: log-likelihood {r['ll']} "
+              f"(Kalman {k_ll}, gap {gap:.5f}, limit {SPMD_AR_LL[name]}); means' largest gap {mean_gap:.5f} (limit "
+              f"{SPMD_AR_MEAN[name]}); {r['wall'] / FFBSI_T * 1e3:.4f} ms a step; fires {r['fires']}, fallbacks "
+              f"{r['fallbacks']}, K1 {r['launches']}; {r['comm']['all_reduce']['calls'] / FFBSI_T:.2f} all-reduces, "
+              f"{r['comm']['ring_shift']['calls'] / FFBSI_T:.2f} ring shifts a step; peak "
+              f"{r['peak'] / 2**20:.2f} MiB a rank; card {card}")
+        if not (gap < SPMD_AR_LL[name] and mean_gap < SPMD_AR_MEAN[name] and r["launches"] == r["fallbacks"]
+                and all(x["20b"][name]["ll"] == r["ll"] for x in ranks)):
+            raise AssertionError(f"phase 20b ({name}): {r['ll']} against Kalman {k_ll}, means gap {mean_gap}")
+
+    # -- 20c
+    c = ranks[0]["20c"]
+    for method in ("ffbs", "ffbsi"):
+        r = c[method]
+        means = np.asarray(r["means"])[1:]
+        worst, tol = float(np.abs(means - sm_mean).max()), 4.5 * math.sqrt(sm_var.max() / SPMD_AR["m"]) + 0.02
+        comm = r["comm"]
+        print(f"phase 20c: spmd_smooth {method}, M={SPMD_AR['m']} on 20b's SISR history: smoothed means' worst gap to "
+              f"the RTS smoother {worst:.5f} (limit {tol:.5f}); {r['wall']:.4f} s, {r['wall'] / FFBSI_T * 1e3:.4f} ms "
+              f"a backward step; host reads {r['host_reads']} ({r['host_reads'] / FFBSI_T:.2f} a step), fallback "
+              f"passes {r['fallback_passes']}; all-reduces {comm['all_reduce']['calls']} "
+              f"({comm['all_reduce']['bytes']} bytes), all-gathers {comm['all_gather']['calls']}, ring shifts "
+              f"{comm['ring_shift']['calls']}; card {card}")
+        ok = (worst < tol and not r["nan"] and comm["all_gather"]["calls"] == comm["ring_shift"]["calls"] == 0
+              and all(x["20c"][method]["means"] == r["means"] for x in ranks))
+        ok = ok and (r["host_reads"] == FFBSI_T if method == "ffbsi" else r["host_reads"] == 0)
+        if not ok:
+            raise AssertionError(f"phase 20c ({method}): worst gap {worst} (limit {tol}), {r}")
+    pred = c["predict"]
+    beta_k = AR_BETA ** np.arange(1, SPMD_AR["predict"] + 1)
+    want_mean = AR_ALPHA * (1.0 - beta_k) / (1.0 - AR_BETA) + beta_k * k_means[-1]
+    want_var = beta_k**2 * k_vars[-1] + AR_SIGMA**2 * (1.0 - beta_k**2) / (1.0 - AR_BETA**2)
+    m_gap = float(np.abs(np.asarray(pred["means"]) - want_mean).max())
+    v_gap = float(np.abs(np.asarray(pred["variances"]) / want_var - 1.0).max())
+    print(f"  spmd_predict {SPMD_AR['predict']} steps: means {pred['means']} (closed form {want_mean.tolist()}, gap "
+          f"{m_gap:.5f}, limit 0.02), variances' largest relative gap {v_gap:.5f} (limit 0.05); all-reduces "
+          f"{pred['comm']['all_reduce']['calls']}")
+    if not (m_gap < 0.02 and v_gap < 0.05):
+        raise AssertionError(f"phase 20c: predictive moments {pred} against {want_mean}, {want_var}")
+
+    # -- 20d
+    ring_r, ar_r = ranks[0]["20d"]["ring"], ranks[0]["20d"]["ar"]
+    ar_means, ar_vars, ar_ll = ar_filter_moments(y_ar[:SPMD_AR["enkf_t"]], AR_ALPHA, AR_BETA, AR_SIGMA, AR_OBS_S)
+    m_gap = float(np.abs(np.asarray(ar_r["means"]) - ar_means).max())
+    v_gap = float(np.abs(np.asarray(ar_r["variances"]) / ar_vars - 1.0).max())
+    print(f"phase 20d: spmd_enkf, the localized ring d={RING['d']}, M={RING['m']} ({ring_r['members']} a rank), "
+          f"T={RING['t']}: last-4 RMSE {ring_r['rmse']:.5f} (one process over {SPMD_SEEDS} seeds "
+          f"{np.mean(ring_rmse):.5f} +- {np.std(ring_rmse, ddof=1):.5f}, limit {ring_limit:.5f}); "
+          f"{ring_r['wall'] / RING['t'] * 1e3:.4f} ms a step; AR M={SPMD_AR['enkf_m']}, T={SPMD_AR['enkf_t']}: "
+          f"log-likelihood {ar_r['ll']} (Kalman {ar_ll}, limit 1.0), means' gap {m_gap:.5f} (limit 0.05), "
+          f"variances' relative gap {v_gap:.5f} (limit 0.15); exchanges a ring step "
+          f"{ring_r['comm']['all_reduce']['calls'] / RING['t']:.2f} all-reduces, none other; card {card}")
+    ok = ring_r["rmse"] < ring_limit and abs(ar_r["ll"] - ar_ll) < 1.0 and m_gap < 0.05 and v_gap < 0.15
+    ok = ok and all(r["comm"]["all_gather"]["calls"] == r["comm"]["ring_shift"]["calls"] == 0 < r["comm"]["all_reduce"][
+        "calls"] for r in (ring_r, ar_r))
+    if not ok:
+        raise AssertionError(f"phase 20d: ring {ring_r['rmse']} (limit {ring_limit}), AR {ar_r['ll']} against {ar_ll}")
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s (the group {group_wall:.1f} s, of it {startup:.1f} s to "
+          f"start the ranks and join the group, the one-process references meanwhile)")
+    return {"k1": {"phase 20a": k1_launches}, "k1_err": k1_err}
 
 
 def apf_bias(torch, pt, seeds: int) -> int:

@@ -82,9 +82,20 @@ class _EnsembleBase:
         m = self.model.build_density(self._state(ens, t)).mean
         return m[:, None] if m.dim() == 1 else m  # (M, d_y)
 
-    def _obs_cov_at_mean(self, ens, t) -> torch.Tensor:
-        d = self.model.build_density(self._state(ens.mean(dim=0, keepdim=True), t))
+    def _obs_cov_at(self, mean, t) -> torch.Tensor:
+        """The observation noise covariance ``(d_y, d_y)`` at the state ``mean``."""
+        d = self.model.build_density(self._state(mean[None], t))
         return density_covariance(d, self._d_y)
+
+    def _members_mean(self, x) -> torch.Tensor:
+        """The mean over the members (axis 0) of the whole ensemble; an
+        ensemble sharded over ranks all-reduces it (``parallel.enkf``)."""
+        return x.mean(dim=0)
+
+    def _members_sum(self, t) -> torch.Tensor:
+        """A sum over this process's members taken to the whole ensemble's
+        (itself here; an all-reduce in ``parallel.enkf``)."""
+        return t
 
     def initialize(self, generator) -> EnKFState:
         x0 = self.model.hidden.initial_sample(generator, (self.ensemble_size,))
@@ -94,7 +105,7 @@ class _EnsembleBase:
         state = self.model.hidden.propagate_substeps(generator, self._state(ens, t), n_transitions)
         ens = self._lift(state.value)
         if self.inflation != 1.0:
-            m = ens.mean(dim=0)
+            m = self._members_mean(ens)
             ens = m + self.inflation * (ens - m)
         return ens, state.time_index
 
@@ -156,12 +167,13 @@ class EnsembleKalmanFilter(_EnsembleBase):
     def _analysis(self, generator, ens, y_t, t):
         m_count = self.ensemble_size
         g = self._obs_mean(ens, t)  # (M, d_y) noise-free observation means
-        g_bar = g.mean(dim=0)
+        g_bar = self._members_mean(g)
         b = g - g_bar
-        a = ens - ens.mean(dim=0)
-        r = self._obs_cov_at_mean(ens, t)  # (d_y, d_y)
-        c_yy = b.T @ b / (m_count - 1) + r
-        c_xy = a.T @ b / (m_count - 1)
+        mean_x = self._members_mean(ens)
+        a = ens - mean_x
+        r = self._obs_cov_at(mean_x, t)  # (d_y, d_y)
+        c_yy = self._members_sum(b.T @ b) / (m_count - 1) + r
+        c_xy = self._members_sum(a.T @ b) / (m_count - 1)
         if self.localization is not None:
             # Schur taper of the SAMPLE parts only: rho o (B'B/(M-1)) + R
             rho_yy = self.localization.rho_yy

@@ -144,7 +144,7 @@ class EnsembleTransformKalmanFilter(_EnsembleBase):
         b = g - g_bar
         x_bar = ens.mean(dim=0)
         a = ens - x_bar
-        r = self._obs_cov_at_mean(ens, t)
+        r = self._obs_cov_at(x_bar, t)
 
         # missing components excised exactly: their whitened anomaly and
         # innovation columns are zero

@@ -21,8 +21,6 @@ import pyfilter_tpu_torch
 NOT_PORTED = {
     ("", "enable_compile_cache"): "not queued: it exists only for XLA",
     ("", "interop"): "not queued: the numpyro bridge (no numpyro or pyro to bridge to)",
-    **{("parallel", name): "ROADMAP Queue 1 item 2" for name in (
-        "spmd_batch_filter", "spmd_enkf", "spmd_predict", "spmd_smooth", "spmd_smoothed_log_likelihood")},
 }
 #: JAX packages the port has no counterpart of yet
 NOT_PORTED_PACKAGES = {}
