@@ -1,0 +1,14 @@
+"""K2's share of its roofline in the window: the least time for the bytes
+of every launch the window made, counted from the shapes each launch had,
+over the device time of K2's kernel in the trace."""
+
+from benchmark import peaks
+
+
+def read(run):
+    shapes = run.launch_shapes.get("k2", [])
+    secs, _ = run.trace.kernel_seconds(peaks.K2_KERNELS)
+    if not shapes or secs <= 0.0:
+        return None
+    least = sum(peaks.least_seconds(peaks.k2_bytes(n, lanes, d)) for n, lanes, d in shapes)
+    return 100.0 * least / secs
