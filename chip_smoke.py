@@ -5988,15 +5988,15 @@ def parallel_phase(torch, pt, expand, card) -> dict:
     gap = abs(a[0]["ll"] - one_ll) / abs(one_ll)
     mean_gap = float((torch.tensor(a[0]["means"]) - one_means).abs().max())
     comm = a[0]["comm"]
-    comm_s = sum(v["seconds"] for k, v in comm.items() if k != "host_copies")
     print(f"phase 19a: SISR N={N_PARTICLES} T={N_OBS} x{OES} sub-steps on {PAR_WORLD} gloo ranks (one card): "
           f"log-likelihood {a[0]['ll']} (one process {one_ll}, rel gap {gap:.6f}, limit {PAR_LL_RTOL}); filter means "
           f"max gap {mean_gap:.6f} (limit {PAR_MEAN_ATOL}); shard {a[0]['cloud']}; K1 launches "
           f"{[r['launches'] for r in a]} for fires {[r['fires'] for r in a]}")
     print(f"  wall {a[0]['wall']:.4f} s, {a[0]['wall'] / N_OBS * 1e3:.4f} ms a step (one process {one_wall:.4f} s, "
           f"{one_wall / N_OBS * 1e3:.4f} ms a step; under the inert draw mode {inert_wall / N_OBS * 1e3:.4f} ms a "
-          f"step); collectives {comm_s:.4f} s ({comm_s / a[0]['wall']:.4f} of the wall), a step: {comm['all_reduce']['calls'] / N_OBS:.2f} all-reduces, {comm['all_gather']['calls'] / N_OBS:.2f}"
-          f" all-gathers, {(comm['all_reduce']['bytes'] + comm['all_gather']['bytes']) / N_OBS:.1f} bytes sent, "
+          f"step); collectives a step: {comm['all_reduce']['calls'] / N_OBS:.2f} all-reduces, "
+          f"{comm['all_gather']['calls'] / N_OBS:.2f} all-gathers, "
+          f"{(comm['all_reduce']['bytes'] + comm['all_gather']['bytes']) / N_OBS:.1f} bytes sent, "
           f"{comm['host_copies'] / N_OBS:.2f} host copies; peak device memory above the run's start a rank "
           f"{[round(r['peak'] / 2**20, 2) for r in a]} MiB; card {card}")
     if not (gap < PAR_LL_RTOL and mean_gap < PAR_MEAN_ATOL and len({r["ll"] for r in a}) == 1):
@@ -6017,8 +6017,7 @@ def parallel_phase(torch, pt, expand, card) -> dict:
           f"{b[0]['rejuvenations']}, transitions {b[0]['transitions']}; K2 launches {[r['launches'] for r in b]} for "
           f"APF steps {[r['steps'] for r in b]}")
     print(f"  wall {b[0]['wall']:.4f} s (one process {one_fit_wall:.4f} s, under the inert draw mode "
-          f"{inert_fit_wall:.4f} s); collectives "
-          f"{sum(v['seconds'] for k, v in comm.items() if k != 'host_copies'):.4f} s: all-gathers "
+          f"{inert_fit_wall:.4f} s); collectives: all-gathers "
           f"{comm['all_gather']['calls']} ({comm['all_gather']['bytes']} bytes), all-reduces "
           f"{comm['all_reduce']['calls']}, host copies {comm['host_copies']}; card {card}")
     if not (rel < PAR_POST_RTOL and all(r["mean"] == b[0]["mean"] for r in b)):
@@ -6275,7 +6274,6 @@ def spmd_phase(torch, pt, expand, card, sharded: dict | None = None) -> dict:
         a = [r["20a"][f"halo{halo}"] for r in ranks]
         c, fires, fallbacks = a[0]["comm"], a[0]["fires"], a[0]["fallbacks"]
         gap = abs(a[0]["ll"] - one_mean)
-        comm_s = sum(v["seconds"] for k, v in c.items() if k != "host_copies")
         k1_launches += sum(r["launches"] for r in a)
         print(f"phase 20a: SISR N={N_PARTICLES} T={N_OBS} x{OES} sub-steps, spmd_batch_filter on {SPMD_WORLD} gloo "
               f"ranks (one card), halo {halo}: log-likelihood {a[0]['ll']} (one process {one_mean} +- {one_sd} over "
@@ -6285,9 +6283,7 @@ def spmd_phase(torch, pt, expand, card, sharded: dict | None = None) -> dict:
               f"{min(one_walls) / N_OBS * 1e3:.4f}"
               + ("" if sharded is None else f"; 19a's sharded step {sharded['ms']:.4f}, its one process "
                                             f"{sharded['one_ms']:.4f}")
-              + f"); collectives {comm_s:.4f} s ({comm_s / a[0]['wall']:.4f} of the wall; all-reduces "
-              f"{c['all_reduce']['seconds']:.4f} s, ring shifts {c['ring_shift']['seconds']:.4f} s, all-gathers "
-              f"{c['all_gather']['seconds']:.4f} s): "
+              + f"); collectives: "
               f"{c['all_reduce']['calls']} all-reduces ({c['all_reduce']['calls'] / N_OBS:.2f} a step), "
               f"{c['ring_shift']['calls']} ring shifts ({c['ring_shift']['bytes']} bytes), {c['all_gather']['calls']} "
               f"all-gathers ({c['all_gather']['bytes']} bytes), {c['host_copies']} host copies; peak device memory "

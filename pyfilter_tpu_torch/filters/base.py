@@ -23,6 +23,7 @@ import copy
 import numpy as np
 import torch
 
+from ..tracing import span
 from ..utils import draws_of, resolve_device, same_device
 from .result import FilterHistory, FilterResult
 from .state import ParticleFilterCorrection, ParticleFilterPrediction
@@ -158,16 +159,19 @@ class BaseFilter:
         (:meth:`_nan_row`) gives; ``on_substep(prediction)``, when given,
         sees every sub-step's prediction (one propagation at a time). Its
         draws are declared to a sharded run (:meth:`_declared_draws`)."""
-        with self._declared_draws():
+        with span("filter.step"), self._declared_draws():
             n_sub = 0 if first_step else self.model.observe_every_step - 1
-            prediction = self.predict(generator, state)
-            if n_sub and on_substep is None:
-                x_new = self.model.hidden.propagate_substeps(generator, prediction.x, n_sub)
-                prediction = prediction._replace(x=x_new)
-            elif n_sub:
-                for _ in range(n_sub):
-                    prediction = prediction._replace(x=self.model.hidden.propagate(generator, prediction.x))
-                    on_substep(prediction)
+            with span("filter.predict"):
+                prediction = self.predict(generator, state)
+            if n_sub:
+                with span("filter.propagate"):
+                    if on_substep is None:
+                        x_new = self.model.hidden.propagate_substeps(generator, prediction.x, n_sub)
+                        prediction = prediction._replace(x=x_new)
+                    else:
+                        for _ in range(n_sub):
+                            prediction = prediction._replace(x=self.model.hidden.propagate(generator, prediction.x))
+                            on_substep(prediction)
             if nan_row == "skip":
                 return prediction.create_state_from_prediction(
                     generator, self.model, compute_moments=getattr(self, "record_moments", True),
@@ -175,7 +179,8 @@ class BaseFilter:
                 )
             if nan_row == "impute":
                 y = self._impute(generator, y, prediction)
-            return self.correct(generator, y, prediction)
+            with span("filter.correct"):
+                return self.correct(generator, y, prediction)
 
     # -- full pass ------------------------------------------------------------
     def batch_filter(self, generator, y, initial_state: ParticleFilterCorrection | None = None) -> FilterResult:
@@ -184,43 +189,44 @@ class BaseFilter:
         ``generator``: a ``torch.Generator`` on the filter's device. ``y`` is
         copied to the device once; its host copy decides the NaN handling of
         each step."""
-        if isinstance(y, torch.Tensor):
-            y = y.detach().cpu().numpy()
-        y_host = np.asarray(y, dtype=np.float32)
-        n_steps = y_host.shape[0]
-        if n_steps == 0:
-            raise ValueError("empty observation sequence")
-        nan_mask = np.isnan(y_host.reshape(n_steps, -1))
-        y_dev = torch.as_tensor(y_host, device=self.device)
+        with span("filter.pass"):
+            if isinstance(y, torch.Tensor):
+                y = y.detach().cpu().numpy()
+            y_host = np.asarray(y, dtype=np.float32)
+            n_steps = y_host.shape[0]
+            if n_steps == 0:
+                raise ValueError("empty observation sequence")
+            nan_mask = np.isnan(y_host.reshape(n_steps, -1))
+            y_dev = torch.as_tensor(y_host, device=self.device)
 
-        if initial_state is None:
-            with self._declared_draws():
-                initial_state = self.initialize(generator)
-        state = initial_state
-        recorder = self._recorder(state, n_steps)
-        on_substep = recorder.record_substep if recorder is not None and recorder.intermediary else None
-        lls, means, variances = [], [], []
-        for t in range(n_steps):
-            state = self._filter(generator, y_dev[t], self._nan_row(nan_mask[t]), state, first_step=t == 0,
-                                 on_substep=None if t == 0 else on_substep)
-            if recorder is not None:
-                recorder.record(state)
-            lls.append(state.log_likelihood)
-            means.append(state.mean)
-            variances.append(state.variance)
+            if initial_state is None:
+                with self._declared_draws():
+                    initial_state = self.initialize(generator)
+            state = initial_state
+            recorder = self._recorder(state, n_steps)
+            on_substep = recorder.record_substep if recorder is not None and recorder.intermediary else None
+            lls, means, variances = [], [], []
+            for t in range(n_steps):
+                state = self._filter(generator, y_dev[t], self._nan_row(nan_mask[t]), state, first_step=t == 0,
+                                     on_substep=None if t == 0 else on_substep)
+                if recorder is not None:
+                    recorder.record(state)
+                lls.append(state.log_likelihood)
+                means.append(state.mean)
+                variances.append(state.variance)
 
-        step_lls = torch.stack(lls)
-        return FilterResult(
-            # each lane's steps summed along a contiguous row: the bits of a
-            # lane then do not depend on how many lanes run beside it (a
-            # lane-sharded run's are the one-process run's)
-            log_likelihood=torch.sum(step_lls.movedim(0, -1).contiguous(), dim=-1),
-            step_log_likelihoods=step_lls,
-            filter_means=torch.stack(means),
-            filter_variances=torch.stack(variances),
-            latest_state=state,
-            states=None if recorder is None else recorder.history(),
-        )
+            step_lls = torch.stack(lls)
+            return FilterResult(
+                # each lane's steps summed along a contiguous row: the bits of a
+                # lane then do not depend on how many lanes run beside it (a
+                # lane-sharded run's are the one-process run's)
+                log_likelihood=torch.sum(step_lls.movedim(0, -1).contiguous(), dim=-1),
+                step_log_likelihoods=step_lls,
+                filter_means=torch.stack(means),
+                filter_variances=torch.stack(variances),
+                latest_state=state,
+                states=None if recorder is None else recorder.history(),
+            )
 
     def batch_filter_masked(self, generator, y_padded, n_valid) -> FilterResult:
         """Filter the first ``n_valid`` rows of ``y_padded`` (see

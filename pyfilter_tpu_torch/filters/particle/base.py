@@ -16,6 +16,7 @@ import torch
 from ...ops import systematic_counts, systematic_expand, systematic_expand_lanes
 from ...resampling import systematic_m
 from ...timeseries import TimeseriesState
+from ...tracing import span
 from ...utils import batched_gather, get_ess, log_likelihood, normalize, normalize_log, same_device
 from ..base import BaseFilter
 from ..result import FilterHistory, FilterResult
@@ -148,6 +149,9 @@ class ParticleFilter(BaseFilter):
         self.differentiable = bool(differentiable)
         #: resample fires since construction (host counter; reset freely)
         self.n_resamples = 0
+        #: device-to-host reads of the ESS gate since construction (host
+        #: counter; reset freely)
+        self.n_host_syncs = 0
         self._identity_cache = None
 
     @property
@@ -211,10 +215,11 @@ class ParticleFilter(BaseFilter):
         sharded cloud is resampled whole by either route, over every rank's
         particles gathered, each rank keeping its slots
         (``parallel._shards.ParticleShard.resample``)."""
-        if self._shard is None:
-            return self._resample_whole(generator, weights, values, normalized)
-        probs = weights if normalized else self._shard.normalize(weights)
-        return self._shard.resample(probs, values, lambda p, v: self._resample_whole(generator, p, v, True))
+        with span("filter.resample"):
+            if self._shard is None:
+                return self._resample_whole(generator, weights, values, normalized)
+            probs = weights if normalized else self._shard.normalize(weights)
+            return self._shard.resample(probs, values, lambda p, v: self._resample_whole(generator, p, v, True))
 
     def _resample_whole(self, generator, weights, values, normalized: bool):
         if self._use_fused_resample(values[0] if isinstance(values, tuple) else values):

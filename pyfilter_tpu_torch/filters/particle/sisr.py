@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ...tracing import span
 from ..state import ParticleFilterCorrection, ParticleFilterPrediction
 from .base import ParticleFilter
 
@@ -30,7 +31,10 @@ class SISR(ParticleFilter):
         ts_state = state.x
         if self.batch_shape:
             return self._resample_lanes(generator, state, normalized, ess)
-        if not bool(ess < self.resample_threshold):  # the host sync of the step
+        with span("filter.gate"):
+            fire = bool(ess < self.resample_threshold)  # the host sync of the step
+        self.n_host_syncs += 1
+        if not fire:
             return ParticleFilterPrediction(ts_state, state.log_weights, normalized, self._identity)
 
         self.n_resamples += 1

@@ -37,6 +37,7 @@ from torch.utils._pytree import tree_map
 from ...distributions import Independent, MultivariateNormal, Normal
 from ...timeseries import TimeseriesState
 from ...timeseries.models import parameter
+from ...tracing import span
 from ...utils import batched_gather
 from ..result import FilterResult
 from .base import gumbel, trajectory_ends
@@ -200,15 +201,17 @@ def backward_indices(
         failed = torch.ones(j_shape, dtype=torch.bool, device=dev)
         violated = torch.zeros((), dtype=torch.bool, device=dev)
 
-    n_fail = int(failed.sum())  # the host sync of the step
+    with span("ffbsi.read"):
+        n_fail = int(failed.sum())  # the host sync of the step
     ffbsi_smooth.host_syncs += 1
     if n_fail == 0:
         return idx, violated
     if len(j_shape) > 1:
         # lanes: one exact pass over every target, kept on the failed ones
         ffbsi_smooth.fallback_passes += 1
-        exact = _streaming_categorical(generator, model, vals_t, lw_t, time_index, targets, ev, block)
-        return torch.where(failed, exact, idx), violated
+        with span("ffbsi.fallback"):
+            exact = _streaming_categorical(generator, model, vals_t, lw_t, time_index, targets, ev, block)
+            return torch.where(failed, exact, idx), violated
 
     # laneless: only the failed slots, in passes of k_sub; each failed slot
     # goes to its rank among the failures (a cumsum), so the first n_fail
@@ -219,11 +222,12 @@ def backward_indices(
     order = torch.full((j + 1,), j, dtype=torch.int64, device=dev).scatter_(0, rank, torch.arange(j, device=dev))
     for start in range(0, n_fail, k_sub):
         ffbsi_smooth.fallback_passes += 1
-        sel = order[start : min(start + k_sub, n_fail)]
-        exact = _streaming_categorical(
-            generator, model, vals_t, lw_t, time_index, targets.index_select(0, sel), ev, block_eff
-        )
-        idx = idx.index_copy(0, sel, exact)
+        with span("ffbsi.fallback"):
+            sel = order[start : min(start + k_sub, n_fail)]
+            exact = _streaming_categorical(
+                generator, model, vals_t, lw_t, time_index, targets.index_select(0, sel), ev, block_eff
+            )
+            idx = idx.index_copy(0, sel, exact)
     return idx, violated
 
 
@@ -258,11 +262,12 @@ def ffbsi_smooth(
     out[-1] = traj_last
     violated = torch.zeros((), dtype=torch.bool, device=values.device)
     for t in range(values.shape[0] - 2, -1, -1):
-        idx, v = backward_indices(
-            generator, model, values[t], log_w[t], times[t], out[t + 1], log_sup, max_rounds, block
-        )
-        out[t] = batched_gather(values[t], idx, ev)
-        violated |= v
+        with span("ffbsi.step"):
+            idx, v = backward_indices(
+                generator, model, values[t], log_w[t], times[t], out[t + 1], log_sup, max_rounds, block
+            )
+            out[t] = batched_gather(values[t], idx, ev)
+            violated |= v
     if check_bound:
         out = torch.where(violated, math.nan, out)
     return out

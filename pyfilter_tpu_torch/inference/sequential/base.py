@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ...parallel._shards import lane_shard
+from ...tracing import span
 from ..base import BaseAlgorithm
 from ..logging import DefaultLogger
 from ..state import RunningFilterResult, SequentialAlgorithmState
@@ -100,14 +101,15 @@ class SequentialParticleAlgorithm(BaseAlgorithm):
         """One observation's move (``y`` on the host), then the callbacks,
         which get the observation on the device: the one copy the filter
         move also reads."""
-        y = np.asarray(y, dtype=np.float32)
-        y_dev = torch.as_tensor(y, device=self.device)
-        with self._draws():
-            result = self._step(y, y_dev, state)
-        for cb in self._callbacks:
-            cb(self, y_dev, result)
-        result.bump_iteration()
-        return result
+        with span("seq.step"):
+            y = np.asarray(y, dtype=np.float32)
+            y_dev = torch.as_tensor(y, device=self.device)
+            with self._draws():
+                result = self._step(y, y_dev, state)
+            for cb in self._callbacks:
+                cb(self, y_dev, result)
+            result.bump_iteration()
+            return result
 
     def _step(self, y, y_dev, state):
         raise NotImplementedError
@@ -129,14 +131,16 @@ class SequentialParticleAlgorithm(BaseAlgorithm):
     def _read_trigger(self, state: SequentialAlgorithmState) -> tuple:
         """The last parameter ESS and whether a lane weight is not finite, in
         one host read (counted in ``n_host_syncs``)."""
-        w = self._lanes.gather(state.w)  # every lane's, on a lane mesh
-        ess, finite = torch.stack([state.ess[-1], torch.isfinite(w).all().to(w.dtype)]).tolist()
+        with span("seq.trigger"):
+            w = self._lanes.gather(state.w)  # every lane's, on a lane mesh
+            ess, finite = torch.stack([state.ess[-1], torch.isfinite(w).all().to(w.dtype)]).tolist()
         self.n_host_syncs += 1
         return ess, finite == 0.0
 
     def _do_rejuvenate(self, state):
         """Run the rejuvenation kernel and adopt what it returns."""
-        update = self._kernel.update(self.generator, self.context, self._filter, state)
+        with span("seq.rejuvenate"):
+            update = self._kernel.update(self.generator, self.context, self._filter, state)
         self.context.absorb(update.context)
         self._filter = update.filter_
         return update.state
@@ -150,7 +154,7 @@ class SequentialParticleAlgorithm(BaseAlgorithm):
         if isinstance(y, torch.Tensor):
             y = y.detach().cpu().numpy()
         y = np.asarray(y, dtype=np.float32)
-        with logging.initialize(self, y.shape[0]), self._draws():
+        with span("seq.fit"), logging.initialize(self, y.shape[0]), self._draws():
             state = self.initialize()
             for yt in y:
                 state = self.step(yt, state)

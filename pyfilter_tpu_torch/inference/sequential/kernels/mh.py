@@ -34,6 +34,7 @@ import torch
 from ....filters.state import ParticleFilterCorrection
 from ....parallel._shards import WHOLE_LANES, LaneShard, ShardedDraws
 from ....resampling import systematic, systematic_m
+from ....tracing import span
 from ...batch.mcmc.proposals import BaseProposal, SymmetricMH
 from ...batch.mcmc.utils import run_pmmh
 from ...state import RunningFilterResult, SMC2State
@@ -110,11 +111,12 @@ class ParticleMetropolisHastings:
 
         previous_distance = acceptance_rate = 0.0
         for i in range(self._n_steps):
-            step = run_pmmh(generator, context, state, self._proposal, dist, filter_, y, size=size)
+            with span("seq.pmmh"):
+                step = run_pmmh(generator, context, state, self._proposal, dist, filter_, y, size=size)
+                rate = float(lanes.gather(step.accepted).float().mean())  # the transition's host sync
             context = step.context
             state.filter_state = step.filter_state
             self.n_transitions += 1
-            rate = float(lanes.gather(step.accepted).float().mean())  # the transition's host sync
             self.n_host_syncs += 1
             acceptance_rate = (rate + i * acceptance_rate) / (i + 1)
             # abort early rather than spend transitions at a low acceptance
@@ -171,14 +173,15 @@ class ParticleMetropolisHastings:
                  else ShardedDraws(getattr(filter_, "_shard", None), lanes_m))
         with scope:
             for i in range(self._n_steps):
-                step = run_pmmh(generator, ctx_m, state_m, self._proposal, dist, filt_m, y, size=size)
+                with span("seq.pmmh"):
+                    step = run_pmmh(generator, ctx_m, state_m, self._proposal, dist, filt_m, y, size=size)
+                    rate = float(lanes_m.gather(step.accepted).float().mean())  # the transition's host sync
                 ctx_m = step.context
                 state_m.filter_state = step.filter_state
                 self.n_transitions += 1
                 thetas.append(ctx_m.stack_parameters(constrained=False))
                 latests.append(step.filter_state.latest_state)
                 lls.append(step.filter_state.log_likelihood)
-                rate = float(lanes_m.gather(step.accepted).float().mean())  # the transition's host sync
                 self.n_host_syncs += 1
                 acceptance_rate = (rate + i * acceptance_rate) / (i + 1)
                 if acceptance_rate < self._acceptance_threshold:
@@ -208,21 +211,22 @@ class ParticleMetropolisHastings:
     def _increase_states(self, generator, context, filter_, state: SMC2State) -> MHUpdate:
         """Double the state-particle count and re-filter the whole history;
         the lane weights restart from the log-likelihood gain."""
-        self._increases += 1
-        if self._increases > self._max_increases:
-            raise TooManyIncreases(f"Configuration only allows {self._max_increases}!")
-        self.n_doublings += 1
+        with span("seq.double"):
+            self._increases += 1
+            if self._increases > self._max_increases:
+                raise TooManyIncreases(f"Configuration only allows {self._max_increases}!")
+            self.n_doublings += 1
 
-        new_filter = filter_.initialize_model(context).increase_particles(2)
-        new_res = new_filter.batch_filter(generator, state.parsed_data_host)
-        weight = new_res.log_likelihood - state.filter_state.log_likelihood
+            new_filter = filter_.initialize_model(context).increase_particles(2)
+            new_res = new_filter.batch_filter(generator, state.parsed_data_host)
+            weight = new_res.log_likelihood - state.filter_state.log_likelihood
 
-        new_state = SMC2State(
-            weight,
-            RunningFilterResult.from_filter_result(new_res, record_moments=state.filter_state.record_moments),
-            parsed_data=state.parsed_data,
-            lanes=state.lanes,
-        )
-        new_state.ess = state.ess
-        new_state.current_iteration = state.current_iteration
-        return MHUpdate(context, new_filter, new_state)
+            new_state = SMC2State(
+                weight,
+                RunningFilterResult.from_filter_result(new_res, record_moments=state.filter_state.record_moments),
+                parsed_data=state.parsed_data,
+                lanes=state.lanes,
+            )
+            new_state.ess = state.ess
+            new_state.current_iteration = state.current_iteration
+            return MHUpdate(context, new_filter, new_state)
