@@ -9,6 +9,7 @@
     python3 chip_smoke.py --gradients # phases 1-3 and 13 only
     python3 chip_smoke.py --backward  # phases 1-3 and 13a only
     python3 chip_smoke.py --streaming # phases 1-3 and 14 only
+    python3 chip_smoke.py --ffbsi     # phases 1-3 and 8 only
     python3 chip_smoke.py --batch     # phases 1-3 and 15 only
     python3 chip_smoke.py --inference # phases 1-3 and 16 only
     python3 chip_smoke.py --gaussian  # phases 1-3 and 17 only (17b at the example's 400 samples)
@@ -70,10 +71,18 @@ Phases, in order; any failure exits non-zero before the result line:
    every t >= 1 against a float64 RTS smoother within ``4.5 sqrt(max var /
    M) + 0.02``, no NaN (the bound guard quiet), and the expand kernel
    launched once per resample fire (more than 0). Prints the wall per pass,
-   trajectory draws/s, host syncs and fallback passes per pass, and the peak
+   trajectory draws/s, host syncs, fallback passes and fallback-kernel
+   launches per pass (one each a step with a failed target), and the peak
    device memory. Then SISR over 8 lanes of 400 particles through the lane
-   kernel, smoothed by FFBSi over lanes against the same smoother. Each
-   kernel equals its plain version on each run's last cloud.
+   kernel, smoothed by FFBSi over lanes against the same smoother (the
+   streamed fallback, no fallback-kernel launch). Each kernel equals its
+   plain version on each run's last cloud. The exact-fallback kernel and its
+   plain version draw the exact law at N = 50 (chi-square against float64
+   probabilities, -inf log-weights, a heteroscedastic scale) and at the
+   smoothing cell's shape (15,000 failed targets, N = 1e5 with live particles
+   in every chunk of every slice of the kernel's grid), and the kernel is
+   timed at the smoothing cell's shape (15,000 failed targets against the
+   N = 1e5 run's last cloud) beside its plain version and its bound.
 
 9. Online parameter inference on the Lorenz-63 model (``examples/
    lorenz_ness.py`` at full size, the reference's ``lorenz.ipynb``): the
@@ -441,6 +450,24 @@ FFBSI_SIZES = ((100_000, None), (1_000_000, 4096))
 # one timed pass a size: a pass is device-bound and repeats within 0.5% (7.61-7.65 s at N = 1e5)
 FFBSI_TIMED = 1
 LANES_N, LANES_K = 400, 8
+# phase 8's exact-fallback kernel (ops/backward.py): timed at the smoothing
+# cell's shape, FALLBACK_FAIL failed targets of a backward step against
+# FALLBACK_N particles, and held to two lg2 a pair on the special-function
+# unit (16 a clock on each of 132 SMs at 1.98 GHz, the H100 SXM's boost); its
+# law at FALLBACK_LAW_N particles (every tenth at -inf log-weight, a
+# heteroscedastic scale), each of FALLBACK_LAW_TARGETS in FALLBACK_LAW_COPIES
+# slots a call, by Pearson's chi-square (p-value floor FALLBACK_LAW_P a target);
+# and its law at the cell's shape, FALLBACK_FAIL slots (the targets in turn)
+# against FALLBACK_N particles, all at -inf log-weight but those at the offsets
+# FALLBACK_SHAPE_OFFSETS of every staged chunk (FALLBACK_CHUNK particles, the
+# kernel's) of every particle slice of the kernel's grid, so that every slice
+# and chunk holds some and a noise counter that repeated across chunks or
+# slices would give some the same Gumbel; FALLBACK_SHAPE_CALLS calls
+FALLBACK_FAIL, FALLBACK_N = 15_000, 100_000
+SFU_LG2_PER_S = 132 * 16 * 1.98e9
+FALLBACK_LAW_N, FALLBACK_LAW_TARGETS, FALLBACK_LAW_COPIES = 50, (-1.2, 0.1, 0.45, 2.5), 2000
+FALLBACK_LAW_P = 1e-4
+FALLBACK_CHUNK, FALLBACK_SHAPE_OFFSETS, FALLBACK_SHAPE_CALLS = 1024, (1, 6), 6
 # phase 9: examples/lorenz_ness.py's full size (the reference's lorenz.ipynb):
 # SISR 400 x K = 1000 parameter lanes, 10 sub-steps, T = 300 observations
 LORENZ_N, LORENZ_K, LORENZ_T, LORENZ_OES = 400, 1000, 300, 10
@@ -965,7 +992,7 @@ def main(argv) -> int:
     refs, cpu = None, None
     if argv[:1] not in (["--backward-ab"], ["--oracle"], ["--backward"], ["--gradients"], ["--streaming"],
                         ["--batch"], ["--inference"], ["--gaussian"], ["--qmc"], ["--parallel"], ["--spmd"],
-                        ["--hessian-ab"]):
+                        ["--hessian-ab"], ["--ffbsi"]):
         # the CPU references of phases 4, 6 and 9 run in worker processes while the card runs
         refs = ProcessPoolExecutor(CPU_REF_WORKERS, mp_context=multiprocessing.get_context("spawn"))
     try:
@@ -1034,6 +1061,9 @@ def card_phases(torch, pt, _build, expand, copy_counts, argv, cpu) -> int:
         return 0
     if argv[:1] == ["--hessian-ab"]:
         hessian_ab(torch, pt, card)
+        return 0
+    if argv[:1] == ["--ffbsi"]:
+        print(json.dumps({"kernels": [ffbsi(torch, pt, expand, card, profile="--profile" in argv)[-1]]}))
         return 0
     return full_run(torch, pt, expand, copy_counts, card, max_err, lanes_err, argv, cpu)
 
@@ -1142,8 +1172,8 @@ def full_run(torch, pt, expand, copy_counts, card, max_err, lanes_err, argv, cpu
     flag_launches, flag_err = flagship(torch, pt, expand, card, profile="--profile" in argv)
 
     # -- 8. rejection FFBSi at N = 1e5 and 1e6, SISR over lanes --------------------
-    ffbsi_launches, lane_launches, ffbsi_err, lane_run_err = ffbsi(torch, pt, expand, card,
-                                                                   profile="--profile" in argv)
+    ffbsi_launches, lane_launches, ffbsi_err, lane_run_err, fallback_line = ffbsi(torch, pt, expand, card,
+                                                                                  profile="--profile" in argv)
 
     # -- 9. NESS on the Lorenz-63 model, and the hybrids ------------------------
     ness_launches, hybrid_launches, ness_err = lorenz_ness(torch, pt, expand, card, cpu["phase 9"],
@@ -1221,7 +1251,7 @@ def full_run(torch, pt, expand, copy_counts, card, max_err, lanes_err, argv, cpu
         "bound_ms": lanes["bound_ms"],
         "bound_by": "bytes",
         "library_ms": lanes["library_ms"],
-    }] + backward_kernel_lines(grads)
+    }, fallback_line] + backward_kernel_lines(grads)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
@@ -1556,6 +1586,159 @@ def flagship(torch, pt, expand, card, profile: bool = False) -> tuple:
     return launches, err
 
 
+def fallback_tables(x, lw):
+    """Float32 tables ``(3, N)`` of the states ``x`` with log-weights ``lw``
+    (numpy): the transition ``Normal(0.2 + 0.7 x, 0.3 + 0.5 |x|)``."""
+    import numpy as np
+
+    sd = 0.3 + 0.5 * np.abs(x)
+    return np.stack([0.2 + 0.7 * x, 1.0 / sd, lw - np.log(sd)]).astype(np.float32)
+
+
+def fallback_case(torch, device, tables, group):
+    """A law case from float32 ``tables`` ``(3, N)`` and each slot's target
+    index ``group`` (into ``FALLBACK_LAW_TARGETS``), both numpy: the tables,
+    the slots' targets and ``group`` on ``device``, and each target's exact
+    float64 probabilities ``(targets, N)``."""
+    import numpy as np
+
+    t64, ys = tables.astype(np.float64), np.asarray(FALLBACK_LAW_TARGETS, np.float32)
+    logits = t64[2] - 0.5 * np.square(t64[1] * (ys.astype(np.float64)[:, None] - t64[0]))
+    probs = np.exp(logits - logits.max(axis=1, keepdims=True))
+    probs /= probs.sum(axis=1, keepdims=True)
+    return (torch.from_numpy(tables).to(device), torch.from_numpy(ys[group]).to(device),
+            torch.from_numpy(group).to(device), probs)
+
+
+def fallback_law_case(torch, device):
+    """The exact fallback's law case at ``FALLBACK_LAW_N`` particles (every
+    tenth at -inf log-weight), each of ``FALLBACK_LAW_TARGETS`` in
+    ``FALLBACK_LAW_COPIES`` slots: see :func:`fallback_case`."""
+    import numpy as np
+
+    rng = np.random.default_rng(21)
+    x, lw = rng.normal(size=FALLBACK_LAW_N), rng.normal(size=FALLBACK_LAW_N)
+    lw[::10] = -np.inf
+    group = np.repeat(np.arange(len(FALLBACK_LAW_TARGETS)), FALLBACK_LAW_COPIES)
+    return fallback_case(torch, device, fallback_tables(x, lw), group)
+
+
+def fallback_shape_case(torch, device, length: int):
+    """The exact fallback's law case at the smoothing cell's shape:
+    ``FALLBACK_N`` particles cut in slices of ``length`` (the kernel's grid),
+    live only at ``FALLBACK_SHAPE_OFFSETS`` in every ``FALLBACK_CHUNK`` of
+    every slice, the rest at -inf log-weight; ``FALLBACK_FAIL`` slots over
+    ``FALLBACK_LAW_TARGETS`` in turn. See :func:`fallback_case`."""
+    import numpy as np
+
+    live = [base + o for lo in range(0, FALLBACK_N, length)
+            for base in range(lo, min(lo + length, FALLBACK_N), FALLBACK_CHUNK)
+            for o in FALLBACK_SHAPE_OFFSETS if base + o < min(lo + length, FALLBACK_N)]
+    rng = np.random.default_rng(22)
+    x, lw = np.zeros(FALLBACK_N), np.full(FALLBACK_N, -np.inf)
+    x[live], lw[live] = rng.normal(size=len(live)), rng.normal(size=len(live))
+    group = np.arange(FALLBACK_FAIL) % len(FALLBACK_LAW_TARGETS)
+    return fallback_case(torch, device, fallback_tables(x, lw), group)
+
+
+def fallback_law_counts(torch, draw, case, generator, calls: int):
+    """``draw`` (``ffbsi_fallback`` or its plain version) over every slot of
+    the law ``case``, ``calls`` times: the draws of each particle for each
+    target, ``(targets, N)`` int64 numpy."""
+    tables, targets, group, probs = case
+    j, n = targets.shape[0], tables.shape[1]
+    order = torch.arange(j + 1, device=targets.device)
+    counts = torch.zeros(probs.shape[0] * n, dtype=torch.int64, device=targets.device)
+    for _ in range(calls):
+        idx = draw(generator, tables, targets, order, j, torch.full((j,), -1, dtype=torch.int64,
+                                                                    device=targets.device))
+        if not bool(((idx >= 0) & (idx < n)).all()):
+            raise AssertionError("a fallback draw lies outside [0, N)")
+        counts += torch.bincount(group * n + idx, minlength=counts.shape[0])
+    return counts.reshape(-1, n).cpu().numpy()
+
+
+def fallback_law_pvalues(counts, probs) -> list:
+    """Pearson's chi-square p-value of each target's draw counts against its
+    exact probabilities, the cells of nonzero probability expected below 5
+    draws pooled into one.
+    Raises when a particle of probability 0 was drawn."""
+    import numpy as np
+    from scipy import stats
+
+    out = []
+    for row, p in zip(counts, probs):
+        if row[p == 0].any():
+            raise AssertionError(f"{int(row[p == 0].sum())} draws of particles with probability 0")
+        exp = row.sum() * p
+        big, small = exp >= 5, (exp < 5) & (p > 0)
+        obs_c, exp_c = list(row[big]), list(exp[big])
+        if small.any():
+            obs_c.append(row[small].sum())
+            exp_c.append(exp[small].sum())
+        obs_c, exp_c = np.asarray(obs_c, np.float64), np.asarray(exp_c)
+        out.append(float(stats.chi2.sf(np.sum(np.square(obs_c - exp_c) / exp_c), len(exp_c) - 1)))
+    return out
+
+
+def fallback_slice_length(n: int, n_fail: int) -> int:
+    """Particles a slice of the fallback kernel's grid at ``(n, n_fail)`` on
+    the current card."""
+    from pyfilter_tpu_torch.ops.expand import _query
+
+    return _query("ffbsi_fallback", "pf_ffbsi_fallback_slice_length", n, n_fail)
+
+
+def check_fallback(torch, card, cloud_tables) -> dict:
+    """Phase 8's exact-fallback kernel: its law and its plain version's on the
+    card against the exact probabilities (chi-square), then the kernel timed
+    at the smoothing cell's shape (``FALLBACK_FAIL`` targets drawn from
+    ``cloud_tables``, ``(c, a, b)`` of ``transition_tables`` at a cloud)
+    against its plain version and its bound. Returns the kernel's line."""
+    from pyfilter_tpu_torch.ops.backward import _fallback_plain, ffbsi_fallback
+
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    case = fallback_law_case(torch, "cuda")
+    kernel_p = fallback_law_pvalues(fallback_law_counts(torch, ffbsi_fallback, case, gen, 8), case[3])
+    plain_p = fallback_law_pvalues(fallback_law_counts(torch, _fallback_plain, case, gen, 8), case[3])
+    print(f"  fallback kernel's law at N={FALLBACK_LAW_N} ({len(FALLBACK_LAW_TARGETS)} targets, "
+          f"{8 * FALLBACK_LAW_COPIES} draws each): chi-square p-values {kernel_p}; plain version's {plain_p} "
+          f"(floor {FALLBACK_LAW_P})")
+    if not all(v >= FALLBACK_LAW_P for v in kernel_p + plain_p):
+        raise AssertionError(f"fallback law off the exact probabilities: {kernel_p}, {plain_p}")
+    length = fallback_slice_length(FALLBACK_N, FALLBACK_FAIL)
+    case = fallback_shape_case(torch, "cuda", length)
+    live = int((case[0][2] > -torch.inf).sum())
+    kernel_p = fallback_law_pvalues(fallback_law_counts(torch, ffbsi_fallback, case, gen, FALLBACK_SHAPE_CALLS),
+                                    case[3])
+    plain_p = fallback_law_pvalues(fallback_law_counts(torch, _fallback_plain, case, gen, FALLBACK_SHAPE_CALLS),
+                                   case[3])
+    print(f"  fallback kernel's law at the smoothing cell's shape (n_fail={FALLBACK_FAIL}, N={FALLBACK_N}, "
+          f"{-(-FALLBACK_N // length)} slices of {length}, {live} live particles at offsets "
+          f"{FALLBACK_SHAPE_OFFSETS} of every chunk of {FALLBACK_CHUNK}; "
+          f"{FALLBACK_SHAPE_CALLS * FALLBACK_FAIL // len(FALLBACK_LAW_TARGETS)} draws a target): chi-square "
+          f"p-values {kernel_p}; plain version's {plain_p} (floor {FALLBACK_LAW_P})")
+    if not all(v >= FALLBACK_LAW_P for v in kernel_p + plain_p):
+        raise AssertionError(f"fallback law off the exact probabilities at the cell's shape: {kernel_p}, {plain_p}")
+
+    tables = cloud_tables
+    n = tables.shape[1]
+    pick = torch.randperm(n, generator=gen, device="cuda")[:FALLBACK_FAIL].sort().values
+    targets = torch.zeros(n, device="cuda")
+    targets[pick] = tables[0, pick] + torch.randn(FALLBACK_FAIL, generator=gen, device="cuda") / tables[1, pick]
+    order = torch.cat([pick, torch.full((1,), n, dtype=torch.int64, device="cuda")])
+    idx = torch.zeros(n, dtype=torch.int64, device="cuda")
+    k_ms = time_cold(torch, lambda: ffbsi_fallback(gen, tables, targets, order, FALLBACK_FAIL, idx))
+    p_ms = time_cold(torch, lambda: _fallback_plain(gen, tables, targets, order, FALLBACK_FAIL, idx))
+    bound_ms = 2 * FALLBACK_FAIL * n / SFU_LG2_PER_S * 1e3
+    print(f"  fallback kernel at the smoothing cell's shape (n_fail={FALLBACK_FAIL}, N={n}, L2 flushed, median of "
+          f"20): {k_ms} ms, plain {p_ms} ms, bound {bound_ms} ms (two lg2 a pair on the special-function unit), "
+          f"{bound_ms / k_ms:.4f} of the bound; card {card}")
+    return {"name": "ffbsi_fallback", "route": "cuda", "source": "pyfilter_tpu_torch/ops/csrc/ffbsi_fallback.cu",
+            "replaces": "none (pyfilter_tpu/filters/particle/smoothing.py:359, a lax.while_loop)",
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": "special-function unit (lg2)"}
+
+
 def rts_ar(y, alpha: float, beta: float, sigma: float, obs_s: float):
     """Float64 Kalman filter and RTS smoother of ``x' = alpha + beta x +
     sigma e``, ``x_0 ~ N(alpha, sigma^2)``, observed as ``y = x + obs_s v``:
@@ -1583,10 +1766,12 @@ def ffbsi(torch, pt, expand, card, profile: bool = False):
     then SISR over lanes with FFBSi over the lanes; with ``profile``, one
     more pass at each size under the profiler. Returns the expand kernel's
     and the lane kernel's launches over the filter runs, then each kernel's
-    largest difference from its plain version on the runs' last clouds."""
+    largest difference from its plain version on the runs' last clouds, and
+    the exact-fallback kernel's line (its launches by size, its times)."""
     import numpy as np
 
-    from pyfilter_tpu_torch.filters.particle.smoothing import ffbsi_smooth, transition_log_sup
+    from pyfilter_tpu_torch.filters.particle.smoothing import ffbsi_smooth, transition_log_sup, transition_tables
+    from pyfilter_tpu_torch.ops.backward import ffbsi_fallback
 
     def ar_model(device=None):
         hidden = pt.timeseries.models.AR(AR_ALPHA, AR_BETA, AR_SIGMA, device=device)
@@ -1612,7 +1797,7 @@ def ffbsi(torch, pt, expand, card, profile: bool = False):
             raise AssertionError(f"{label}: smoothed means off the RTS smoother by {worst} (> {tol})")
 
     expand.fused_expand.launches = expand.fused_expand_lanes.launches = 0
-    k1_launches, k1_err = 0, 0.0
+    k1_launches, k1_err, fallback_line, fallback_paths = 0, 0.0, None, {}
     for n, m in FFBSI_SIZES:
         filt = pt.SISR(model, n, record_states=True, record_moments=False)
         torch.cuda.reset_peak_memory_stats()
@@ -1629,6 +1814,10 @@ def ffbsi(torch, pt, expand, card, profile: bool = False):
         last = res.latest_state
         k1_err = max(k1_err, check_on_cloud(torch, expand, pt.normalize(last.log_weights),
                                             last.x.value.reshape(1, -1), f"phase 8's SISR cloud (n={n})"))
+        if n == FALLBACK_N:
+            lw = last.log_weights
+            fallback_line = check_fallback(torch, card, transition_tables(
+                model.hidden, last.x.value, lw - lw.max(), float(last.x.time_index)))
         hist_bytes = sum(h.numel() * h.element_size() for h in res.states[1:])
 
         def smooth(seed, history=res.states):
@@ -1636,9 +1825,10 @@ def ffbsi(torch, pt, expand, card, profile: bool = False):
                                 n_trajectories=m)
 
         smooth(1, type(res.states)(*(leaf[-3:] for leaf in res.states)))  # warm-up on the last 3 steps
-        walls, syncs, passes = [], [], []
+        walls, syncs, passes, launches = [], [], [], []
         for rep in range(FFBSI_TIMED):
             ffbsi_smooth.host_syncs = ffbsi_smooth.fallback_passes = 0
+            before = ffbsi_fallback.launches
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             traj = smooth(2 + rep)
@@ -1646,14 +1836,17 @@ def ffbsi(torch, pt, expand, card, profile: bool = False):
             walls.append(time.perf_counter() - t0)
             syncs.append(ffbsi_smooth.host_syncs)
             passes.append(ffbsi_smooth.fallback_passes)
+            launches.append(ffbsi_fallback.launches - before)
+        if launches != passes:
+            raise AssertionError(f"N={n}: {launches} fallback kernel launches for {passes} fallback passes")
+        fallback_paths[f"phase 8 N={n}"] = sum(launches)
         peak = torch.cuda.max_memory_allocated()
         n_traj = traj.shape[1]
-        k_sub = min(n_traj, max(128, n_traj // 512))
         print(f"phase 8: SISR(N={n}, record_states) on the AR model, T={FFBSI_T}: {filter_wall:.4f} s, "
               f"{fires} resample fires = expand launches; history {hist_bytes / 1e9:.4f} GB; card {card}")
         print(f"  FFBSi M={n_traj}: wall per pass {walls} s (best {min(walls)}); trajectory draws/s "
               f"{(FFBSI_T + 1) * n_traj / min(walls):.6g}; host syncs per pass {syncs}; fallback passes per "
-              f"pass {passes} (k_sub {k_sub}, block {max(64, min(n, (1 << 25) // k_sub))}); peak device memory "
+              f"pass {passes}, fallback kernel launches {launches}; peak device memory "
               f"{peak / 2**30:.4f} GiB; card {card}")
         check_means(traj, n_traj, f"N={n}, M={n_traj}")
         if profile:
@@ -1673,13 +1866,18 @@ def ffbsi(torch, pt, expand, card, profile: bool = False):
     lane_err = check_on_cloud(torch, expand, pt.normalize(last.log_weights), last.x.value.unsqueeze(0),
                               f"phase 8's SISR lane cloud (n={LANES_N}, L={LANES_K})")
     ffbsi_smooth.host_syncs = ffbsi_smooth.fallback_passes = 0
+    before = ffbsi_fallback.launches
     traj = ffbsi_smooth(gen(8), model, res.states, lanes.resampler, log_density_sup=log_sup)
     torch.cuda.synchronize()
     print(f"  SISR over lanes (N={LANES_N} x {LANES_K}): lane kernel launches {lane_launches}; FFBSi over the "
           f"lanes {tuple(traj.shape)}: host syncs {ffbsi_smooth.host_syncs}, fallback passes "
-          f"{ffbsi_smooth.fallback_passes}")
+          f"{ffbsi_smooth.fallback_passes} (the streamed chain: fallback kernel launches "
+          f"{ffbsi_fallback.launches - before})")
+    if ffbsi_fallback.launches != before:
+        raise AssertionError("FFBSi over lanes launched the fallback kernel")
     check_means(traj, LANES_N * LANES_K, f"lanes N={LANES_N} x {LANES_K}")
-    return k1_launches, lane_launches, k1_err, lane_err
+    fallback_line.update(launches=sum(fallback_paths.values()), launches_by_path=fallback_paths)
+    return k1_launches, lane_launches, k1_err, lane_err, fallback_line
 
 
 def lorenz_data(torch, pt):

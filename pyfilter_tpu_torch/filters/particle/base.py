@@ -17,7 +17,7 @@ from ...ops import systematic_counts, systematic_expand, systematic_expand_lanes
 from ...resampling import systematic_m
 from ...timeseries import TimeseriesState
 from ...tracing import span
-from ...utils import batched_gather, get_ess, log_likelihood, normalize, normalize_log, same_device
+from ...utils import batched_gather, get_ess, gumbel, log_likelihood, normalize, normalize_log, same_device
 from ..base import BaseFilter
 from ..result import FilterHistory, FilterResult
 from ..state import ParticleFilterCorrection
@@ -27,13 +27,6 @@ from .proposals import Bootstrap, Proposal
 #: the fused kernels index a whole cloud (every rank's particles, every lane)
 #: of fewer entries than this exactly in float32
 FUSED_ENTRIES = 1 << 24
-
-
-def gumbel(generator, shape, like: torch.Tensor) -> torch.Tensor:
-    """Standard Gumbel noise ``-log(E)``, ``E ~ Exp(1)`` drawn by
-    ``exponential_`` (never 0, unlike a uniform whose ``-log(-log(U))`` can
-    be infinite), with ``like``'s dtype and device."""
-    return -torch.log(torch.empty(shape, dtype=like.dtype, device=like.device).exponential_(generator=generator))
 
 
 def categorical(generator, logits: torch.Tensor) -> torch.Tensor:

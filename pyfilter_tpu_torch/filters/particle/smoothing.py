@@ -6,11 +6,13 @@ accepts with probability ``(w_i / max w) · p(x_{t+1} | x_i) / sup p``: the
 accepted law is exactly the backward kernel's, ``∝ w_i p(x_{t+1} | x_i)``.
 All ``max_rounds`` rounds are drawn at once (one ``randint``, one gather, one
 density evaluation) and each target takes its first acceptance; targets with
-none are finished exactly by a Gumbel-max categorical streamed over particle
-blocks. The bound comes from :func:`transition_log_sup` (homoscedastic
-affine processes, probed on the host), :func:`transition_log_sup_traced`
-(the same bound from the current parameters on the device, unprobed) or the
-caller.
+none are finished exactly by a Gumbel-max categorical: for a scalar affine
+process with a Normal increment, all of a step's in one call of
+:func:`~pyfilter_tpu_torch.ops.backward.ffbsi_fallback` (a CUDA kernel on the
+card), otherwise streamed over particle blocks in passes. The bound comes
+from :func:`transition_log_sup` (homoscedastic affine processes, probed on
+the host), :func:`transition_log_sup_traced` (the same bound from the
+current parameters on the device, unprobed) or the caller.
 
 :func:`paris` smooths an additive functional online (Olsson & Westerborn
 2017): per-particle statistics ride the filter pass, each particle averaging
@@ -19,8 +21,8 @@ rejection kernel, with no recorded history.
 
 Where the JAX package decides on the device (``lax.cond`` on every target
 accepted, a ``while_loop`` over the failed slots), the port reads the number
-of failed slots once per backward draw, one host sync, and from it knows how
-many fallback passes to launch. A violated bound is accumulated on the device
+of failed slots once per backward draw, one host sync, and from it sizes the
+fallback: one kernel's grid, or the number of streamed passes. A violated bound is accumulated on the device
 and poisons the output with NaN without a read. ``ffbsi_smooth.host_syncs``
 and ``ffbsi_smooth.fallback_passes`` count both (for PaRIS's draws too) since
 they were last set to 0.
@@ -35,12 +37,13 @@ import torch
 from torch.utils._pytree import tree_map
 
 from ...distributions import Independent, MultivariateNormal, Normal
-from ...timeseries import TimeseriesState
+from ...ops.backward import ffbsi_fallback, streamed_argmax
+from ...timeseries import AffineProcess, TimeseriesState
 from ...timeseries.models import parameter
 from ...tracing import span
 from ...utils import batched_gather
 from ..result import FilterResult
-from .base import gumbel, trajectory_ends
+from .base import trajectory_ends
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -133,20 +136,40 @@ def transition_log_sup_traced(model) -> torch.Tensor:
 def _streaming_categorical(generator, model, vals_t, lw_t, time_index: float, targets, ev: int, block: int):
     """The exact backward kernel's draw for every target, Gumbel-max streamed
     over particle blocks: O(N·J) work, O(J · block) memory."""
-    n = vals_t.shape[0]
+
+    def score(start, stop):
+        density = model.hidden.build_density(TimeseriesState(time_index, vals_t[start:stop], ev))
+        return lw_t[start:stop].unsqueeze(0) + density.log_prob(targets.unsqueeze(1))  # (J, B, *batch)
+
     j_shape = tuple(targets.shape[: targets.dim() - ev])
-    best_val = torch.full(j_shape, -math.inf, dtype=lw_t.dtype, device=lw_t.device)
-    best_idx = torch.zeros(j_shape, dtype=torch.int64, device=lw_t.device)
-    for start in range(0, n, block):
-        sl_v, sl_lw = vals_t[start : start + block], lw_t[start : start + block]
-        density = model.hidden.build_density(TimeseriesState(time_index, sl_v, ev))
-        lp = density.log_prob(targets.unsqueeze(1))  # (J, B, *batch)
-        tot = sl_lw.unsqueeze(0) + lp + gumbel(generator, lp.shape, lp)
-        mv, mi = torch.max(tot, dim=1)
-        upd = mv > best_val
-        best_val = torch.where(upd, mv, best_val)
-        best_idx = torch.where(upd, mi + start, best_idx)
-    return best_idx
+    return streamed_argmax(generator, score, vals_t.shape[0], block, j_shape, lw_t)
+
+
+def _fallback_kernel_takes(hidden, vals_t, lw_t, targets) -> bool:
+    """Whether the exact fallback goes through :func:`ffbsi_fallback` (one
+    call a step): a scalar affine process whose density is its own
+    ``Normal`` increment pushed forward, and laneless float32 inputs. Every
+    other input streams :func:`_streaming_categorical` in passes."""
+    inc = getattr(hidden, "increment_distribution", None)
+    return (isinstance(hidden, AffineProcess) and type(hidden).build_density is AffineProcess.build_density
+            and isinstance(inc, Normal) and hidden.event_ndim == 0 and not inc.batch_shape
+            and vals_t.dim() == lw_t.dim() == targets.dim() == 1
+            and vals_t.dtype == lw_t.dtype == targets.dtype == torch.float32)
+
+
+def transition_tables(hidden, vals_t: torch.Tensor, lw_t: torch.Tensor, time_index: float) -> torch.Tensor:
+    """The tables ``(3, N)`` float32 (rows ``c``, ``a``, ``b``) that
+    :func:`ffbsi_fallback` draws against, for a process
+    :func:`_fallback_kernel_takes` takes (an affine ``hidden`` with a
+    ``Normal(mu0, s0)`` increment) at the scalar states ``vals_t`` ``(N,)``
+    with log-weights ``lw_t`` ``(N,)``: from one ``mean_scale`` call,
+    ``c = loc + scale mu0``, ``a = 1 / |scale s0|``, ``b = lw - log |scale s0|``."""
+    inc = hidden.increment_distribution
+    with torch.no_grad():
+        loc, scale = hidden.mean_scale(TimeseriesState(time_index, vals_t, 0))
+        sd = torch.abs(scale * inc.scale)
+        rows = (loc + scale * inc.loc, 1.0 / sd, lw_t - torch.log(sd))
+        return torch.stack([r.expand(vals_t.shape) for r in rows]).to(torch.float32).contiguous()
 
 
 def backward_indices(
@@ -213,13 +236,19 @@ def backward_indices(
             exact = _streaming_categorical(generator, model, vals_t, lw_t, time_index, targets, ev, block)
             return torch.where(failed, exact, idx), violated
 
-    # laneless: only the failed slots, in passes of k_sub; each failed slot
-    # goes to its rank among the failures (a cumsum), so the first n_fail
-    # entries of `order` are the failed slots, with no second read
-    k_sub = min(j, max(128, j // 512))
-    block_eff = max(int(block), min(n, (1 << 25) // max(k_sub, 1)))
+    # laneless: only the failed slots; each failed slot goes to its rank
+    # among the failures (a cumsum), so the first n_fail entries of `order`
+    # are the failed slots, with no second read
     rank = torch.where(failed, torch.cumsum(failed, dim=0) - 1, j)
     order = torch.full((j + 1,), j, dtype=torch.int64, device=dev).scatter_(0, rank, torch.arange(j, device=dev))
+    if _fallback_kernel_takes(model.hidden, vals_t, lw_t, targets):
+        ffbsi_smooth.fallback_passes += 1
+        with span("ffbsi.fallback"):
+            tables = transition_tables(model.hidden, vals_t, lw_shift, time_index)
+            return ffbsi_fallback(generator, tables, targets.contiguous(), order, n_fail, idx), violated
+    # any other process: passes of k_sub failed slots each
+    k_sub = min(j, max(128, j // 512))
+    block_eff = max(int(block), min(n, (1 << 25) // max(k_sub, 1)))
     for start in range(0, n_fail, k_sub):
         ffbsi_smooth.fallback_passes += 1
         with span("ffbsi.fallback"):

@@ -1,6 +1,7 @@
 """The resampling ops of the SMC hot path, the hand-written CUDA kernels
 that carry the fused resample + gather on the card (single lane and lane
-batches), and the Hilbert-curve sort of SQMC."""
+batches), the Hilbert-curve sort of SQMC, and FFBSi's exact fallback
+(:mod:`.backward`, a hand-written CUDA kernel too)."""
 
 from .expand import (
     fused_expand,

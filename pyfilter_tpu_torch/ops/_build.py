@@ -40,7 +40,7 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
-SOURCES = ("expand", "expand_lanes")
+SOURCES = ("expand", "expand_lanes", "ffbsi_fallback")
 
 
 def _start(name: str, ptxas_info: bool):

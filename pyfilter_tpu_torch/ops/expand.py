@@ -99,7 +99,7 @@ def _check_cuda(*tensors: torch.Tensor) -> bool:
     if devices == {torch.device("cpu")}:
         return True
     if len(devices) != 1 or tensors[0].device.type != "cuda":
-        raise ValueError(f"probabilities, uniforms and values must lie on one CUDA device, got {devices}")
+        raise ValueError(f"a kernel's inputs must all lie on the CPU or on one CUDA device, got {devices}")
     return False
 
 

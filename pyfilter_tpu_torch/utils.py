@@ -9,9 +9,11 @@ uniform 1/N.
 
 Also the port's device rule (:func:`resolve_device`): entry points run on
 the card unless the caller asks for the CPU, and the CUDA-graph capture the
-host-bound loops replay (:func:`cuda_graph`), and :func:`draws_of`, with which
+host-bound loops replay (:func:`cuda_graph`), :func:`draws_of`, with which
 the code that makes a random draw declares which of its axes a sharded run
-splits over its ranks.
+splits over its ranks, and the Gumbel noise of every Gumbel-max draw
+(:func:`gumbel`; ``filters.particle.base`` imports it, and its ``gumbel`` is
+the name a replay patches).
 """
 
 from __future__ import annotations
@@ -183,6 +185,13 @@ def construct_diag_from_flat(x: torch.Tensor, event_ndim: int = 1) -> torch.Tens
             return x[..., None]
         return x[..., None] * torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
     raise ValueError("event rank must be <= 1")
+
+
+def gumbel(generator, shape, like: torch.Tensor) -> torch.Tensor:
+    """Standard Gumbel noise ``-log(E)``, ``E ~ Exp(1)`` drawn by
+    ``exponential_`` (never 0, unlike a uniform whose ``-log(-log(U))`` can
+    be infinite), with ``like``'s dtype and device."""
+    return -torch.log(torch.empty(shape, dtype=like.dtype, device=like.device).exponential_(generator=generator))
 
 
 def batched_gather(x: torch.Tensor, indices: torch.Tensor, event_ndim: int = 0) -> torch.Tensor:

@@ -14,7 +14,7 @@ import torch
 
 import chip_smoke
 import pyfilter_tpu_torch as pt
-from pyfilter_tpu_torch.ops import expand
+from pyfilter_tpu_torch.ops import backward, expand
 
 torch.set_num_threads(1)
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -196,10 +196,119 @@ def test_smoothers_on_card_against_oracle(cuda, method):
     y, sm_mean, sm_var = _ar_data_and_oracle()
     filt = pt.SISR(_ar_model(), 2000, record_states=True)
     res = filt.batch_filter(torch.Generator(device=cuda).manual_seed(1), y)
+    passes, launches = pt.filters.particle.ffbsi_smooth.fallback_passes, backward.ffbsi_fallback.launches
     traj = filt.smooth(torch.Generator(device=cuda).manual_seed(2), res, method=method)
     assert traj.shape == (61, 2000) and traj.device.type == "cuda"
+    # the AR model's exact fallback is the kernel, one launch a pass
+    assert (backward.ffbsi_fallback.launches - launches
+            == pt.filters.particle.ffbsi_smooth.fallback_passes - passes)
     means = traj.double().mean(dim=1).cpu().numpy()[1:]
     np.testing.assert_allclose(means, sm_mean, atol=4.5 * np.sqrt(sm_var / 2000).max() + 0.02)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["kernel", "plain"])
+@pytest.mark.parametrize("shape", ["n50", "cell"])
+def test_ffbsi_fallback_law_on_card(cuda, route, shape):
+    """The exact fallback's draws (the kernel, and its plain version on CUDA
+    tensors) against the exact categorical in float64, Pearson's chi-square
+    at p >= 1e-4 a target, no particle of probability 0 ever drawn: N = 50
+    with -inf log-weights and a heteroscedastic scale, 16,000 draws a target
+    over 8 calls; and the smoothing cell's shape (15,000 failed slots, N =
+    1e5), live particles at the same offsets of every staged chunk of every
+    slice of the kernel's grid and the rest at -inf, 22,500 draws a target
+    over 6 calls: the reduce over slices and the noise counter across chunks
+    and slices under the test."""
+    draw = backward.ffbsi_fallback if route == "kernel" else backward._fallback_plain
+    if shape == "n50":
+        case, calls = chip_smoke.fallback_law_case(torch, cuda), 8
+    else:
+        length = chip_smoke.fallback_slice_length(chip_smoke.FALLBACK_N, chip_smoke.FALLBACK_FAIL)
+        assert 1 < -(-chip_smoke.FALLBACK_N // length) and length > chip_smoke.FALLBACK_CHUNK  # slices and chunks
+        case, calls = chip_smoke.fallback_shape_case(torch, cuda, length), chip_smoke.FALLBACK_SHAPE_CALLS
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    launches = backward.ffbsi_fallback.launches
+    counts = chip_smoke.fallback_law_counts(torch, draw, case, gen, calls)
+    assert backward.ffbsi_fallback.launches - launches == (calls if route == "kernel" else 0)
+    assert min(chip_smoke.fallback_law_pvalues(counts, case[3])) >= chip_smoke.FALLBACK_LAW_P
+
+
+def _dominant_case(n, j, n_fail, hot, dev):
+    """Tables where particle ``hot`` always wins (``b`` 0 and its loc on
+    every target, against ``b`` -30 elsewhere: a Gumbel of 24-bit uniforms
+    lies in [-2.9, 16.7]), a random order of the slots and idx preset to -7."""
+    g = torch.Generator(device=dev).manual_seed(n + j)
+    c = torch.randn(n, generator=g, device=dev)
+    a = torch.rand(n, generator=g, device=dev) + 0.5
+    b = torch.full((n,), -30.0, device=dev)
+    b[hot] = 0.0
+    targets = torch.full((j,), float(c[hot]), device=dev)
+    order = torch.cat([torch.randperm(j, generator=g, device=dev), torch.full((1,), j, device=dev)])
+    return torch.stack([c, a, b]).contiguous(), targets, order, torch.full((j,), -7, dtype=torch.int64, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 1023, 1025, 4099, 100_003])
+@pytest.mark.parametrize("n_fail", ["one", "all"])
+def test_ffbsi_fallback_kernel_ragged_sizes(cuda, n, n_fail):
+    """A dominant particle is drawn for every failed slot, at the first, a
+    middle and the last particle (the ragged tail of the last group of
+    four), for N past every tile, chunk and slice edge and for one or every
+    target failed; the slots outside ``order[:n_fail]`` keep their value."""
+    j = 3000
+    k = 1 if n_fail == "one" else j
+    for hot in sorted({0, n // 2, n - 1}):
+        tables, targets, order, idx = _dominant_case(n, j, k, hot, cuda)
+        out = backward.ffbsi_fallback(torch.Generator(device=cuda).manual_seed(hot), tables, targets, order, k, idx)
+        torch.cuda.synchronize()
+        assert out is idx
+        hit = torch.zeros(j, dtype=torch.bool, device=cuda)
+        hit[order[:k]] = True
+        assert bool((idx[hit] == hot).all()) and bool((idx[~hit] == -7).all())
+
+
+@pytest.mark.cuda
+def test_ffbsi_fallback_kernel_seeded(cuda):
+    """The same generator seed gives the same indices; another seed others."""
+    tables, targets = chip_smoke.fallback_law_case(torch, cuda)[:2]
+    j = targets.shape[0]
+    order = torch.arange(j + 1, device=cuda)
+
+    def draw(seed):
+        idx = torch.zeros(j, dtype=torch.int64, device=cuda)
+        return backward.ffbsi_fallback(torch.Generator(device=cuda).manual_seed(seed), tables, targets, order, j, idx)
+
+    assert torch.equal(draw(5), draw(5))
+    assert not torch.equal(draw(5), draw(6))
+
+
+@pytest.mark.cuda
+def test_ffbsi_fallback_kernel_refuses_and_counts(cuda):
+    """The wrapper raises on what the kernel does not take (float64 tables or
+    targets, non-contiguous tables or targets, int32 indices, a short order,
+    mixed devices), and counts one launch a call with a failed target, none
+    for ``n_fail = 0``."""
+    tables, targets, order, idx = _dominant_case(257, 64, 64, 3, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    bad = [
+        (tables.double(), targets, order, idx),
+        (tables, targets.double(), order, idx),
+        (tables.t().contiguous().t(), targets, order, idx),
+        (tables, torch.stack([targets, targets], 1)[:, 0], order, idx),
+        (tables, targets, order, idx.int()),
+        (tables, targets, order[:10], idx),
+        (tables.cpu(), targets, order, idx),
+    ]
+    launches = backward.ffbsi_fallback.launches
+    for args in bad:
+        with pytest.raises(ValueError):
+            backward.ffbsi_fallback(gen, *args[:3], 64, args[3])
+    assert backward.ffbsi_fallback.launches == launches
+    backward.ffbsi_fallback(gen, tables, targets, order, 0, idx)
+    assert backward.ffbsi_fallback.launches == launches and bool((idx == -7).all())
+    backward.ffbsi_fallback(gen, tables, targets, order, 64, idx)
+    torch.cuda.synchronize()
+    assert backward.ffbsi_fallback.launches == launches + 1 and bool((idx == 3).all())
 
 
 @pytest.mark.cuda

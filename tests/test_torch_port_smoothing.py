@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import pyfilter_tpu as pf
 import pyfilter_tpu_torch as pt
 from pyfilter_tpu import distributions as jdist
@@ -38,7 +39,9 @@ from pyfilter_tpu.timeseries import models as jmodels
 from pyfilter_tpu_torch import distributions as tdist
 from pyfilter_tpu_torch import timeseries as tts
 from pyfilter_tpu_torch.filters.particle import base as tbase
+from pyfilter_tpu_torch.filters.particle import smoothing as tsmoothing
 from pyfilter_tpu_torch.filters.particle import transition_log_sup as t_log_sup
+from pyfilter_tpu_torch.ops import backward
 
 from kalman import KalmanFilter as NumpyKalman
 
@@ -335,16 +338,121 @@ def test_ffbs_and_ffbsi_match_rts_oracle(data_and_oracle):
     np.testing.assert_allclose(rej.double().var(dim=1).numpy()[1:], sm_var, rtol=0.5, atol=0.01)
 
 
-def test_ffbsi_forced_fallback_is_exact(data_and_oracle):
-    """``max_rounds=0`` sends every draw through the streaming Gumbel-max
-    fallback, whose law must still be the oracle's."""
+@pytest.mark.parametrize("route", ["kernel", "streamed"])
+def test_ffbsi_forced_fallback_is_exact(data_and_oracle, monkeypatch, route):
+    """``max_rounds=0`` sends every draw through the exact Gumbel-max
+    fallback, whose law must still be the oracle's: on the fallback kernel's
+    route (the AR model's), one pass a step; on the streamed passes every
+    other process takes (forced here), ``ceil(1000 / 128)`` a step."""
     y, sm_mean, sm_var = data_and_oracle
+    if route == "streamed":
+        monkeypatch.setattr(tsmoothing, "_fallback_kernel_takes", lambda *a: False)
+        monkeypatch.setattr(tsmoothing, "ffbsi_fallback", None)
     filt = pt.SISR(t_ar(), 1000, record_states=True, device="cpu")
     res = filt.batch_filter(gen(4), y)
     tbase_passes = pt.filters.particle.ffbsi_smooth.fallback_passes
     sm = filt.smooth(gen(5), res, method="ffbsi", max_rounds=0, block=37)
-    assert pt.filters.particle.ffbsi_smooth.fallback_passes - tbase_passes == 40 * 8  # ceil(1000 / 128) a step
+    assert pt.filters.particle.ffbsi_smooth.fallback_passes - tbase_passes == (40 if route == "kernel" else 40 * 8)
     np.testing.assert_allclose(_means(sm)[1:], sm_mean, atol=4.5 * np.sqrt(sm_var / 1000).max() + 0.025)
+
+
+@pytest.mark.parametrize("slots", ["every", "permuted-half"])
+def test_ffbsi_fallback_plain_law(slots):
+    """The fallback's plain version (the wrapper on CPU tensors) draws the
+    exact categorical: N = 50 with -inf log-weights and a heteroscedastic
+    scale, 16,000 draws a target, Pearson's chi-square against float64
+    probabilities at p >= 1e-4 a target, no particle of probability 0 drawn;
+    with half the slots failed, in a permuted order, only those are written."""
+    case = chip_smoke.fallback_law_case(torch, "cpu")
+    tables, targets = case[:2]
+    gen_ = gen(23)
+    if slots == "every":
+        counts = chip_smoke.fallback_law_counts(torch, backward.ffbsi_fallback, case, gen_, 8)
+        assert min(chip_smoke.fallback_law_pvalues(counts, case[3])) >= chip_smoke.FALLBACK_LAW_P
+        return
+    j = targets.shape[0]
+    order = torch.cat([torch.randperm(j, generator=gen_), torch.tensor([j])])
+    idx = torch.full((j,), -7, dtype=torch.int64)
+    out = backward.ffbsi_fallback(gen_, tables, targets, order, j // 2, idx)
+    assert out is idx
+    hit = torch.zeros(j, dtype=torch.bool)
+    hit[order[: j // 2]] = True
+    assert bool((idx[~hit] == -7).all()) and bool(((idx[hit] >= 0) & (idx[hit] < tables.shape[1])).all())
+    assert not bool((idx[hit] % 10 == 0).any())  # every tenth particle has probability 0
+
+
+def _inc_shifted_process():
+    """A scalar affine process with a ``Normal(0.3, 1.7)`` increment and a
+    state-dependent scale."""
+    return tts.AffineProcess(lambda x, b: (b * x.value, 0.2 + 0.1 * torch.abs(x.value)), (torch.tensor(BETA),),
+                             tdist.Normal(torch.tensor(0.3), torch.tensor(1.7)),
+                             lambda b: tdist.Normal(torch.tensor(0.0), torch.tensor(1.0)))
+
+
+@pytest.mark.parametrize("process", ["ar", "random-walk", "verhulst", "shifted-increment"])
+def test_transition_tables_match_the_density(process):
+    """The kernel's tables ``(c, a, b)`` give ``log w + log p(y | x)`` up to
+    ``-log sqrt(2 pi)`` for every kind of process the kernel takes: the AR,
+    a random walk, an Euler-Maruyama SDE with a state-dependent scale, and an
+    increment with its own loc and scale."""
+    hidden = {
+        "ar": lambda: tts.models.AR(ALPHA, BETA, SIGMA, device="cpu"),
+        "random-walk": lambda: tts.models.RandomWalk(0.3, device="cpu"),
+        "verhulst": lambda: tts.models.Verhulst(0.1, 1.0, 0.05, dt=0.2, device="cpu"),
+        "shifted-increment": _inc_shifted_process,
+    }[process]()
+    g = gen(3)
+    vals = torch.rand(200, generator=g) * 2.0 + 0.1
+    lw = torch.randn(200, generator=g)
+    lw[::7] = -torch.inf
+    ys = torch.linspace(-1.0, 3.0, 9)
+    assert tsmoothing._fallback_kernel_takes(hidden, vals, lw, ys)
+    c, a, b = tsmoothing.transition_tables(hidden, vals, lw, 2.0)
+    got = b - 0.5 * torch.square(a * (ys[:, None] - c)) - 0.5 * np.log(2.0 * np.pi)
+    want = lw + hidden.build_density(tts.TimeseriesState(2.0, vals, 0)).log_prob(ys[:, None])
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_ffbsi_scalar_affine_takes_the_fallback_kernel(data_and_oracle, monkeypatch):
+    """The AR model's failed targets go through ``ffbsi_fallback`` once a
+    step with a failure (here its plain version), never through the streamed
+    passes, and its smoothed means still hit the oracle's."""
+    y, sm_mean, sm_var = data_and_oracle
+    calls = []
+    real = tsmoothing.ffbsi_fallback
+    monkeypatch.setattr(tsmoothing, "ffbsi_fallback", lambda *a: calls.append(a[4]) or real(*a))
+    monkeypatch.setattr(tsmoothing, "_streaming_categorical", None)
+    filt = pt.SISR(t_ar(), 1000, record_states=True, device="cpu")
+    res = filt.batch_filter(gen(12), y)
+    before = pt.filters.particle.ffbsi_smooth.fallback_passes
+    sm = filt.smooth(gen(13), res, method="ffbsi", max_rounds=1)
+    assert 0 < len(calls) == pt.filters.particle.ffbsi_smooth.fallback_passes - before <= 40
+    assert all(0 < k <= 1000 for k in calls)
+    np.testing.assert_allclose(_means(sm)[1:], sm_mean, atol=4.5 * np.sqrt(sm_var / 1000).max() + 0.025)
+
+
+@pytest.mark.parametrize("case", ["lanes", "linear-2d", "joint-2d", "float64"])
+def test_ffbsi_other_inputs_keep_the_streamed_passes(case, monkeypatch):
+    """Inputs outside the kernel's condition (lanes, a 2-D state, a joint
+    process, float64) take the streamed chain as before: with every slot
+    failed, one pass a step over lanes, ``ceil(J / k_sub)`` passes laneless
+    (k_sub 128 at J = 300); the fallback kernel's wrapper is never called."""
+    monkeypatch.setattr(tsmoothing, "ffbsi_fallback", None)
+    g = gen(31)
+    if case == "lanes":
+        model, vals, targets, passes = t_ar(), torch.randn(300, 3, generator=g), torch.randn(300, 3, generator=g), 1
+    elif case == "float64":
+        model, passes = t_ar(), 3
+        vals, targets = torch.randn(300, generator=g, dtype=torch.float64), torch.randn(300, generator=g,
+                                                                                         dtype=torch.float64)
+    else:
+        model = chip_smoke.oracle_model(pt, case.replace("linear", "rw").replace("-", ""), "cpu")
+        vals, targets, passes = torch.randn(300, 2, generator=g), torch.randn(300, 2, generator=g), 3
+    lw = torch.randn(vals.shape[: vals.dim() - model.hidden.event_ndim], generator=g, dtype=vals.dtype)
+    before = pt.filters.particle.ffbsi_smooth.fallback_passes
+    idx, violated = tsmoothing.backward_indices(g, model, vals, lw, 0.0, targets, 0.0, max_rounds=0)
+    assert pt.filters.particle.ffbsi_smooth.fallback_passes - before == passes
+    assert idx.shape == lw.shape and bool(((idx >= 0) & (idx < 300)).all()) and not bool(violated)
 
 
 def test_ffbsi_with_lanes(data_and_oracle):
